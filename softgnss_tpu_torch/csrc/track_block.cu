@@ -1,0 +1,389 @@
+// B1, the block tracker: r milliseconds of DLL/PLL tracking for all
+// channels in one launch, the loop state carried inside the kernel.
+//
+// Replaces: softgnss_tpu/track/megakernel.py::_kernel (fused=False,
+// launched by megakernel._mega_call) together with mega_track_segment and
+// mega_finalize.  It computes what softgnss_tpu/track/scan.py computes per
+// ms with the 'gather' correlator (_frame_ms + _correlate_gather +
+// _filters_and_outputs), over frames from build_frames.cu:
+//   step = rint(code_freq/fs * 2^40), blk = ceil((1023*2^40 - rem)/step),
+//   o = ptr - (fb0 + j*spc); for k in [0, blk): sample frames[j, c, o+k],
+//   carrier u32 NCO counts cp + w*k -> turns (mantissa trick) -> sin/cos
+//   polynomial, code Q40 phase rem + step*k -> E/P/L chips of the padded
+//   code, six sums of float32 products; then the float64 Costas PLL, FLL assist,
+//   normalised DLL, carrier-aided DLL and pdi_ms accumulate-and-hold, the
+//   state update (frozen for inactive channels) and typed per-ms outputs.
+// The TPU kernel's 16-bit digit arithmetic, f32 filters with polynomial
+// atan, row packing and lane tables are Mosaic workarounds: CUDA has
+// native int64 and float64, and a shared-memory gather is cheap here.
+//
+// What bounds it on the H100: the millisecond recurrence is sequential,
+// and one ms of one channel is only ~38k samples (~60 integer/float ops
+// each, int64 multiply included).  With one CTA per channel the kernel is
+// latency-bound: C = 8 CTAs use 8 of 132 SMs, and each ms ends in a CTA
+// reduction and a single-thread float64 filter step (atan, sqrt, divides).
+//
+// Design (simple and right first): one CTA of 512 threads per channel
+// loops over the block's ms; the 1025-entry code table lives in shared
+// memory; samples are thread-strided (coalesced byte loads); the six sums
+// accumulate in float64 and reduce by warp shuffles and a shared-memory
+// pass, then round once to float32;
+// thread 0 keeps the loop state in registers and runs the float64
+// filters.  Two barriers per ms.  Spreading one channel over a
+// thread-block cluster is later work (ROADMAP).
+//
+// Numerics: build with -fmad=false so every float operation rounds as the
+// plain PyTorch version's does (no contraction); the sine coefficients are
+// the float32 values of softgnss_tpu.signals.nco.sin_turns, as hex
+// literals.  The float64 accumulation makes each float32 sum independent
+// of the order it is taken in, so kernel and plain version agree to the
+// last bit except where a float64 sum lies within ~1e-16 of a float32
+// rounding boundary (scan._correlate_gather).
+
+#include <cstdint>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kPad = 1025;
+constexpr long long kCodeOne = 1LL << 40;
+constexpr double kTwoPi = 6.283185307179586;
+
+struct Params {
+  double fs;
+  double code_freq_basis;
+  double intermediate_freq;
+  double pll_a;      // tau2/tau1 (PLL)
+  double pll_b;      // pdi/tau1 (PLL)
+  double dll_a;      // tau2/tau1 (DLL)
+  double dll_b;      // pdi/tau1 (DLL)
+  double fll_gain;   // 4*Bn*pdi
+  double fll_div;    // 2*pi*pdi
+  double aid_ratio;  // code_freq_basis / l1_freq
+  long long code_len_q;
+  long long half_q;
+  int pdi_ms;
+  int fll_on;
+  int aided;
+  int spc;
+  int win;           // samples per frame (4 * words)
+  int r;
+  int n_ch;
+};
+
+__device__ __forceinline__ float sin_turns(float x) {
+  x = x - floorf(x + 0.5f);
+  x = (x > 0.25f) ? 0.5f - x : x;
+  x = (x < -0.25f) ? -0.5f - x : x;
+  const float t2 = x * x;
+  return x * (0x1.921fb6p+2f
+              + t2 * (-0x1.4abbcep+5f
+                      + t2 * (0x1.466bc6p+6f
+                              + t2 * (-0x1.32d2ccp+6f
+                                      + t2 * 0x1.507834p+5f))));
+}
+
+__device__ __forceinline__ int chip_index(long long q) {
+  const long long c = (q + (kCodeOne - 1)) >> 40;  // arithmetic shift: ceil
+  return static_cast<int>(c < 0 ? 0 : (c > 1024 ? 1024 : c));
+}
+
+__device__ __forceinline__ long long floor_div(long long a, long long b) {
+  long long q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
+  return q;
+}
+
+// State layouts (stride n_ch):
+//   si  int64 [4]: ptr, code_rem_q, ms, carr_phase (int32 value)
+//   sf  f64   [6]: carr_freq, code_freq, carr_nco, carr_err, code_nco, code_err
+//   sa  f32   [8]: acc_i_e, acc_i_p, acc_i_l, acc_q_e, acc_q_p, acc_q_l, fll_ip, fll_qp
+// Outputs, (r, n_ch) planes:
+//   abs_sample int64; of64 [7]: sample_frac, code_freq, carr_freq, dll_discr,
+//   dll_discr_filt, pll_discr, pll_discr_filt; of32 [6]: i_p, i_e, i_l, q_e, q_p, q_l
+__global__ void __launch_bounds__(kThreads)
+track_block_kernel(const int32_t* __restrict__ frames,
+                   const long long* __restrict__ fb0,
+                   const float* __restrict__ code_pads,
+                   const double* __restrict__ carr_basis,
+                   const uint8_t* __restrict__ active,
+                   const long long* __restrict__ si_in,
+                   const double* __restrict__ sf_in,
+                   const float* __restrict__ sa_in,
+                   long long* __restrict__ si_out,
+                   double* __restrict__ sf_out,
+                   float* __restrict__ sa_out,
+                   long long* __restrict__ abs_sample,
+                   double* __restrict__ of64, float* __restrict__ of32,
+                   long long* __restrict__ ovf, const Params p) {
+  const int c = blockIdx.x;
+  const int n_ch = p.n_ch;
+  const int tid = threadIdx.x;
+  const long long plane = static_cast<long long>(p.r) * n_ch;
+
+  if (!active[c]) {  // frozen state, zero outputs, frames never read
+    if (tid == 0) {
+      for (int f = 0; f < 4; ++f) si_out[f * n_ch + c] = si_in[f * n_ch + c];
+      for (int f = 0; f < 6; ++f) sf_out[f * n_ch + c] = sf_in[f * n_ch + c];
+      for (int f = 0; f < 8; ++f) sa_out[f * n_ch + c] = sa_in[f * n_ch + c];
+      ovf[c] = 0;
+    }
+    for (int j = tid; j < p.r; j += kThreads) {
+      const long long o = static_cast<long long>(j) * n_ch + c;
+      abs_sample[o] = 0;
+      for (int f = 0; f < 7; ++f) of64[f * plane + o] = 0.0;
+      for (int f = 0; f < 6; ++f) of32[f * plane + o] = 0.0f;
+    }
+    return;
+  }
+
+  __shared__ float pad[kPad];
+  __shared__ double red[6][kWarps];
+  __shared__ long long s_rem, s_step;
+  __shared__ unsigned int s_cp, s_w;
+  __shared__ int s_o, s_blk;
+
+  for (int i = tid; i < kPad; i += kThreads) pad[i] = code_pads[c * kPad + i];
+
+  // loop state, live in thread 0 only
+  long long ptr = 0, rem = 0, ms = 0, bad_max = 0;
+  unsigned int cp = 0;
+  double carr_freq = 0, code_freq = 0, carr_nco = 0, carr_err = 0,
+         code_nco = 0, code_err = 0;
+  float acc[6] = {0, 0, 0, 0, 0, 0}, fll_ip = 0, fll_qp = 0;
+  const double cb = carr_basis[c];
+  if (tid == 0) {
+    ptr = si_in[c];
+    rem = si_in[n_ch + c];
+    ms = si_in[2 * n_ch + c];
+    cp = static_cast<unsigned int>(si_in[3 * n_ch + c]);
+    carr_freq = sf_in[c];
+    code_freq = sf_in[n_ch + c];
+    carr_nco = sf_in[2 * n_ch + c];
+    carr_err = sf_in[3 * n_ch + c];
+    code_nco = sf_in[4 * n_ch + c];
+    code_err = sf_in[5 * n_ch + c];
+    for (int f = 0; f < 6; ++f) acc[f] = sa_in[f * n_ch + c];
+    fll_ip = sa_in[6 * n_ch + c];
+    fll_qp = sa_in[7 * n_ch + c];
+  }
+
+  const int win_w = p.win / 4;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  for (int j = 0; j < p.r; ++j) {
+    if (tid == 0) {
+      const long long step = __double2ll_rn(code_freq / p.fs * 1099511627776.0);
+      const long long blk = floor_div(p.code_len_q - rem + step - 1, step);
+      const long long o = ptr - (fb0[c] + static_cast<long long>(j) * p.spc);
+      long long bad = -o;
+      if (o + blk - p.win > bad) bad = o + blk - p.win;
+      if (bad > bad_max) bad_max = bad;
+      s_rem = rem;
+      s_step = step;
+      s_cp = cp;
+      s_w = static_cast<unsigned int>(__double2ll_rn(carr_freq / p.fs * 4294967296.0));
+      s_o = static_cast<int>(o);
+      s_blk = static_cast<int>(blk);
+    }
+    __syncthreads();
+    const long long rem_j = s_rem, step = s_step;
+    const unsigned int cp_j = s_cp, w = s_w;
+    const int o = s_o, blk = s_blk;
+    const int8_t* fr = reinterpret_cast<const int8_t*>(
+        frames + (static_cast<long long>(j) * n_ch + c) * win_w);
+
+    double ie = 0.0, ip = 0.0, il = 0.0, qe = 0.0, qp = 0.0, ql = 0.0;
+    for (int k = tid; k < blk; k += kThreads) {
+      const int idx = o + k;
+      if (idx < 0 || idx >= p.win) continue;  // overflow: flagged, raised by the wrapper
+      const float x = static_cast<float>(fr[idx]);
+      const unsigned int counts = cp_j + w * static_cast<unsigned int>(k);
+      const float turns = __int_as_float(static_cast<int>(0x3F800000u | (counts >> 9))) - 1.0f;
+      const float ib = sin_turns(turns) * x;
+      const float qb = sin_turns(turns + 0.25f) * x;
+      const long long tq = rem_j + step * static_cast<long long>(k);
+      const float e = pad[chip_index(tq - p.half_q)];
+      const float pr = pad[chip_index(tq)];
+      const float l = pad[chip_index(tq + p.half_q)];
+      ie += static_cast<double>(e * ib);
+      ip += static_cast<double>(pr * ib);
+      il += static_cast<double>(l * ib);
+      qe += static_cast<double>(e * qb);
+      qp += static_cast<double>(pr * qb);
+      ql += static_cast<double>(l * qb);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      ie += __shfl_down_sync(0xffffffffu, ie, off);
+      ip += __shfl_down_sync(0xffffffffu, ip, off);
+      il += __shfl_down_sync(0xffffffffu, il, off);
+      qe += __shfl_down_sync(0xffffffffu, qe, off);
+      qp += __shfl_down_sync(0xffffffffu, qp, off);
+      ql += __shfl_down_sync(0xffffffffu, ql, off);
+    }
+    if (lane == 0) {
+      red[0][warp] = ie;
+      red[1][warp] = ip;
+      red[2][warp] = il;
+      red[3][warp] = qe;
+      red[4][warp] = qp;
+      red[5][warp] = ql;
+    }
+    __syncthreads();
+
+    if (tid == 0) {
+      float s[6];
+      for (int f = 0; f < 6; ++f) {
+        double t = 0.0;
+        for (int i = 0; i < kWarps; ++i) t += red[f][i];
+        s[f] = static_cast<float>(t);
+      }
+      // s = (i_e, i_p, i_l, q_e, q_p, q_l)
+      float a[6];
+      bool upd = true;
+      if (p.pdi_ms > 1) {
+        for (int f = 0; f < 6; ++f) a[f] = acc[f] + s[f];
+        upd = (ms % p.pdi_ms) == (p.pdi_ms - 1);
+      } else {
+        for (int f = 0; f < 6; ++f) a[f] = s[f];
+      }
+
+      // Costas PLL (reference: tracking.py:221-235)
+      const double ip64 = a[1], qp64 = a[4];
+      double cerr = (ip64 != 0.0) ? atan(qp64 / ip64) : 0.0;
+      cerr = cerr / kTwoPi;
+      double cnco = carr_nco + p.pll_a * (cerr - carr_err) + cerr * p.pll_b;
+      if (p.fll_on) {
+        const double ipp = fll_ip, qpp = fll_qp;
+        const double cross = ipp * qp64 - qpp * ip64;
+        const double dot = ipp * ip64 + qpp * qp64;
+        double ferr = (dot != 0.0) ? atan(cross / dot) : 0.0;
+        ferr = ferr / p.fll_div;
+        cnco = cnco + p.fll_gain * ferr;
+      }
+      double cfreq = cb + cnco;
+
+      // DLL (reference: tracking.py:237-251)
+      const double ie64 = a[0], qe64 = a[3], il64 = a[2], ql64 = a[5];
+      const double e_mag = sqrt(ie64 * ie64 + qe64 * qe64);
+      const double l_mag = sqrt(il64 * il64 + ql64 * ql64);
+      double derr = (e_mag + l_mag > 0.0) ? (e_mag - l_mag) / (e_mag + l_mag) : 0.0;
+      double dnco = code_nco + p.dll_a * (derr - code_err) + derr * p.dll_b;
+      double dfreq = p.code_freq_basis - dnco;
+      if (p.aided) dfreq = dfreq + p.aid_ratio * (cfreq - p.intermediate_freq);
+
+      if (p.pdi_ms > 1) {
+        if (upd) {
+          for (int f = 0; f < 6; ++f) acc[f] = 0.f;
+          fll_ip = a[1];
+          fll_qp = a[4];
+        } else {  // hold filters between the every-K updates
+          cerr = carr_err;
+          cnco = carr_nco;
+          cfreq = carr_freq;
+          derr = code_err;
+          dnco = code_nco;
+          dfreq = code_freq;
+          for (int f = 0; f < 6; ++f) acc[f] = a[f];
+        }
+      } else {
+        fll_ip = a[1];
+        fll_qp = a[4];
+      }
+
+      ptr += blk;
+      cp = cp_j + w * static_cast<unsigned int>(blk);
+      rem = rem_j + step * blk - p.code_len_q;
+      ms += 1;
+      carr_freq = cfreq;
+      code_freq = dfreq;
+      carr_nco = cnco;
+      carr_err = cerr;
+      code_nco = dnco;
+      code_err = derr;
+
+      const long long o_idx = static_cast<long long>(j) * n_ch + c;
+      abs_sample[o_idx] = ptr;
+      of64[o_idx] = static_cast<double>(rem) / static_cast<double>(step);
+      of64[plane + o_idx] = dfreq;
+      of64[2 * plane + o_idx] = cfreq;
+      of64[3 * plane + o_idx] = derr;
+      of64[4 * plane + o_idx] = dnco;
+      of64[5 * plane + o_idx] = cerr;
+      of64[6 * plane + o_idx] = cnco;
+      of32[o_idx] = s[1];
+      of32[plane + o_idx] = s[0];
+      of32[2 * plane + o_idx] = s[2];
+      of32[3 * plane + o_idx] = s[3];
+      of32[4 * plane + o_idx] = s[4];
+      of32[5 * plane + o_idx] = s[5];
+    }
+  }
+
+  if (tid == 0) {
+    si_out[c] = ptr;
+    si_out[n_ch + c] = rem;
+    si_out[2 * n_ch + c] = ms;
+    si_out[3 * n_ch + c] = static_cast<long long>(static_cast<int>(cp));
+    sf_out[c] = carr_freq;
+    sf_out[n_ch + c] = code_freq;
+    sf_out[2 * n_ch + c] = carr_nco;
+    sf_out[3 * n_ch + c] = carr_err;
+    sf_out[4 * n_ch + c] = code_nco;
+    sf_out[5 * n_ch + c] = code_err;
+    for (int f = 0; f < 6; ++f) sa_out[f * n_ch + c] = acc[f];
+    sa_out[6 * n_ch + c] = fll_ip;
+    sa_out[7 * n_ch + c] = fll_qp;
+    ovf[c] = bad_max > 0 ? bad_max : 0;
+  }
+}
+
+}  // namespace
+
+// hf: fs, code_freq_basis, intermediate_freq, pll_a, pll_b, dll_a, dll_b,
+//     fll_gain, fll_div, aid_ratio (host array)
+// hi: code_len_q, half_q, pdi_ms, fll_on, aided, spc, win, r, n_ch (host array)
+extern "C" int sg_track_block(const void* frames, const void* fb0,
+                              const void* code_pads, const void* carr_basis,
+                              const void* active, const void* si_in,
+                              const void* sf_in, const void* sa_in,
+                              void* si_out, void* sf_out, void* sa_out,
+                              void* abs_sample, void* of64, void* of32,
+                              void* ovf, const double* hf, const long long* hi,
+                              void* stream) {
+  Params p;
+  p.fs = hf[0];
+  p.code_freq_basis = hf[1];
+  p.intermediate_freq = hf[2];
+  p.pll_a = hf[3];
+  p.pll_b = hf[4];
+  p.dll_a = hf[5];
+  p.dll_b = hf[6];
+  p.fll_gain = hf[7];
+  p.fll_div = hf[8];
+  p.aid_ratio = hf[9];
+  p.code_len_q = hi[0];
+  p.half_q = hi[1];
+  p.pdi_ms = static_cast<int>(hi[2]);
+  p.fll_on = static_cast<int>(hi[3]);
+  p.aided = static_cast<int>(hi[4]);
+  p.spc = static_cast<int>(hi[5]);
+  p.win = static_cast<int>(hi[6]);
+  p.r = static_cast<int>(hi[7]);
+  p.n_ch = static_cast<int>(hi[8]);
+  if (p.r <= 0 || p.n_ch <= 0) return 0;
+  track_block_kernel<<<p.n_ch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(frames), static_cast<const long long*>(fb0),
+      static_cast<const float*>(code_pads), static_cast<const double*>(carr_basis),
+      static_cast<const uint8_t*>(active), static_cast<const long long*>(si_in),
+      static_cast<const double*>(sf_in), static_cast<const float*>(sa_in),
+      static_cast<long long*>(si_out), static_cast<double*>(sf_out),
+      static_cast<float*>(sa_out), static_cast<long long*>(abs_sample),
+      static_cast<double*>(of64), static_cast<float*>(of32),
+      static_cast<long long*>(ovf), p);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,198 @@
+"""Receiver pipeline: probe -> acquire -> track -> lock demotion.
+
+The port of softgnss_tpu.pipeline up to navigation, which is not ported
+yet (ROADMAP A.6).  The capture is loaded once (file or in-memory array)
+and moved to ``device`` in one copy; acquisition and tracking run there;
+results come back as NumPy arrays.  Tracking results checkpoint to .npz
+with the JAX package's keys, so a checkpoint from either package loads in
+the other.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from softgnss_tpu_torch import io as sio
+from softgnss_tpu_torch.acquire.search import (
+    AcquisitionResults,
+    Channels,
+    acquire,
+    assign_channels,
+    format_channel_status,
+)
+from softgnss_tpu_torch.config import ReceiverConfig
+from softgnss_tpu_torch.convert import track_state_from_numpy, track_state_to_numpy
+from softgnss_tpu_torch.profiling import StageTimer, channel_lock_loss
+from softgnss_tpu_torch.track.scan import TrackResults, track
+
+logger = logging.getLogger(__name__)
+
+_OUTPUT_KEYS = ("absolute_sample", "sample_frac", "code_freq", "carr_freq", "i_p",
+                "i_e", "i_l", "q_e", "q_p", "q_l", "dll_discr", "dll_discr_filt",
+                "pll_discr", "pll_discr_filt")
+
+
+@dataclass
+class ReceiverResults:
+    """Everything a receiver run produces."""
+
+    config: ReceiverConfig
+    probe: dict | None = None
+    acquisition: AcquisitionResults | None = None
+    channels: Channels | None = None
+    tracking: TrackResults | None = None
+    timings_s: dict = field(default_factory=dict)
+
+    def summary(self) -> str:
+        lines = []
+        if self.acquisition is not None:
+            n_acq = int(self.acquisition.acquired.sum())
+            lines.append(f"Acquired {n_acq} satellites: "
+                         f"{[i + 1 for i in np.flatnonzero(self.acquisition.acquired)]}")
+        if self.channels is not None:
+            lines.append(format_channel_status(self.config, self.channels))
+        if self.tracking is not None:
+            lines.append(f"Tracked {self.tracking.n_ms} ms on "
+                         f"{sum(1 for s in self.tracking.status if s != '-')} channels")
+            if self.tracking.lock_loss_ms is not None:
+                for ch in np.flatnonzero(np.isfinite(self.tracking.lock_loss_ms)):
+                    lines.append(f"  lock lost: channel {ch} "
+                                 f"(PRN {int(self.tracking.prn[ch])}) at "
+                                 f"{self.tracking.lock_loss_ms[ch] / 1000.0:.1f} s "
+                                 f"-> status 'L', demoted from navigation")
+            lines.append("PVT: navigation solution not computed")
+        for stage, dt in self.timings_s.items():
+            lines.append(f"  {stage:12s} {dt:8.2f} s")
+        return "\n".join(lines)
+
+
+def _checkpoint_path(path: str) -> str:
+    """np.savez appends .npz; normalize so save/exists/load agree."""
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def _demote_unlocked(config: ReceiverConfig, tracking: TrackResults) -> None:
+    """Flag channels that lost lock mid-capture (config.lock_demotion):
+    fills ``tracking.lock_loss_ms`` and flips their status 'T' -> 'L'."""
+    if not config.lock_demotion or tracking.n_ms < config.lock_window_ms + 20:
+        return
+    loss = channel_lock_loss(config, tracking)
+    tracking.lock_loss_ms = loss
+    for ch in np.flatnonzero(np.isfinite(loss)):
+        if tracking.status[ch] == "T":
+            tracking.status[ch] = "L"
+        logger.warning("Channel %d (PRN %d) lost lock at %.0f ms "
+                       "(C/N0 or phase-lock below threshold); demoted.",
+                       ch, int(tracking.prn[ch]), loss[ch])
+
+
+def save_tracking(path: str, tracking: TrackResults) -> None:
+    """Checkpoint tracking output (and the final loop state) to .npz."""
+    state = {}
+    if tracking.final_state is not None:
+        state = {f"state_{k}": v
+                 for k, v in track_state_to_numpy(tracking.final_state).items()}
+    if tracking.lock_loss_ms is not None:
+        state["lock_loss_ms"] = np.asarray(tracking.lock_loss_ms)
+    np.savez_compressed(
+        _checkpoint_path(path), prn=tracking.prn, status=np.asarray(tracking.status),
+        **{k: getattr(tracking, k) for k in _OUTPUT_KEYS}, **state)
+
+
+def load_tracking(path: str) -> TrackResults:
+    """Load a checkpoint written by either package; the state comes back
+    as CPU tensors (``track`` moves it to the capture's device)."""
+    data = np.load(_checkpoint_path(path), allow_pickle=False)
+    state = None
+    if "state_ptr" in data:
+        state = track_state_from_numpy(
+            {k[len("state_"):]: data[k] for k in data.files if k.startswith("state_")})
+    return TrackResults(
+        prn=data["prn"], status=[str(s) for s in data["status"]],
+        final_state=state,
+        lock_loss_ms=data["lock_loss_ms"] if "lock_loss_ms" in data else None,
+        **{k: data[k] for k in _OUTPUT_KEYS})
+
+
+def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = None,
+                 n_ms: int | None = None, probe: bool = False,
+                 navigate: bool = True, checkpoint: str | None = None,
+                 channels: Channels | None = None,
+                 device="cuda") -> ReceiverResults:
+    """Run the receiver chain on ``device``.
+
+    ``signal``: in-memory int8 capture (NumPy array or tensor; absolute
+    sample indexing including ``config.skip_samples``), or ``file_name``
+    to read one.  It is moved to ``device`` once.  ``n_ms`` overrides
+    ``config.ms_to_process``.  ``checkpoint``: .npz tracking checkpoint,
+    loaded if it exists, written after tracking otherwise.  ``channels``:
+    pre-assigned tracking channels (skips acquisition).  Navigation is
+    not ported yet: ``navigate=True`` raises NotImplementedError."""
+    if navigate:
+        raise NotImplementedError(
+            "navigation is not ported yet (ROADMAP A.6): call "
+            "run_receiver(..., navigate=False)")
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device!r} requested but no CUDA device is "
+                           "available; pass device='cpu' to run on the host")
+    results = ReceiverResults(config=config)
+    timer = StageTimer(dev, results.timings_s)
+    if signal is None:
+        if not (file_name or config.file_name):
+            raise ValueError("provide signal= or file_name=")
+        with timer.stage("read"):
+            # complex I/Q captures come back upconverted with the IF moved
+            # up by fs/4: the returned config governs everything downstream
+            signal, config = sio.load_capture(file_name or config.file_name, config)
+        results.config = config
+    if isinstance(signal, torch.Tensor):
+        sig = signal.to(dev)
+    else:
+        sig = torch.from_numpy(np.require(signal, np.int8, ["C", "W"])).to(dev)
+
+    n_ms = int(config.ms_to_process if n_ms is None else n_ms)
+    skip = config.skip_samples
+    spc = config.samples_per_code
+    if probe:
+        results.probe = sio.probe_data(config, sig[skip: skip + 10 * spc].cpu().numpy())
+
+    # a loaded checkpoint supersedes acquisition and tracking
+    if checkpoint is not None and os.path.exists(_checkpoint_path(checkpoint)):
+        logger.info("Loading tracking checkpoint %s", _checkpoint_path(checkpoint))
+        with timer.stage("track"):
+            results.tracking = load_tracking(checkpoint)
+            if results.tracking.lock_loss_ms is None:
+                _demote_unlocked(config, results.tracking)
+        return results
+
+    # --- acquisition (reference: initialize.py:481-492) --------------------
+    if channels is not None:
+        results.channels = channels
+    elif config.skip_acquisition:
+        raise ValueError("config.skip_acquisition requires channels= "
+                         "(pre-assigned tracking channels)")
+    else:
+        acq_need = config.acquisition_ms * spc
+        if sig.shape[0] < skip + acq_need:
+            raise ValueError(f"capture too short for acquisition: need "
+                             f"{skip + acq_need} samples, got {sig.shape[0]}")
+        with timer.stage("acquire"):
+            results.acquisition = acquire(config, sig[skip: skip + acq_need])
+        if not results.acquisition.acquired.any():
+            logger.warning("No GNSS signals detected, signal processing finished.")
+            return results
+        results.channels = assign_channels(config, results.acquisition)
+
+    # --- tracking -----------------------------------------------------------
+    with timer.stage("track"):
+        results.tracking = track(config, sig, results.channels, n_ms=n_ms)
+        _demote_unlocked(config, results.tracking)
+        if checkpoint is not None:
+            save_tracking(checkpoint, results.tracking)
+    return results

@@ -1,0 +1,216 @@
+"""Synthetic GPS L1 IF signal generator (static satellites).
+
+The port of softgnss_tpu.signals.synth.synthesize_signal: inject known
+PRNs / Doppler / delays / nav bits and synthesize int8 IF samples, so every
+receiver stage can be checked closed-loop against the injected truth.
+
+Signal model (per satellite)::
+
+    s[k] = A * CA_prn(floor(chips(k)) mod 1023) * D(bit(chips(k)))
+             * sin(2*pi*(IF + fd) * k/fs + phi0)
+    chips(k) = fc_eff * (k - delay_samples) / fs
+    fc_eff   = code_freq_basis * (1 + fd / fL1)
+
+Each millisecond reduces to a host-built (satellite, ms) parameter table
+(Q40 chip phase, uint32 carrier counts, the at-most-one nav-bit edge) and
+the device work is elementwise, in chunks of ``chunk_ms`` milliseconds.
+The per-sample chip index is the JAX synthesizer's own tile arithmetic
+(a Q24 step inside each 128-sample tile), so noise-free captures agree
+with it sample for sample up to the float32 sum order over satellites.
+Noise comes from a ``torch.Generator`` seeded by ``seed``: the same
+distribution as the JAX synthesizer's, not the same numbers.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from softgnss_tpu_torch.config import ReceiverConfig
+from softgnss_tpu_torch.signals.ca import gold_codes
+from softgnss_tpu_torch.signals.nco import carrier_turns, sin_turns
+
+_BITS_PER_PERIOD = 20  # nav bit = 20 C/A code periods
+_CHIPS_PER_BIT = 1023 * _BITS_PER_PERIOD
+_Q = 40
+_QONE = 1 << _Q
+_TILE = 128
+
+
+@dataclass(frozen=True)
+class SatelliteSignal:
+    """Injected truth for one satellite."""
+
+    prn: int
+    #: carrier Doppler relative to the IF, Hz
+    doppler_hz: float = 0.0
+    #: signal delay in samples (acquisition reports it mod samples_per_code)
+    delay_samples: float = 0.0
+    #: scalar amplitude, or a per-ms envelope (edge-held past its end)
+    amplitude: float | tuple[float, ...] = 1.0
+    #: carrier phase at k=0, radians
+    phase0: float = 0.0
+    #: +/-1 nav bits, one per 20 ms, indexed by bit counter mod len; None = +1
+    nav_bits: tuple[int, ...] | None = None
+    #: override the code chipping rate; None -> Doppler-consistent
+    code_freq_hz: float | None = None
+
+    def effective_code_freq(self, config: ReceiverConfig) -> float:
+        if self.code_freq_hz is not None:
+            return self.code_freq_hz
+        return config.code_freq_basis * (1.0 + self.doppler_hz / config.l1_freq)
+
+
+def amplitude_for_cn0(config: ReceiverConfig, cn0_dbhz: float,
+                      noise_std: float) -> float:
+    """Signal amplitude giving C/N0 = A^2 fs / (2 sigma^2)."""
+    return float(np.sqrt(2.0 * noise_std**2 * 10.0 ** (cn0_dbhz / 10.0)
+                         / config.sampling_freq))
+
+
+def _nav_bit_array(sat: SatelliteSignal) -> np.ndarray:
+    if sat.nav_bits is None:
+        return np.ones(1, np.float32)
+    bits = np.asarray(sat.nav_bits, np.float32)
+    if not np.all(np.abs(bits) == 1):
+        raise ValueError("nav_bits must be +/-1")
+    return bits
+
+
+class _MsParams(NamedTuple):
+    """Per-(satellite, ms) tables, (S, n_ms) each."""
+
+    win_start: np.ndarray   # i64 code-window start chip, in [0, 1023)
+    frac0_q: np.ndarray     # i64 Q40 window-relative chips at sample 0
+    step_q: np.ndarray      # i64 Q40 chips/sample
+    bit0: np.ndarray        # f32 nav bit before the edge
+    bit1: np.ndarray        # f32 nav bit after the edge
+    edge_q: np.ndarray      # i64 Q40 window-relative chips of the bit edge
+    p0: np.ndarray          # i32 carrier NCO counts at sample 0
+    pw: np.ndarray          # i32 carrier NCO counts/sample
+
+
+def _window_geometry(config: ReceiverConfig):
+    """Tile geometry of the per-ms code window (as the JAX synthesizer)."""
+    spms = config.samples_per_code
+    t_count = -(-spms // _TILE)
+    s_nom = config.code_freq_basis / config.sampling_freq
+    w = int(np.ceil(s_nom * _TILE)) + 8
+    w = (w + 7) // 8 * 8
+    win_chips = int(np.ceil(s_nom * t_count * _TILE)) + 8
+    h_base = np.floor(s_nom * _TILE * np.arange(t_count)).astype(np.int64) - 2
+    return w, win_chips, h_base
+
+
+def _build_params(chips0, chip_slope, cyc0, cyc_slope,
+                  bit_tables: list[np.ndarray]) -> _MsParams:
+    """Host-side per-ms parameter tables (float64/integer NumPy)."""
+    c0 = np.floor(chips0).astype(np.int64)
+    frac0_q = np.rint((chips0 - c0) * _QONE).astype(np.int64)
+    carry = frac0_q >= _QONE
+    c0 += carry
+    frac0_q = np.where(carry, 0, frac0_q)
+    step_q = np.rint(chip_slope * _QONE).astype(np.int64)
+    win_start = np.mod(c0, 1023)
+    b_idx = c0 // _CHIPS_PER_BIT
+    edge_q = np.minimum((b_idx + 1) * _CHIPS_PER_BIT - c0, 1 << 20) * _QONE
+
+    bit0 = np.empty(chips0.shape, np.float32)
+    bit1 = np.empty(chips0.shape, np.float32)
+    for i, table in enumerate(bit_tables):
+        bit0[i] = table[np.mod(b_idx[i], len(table))]
+        bit1[i] = table[np.mod(b_idx[i] + 1, len(table))]
+
+    p0 = np.rint((cyc0 - np.floor(cyc0)) * 2.0**32).astype(np.int64)
+    pw = np.rint(np.mod(cyc_slope, 1.0) * 2.0**32).astype(np.int64)
+    to_i32 = lambda x: (np.bitwise_and(x, 0xFFFFFFFF)  # noqa: E731
+                        - (np.bitwise_and(x, 0xFFFFFFFF) >> 31 << 32)).astype(np.int32)
+    return _MsParams(win_start, frac0_q, step_q, bit0, bit1, edge_q,
+                     to_i32(p0), to_i32(pw))
+
+
+def _synth_chunk(config: ReceiverConfig, p: _MsParams, amps, codes3,
+                 geometry) -> torch.Tensor:
+    """Noise-free f32 samples of the ms chunk described by ``p`` ((S, n)
+    device tensors) -> (n, samples_per_code)."""
+    w, win_chips, h_base = geometry
+    dev = codes3.device
+    spms = config.samples_per_code
+    k = torch.arange(spms, dtype=torch.int64, device=dev)
+    t = k // _TILE
+    j = k % _TILE
+    hb = h_base[t]                                            # (spms,)
+
+    col = lambda a: a[:, :, None]                             # noqa: E731
+    pt = col(p.frac0_q) + col(p.step_q) * (t * _TILE)         # (S, n, spms)
+    h_int = pt >> _Q
+    frac24 = (pt & (_QONE - 1)) >> 16
+    off = (frac24 + col(p.step_q >> 16) * j) >> 24
+    loc = torch.clamp(h_int + off - hb, 0, w - 1)
+    idx = col(p.win_start) + torch.clamp(hb + loc, 0, win_chips - 1)
+    s, n = p.step_q.shape
+    code_val = torch.gather(codes3, 1, idx.reshape(s, -1)).reshape(s, n, spms)
+    bit_val = torch.where(pt + col(p.step_q) * j >= col(p.edge_q),
+                          col(p.bit1), col(p.bit0))
+    sin_v = sin_turns(carrier_turns(col(p.p0), col(p.pw), k))
+    per_sat = col(amps) * code_val * bit_val * sin_v
+    x = per_sat[0]
+    for i in range(1, s):
+        x = x + per_sat[i]
+    return x
+
+
+def synthesize_signal(config: ReceiverConfig, sats: list[SatelliteSignal],
+                      n_ms: int, noise_std: float = 0.0, seed: int = 0,
+                      device="cpu", chunk_ms: int = 64) -> torch.Tensor:
+    """Generate ``n_ms`` milliseconds of int8 IF samples on ``device``,
+    ``chunk_ms`` milliseconds at a time."""
+    if config.sampling_freq % 1000:
+        raise ValueError("synthesizer requires sampling_freq divisible by 1000")
+    if not sats:
+        raise ValueError("need at least one satellite")
+    dev = torch.device(device)
+    fs = config.sampling_freq
+    spms = config.samples_per_code
+    m = np.arange(n_ms, dtype=np.float64)[None, :] * spms       # sample at ms start
+
+    fc = np.asarray([s.effective_code_freq(config) for s in sats])[:, None]
+    d = np.asarray([s.delay_samples for s in sats])[:, None]
+    chips0 = fc * (m - d) / fs
+    chip_slope = np.broadcast_to(fc / fs, chips0.shape)
+    fcar = np.asarray([config.intermediate_freq + s.doppler_hz for s in sats])[:, None]
+    phi0 = np.asarray([s.phase0 for s in sats])[:, None]
+    cyc0 = fcar * m / fs + phi0 / (2.0 * np.pi)
+    cyc_slope = np.broadcast_to(fcar / fs, cyc0.shape)
+    params = _build_params(chips0, chip_slope, cyc0, cyc_slope,
+                           [_nav_bit_array(s) for s in sats])
+
+    amps = np.empty((len(sats), n_ms), np.float32)
+    for i, s in enumerate(sats):
+        a = np.atleast_1d(np.asarray(s.amplitude, np.float32))
+        k = min(len(a), n_ms)
+        amps[i, :k] = a[:k]
+        amps[i, k:] = a[-1]                                     # edge hold
+
+    codes = gold_codes()[np.asarray([s.prn for s in sats]) - 1].astype(np.float32)
+    codes3 = torch.from_numpy(np.concatenate([codes, codes, codes], axis=1)).to(dev)
+    w, win_chips, h_base = _window_geometry(config)
+    geometry = (w, win_chips, torch.from_numpy(h_base).to(dev))
+    params_d = _MsParams(*[torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                           for a in params])
+    amps_d = torch.from_numpy(amps).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+    out = torch.empty((n_ms, spms), dtype=torch.int8, device=dev)
+    for m0 in range(0, n_ms, chunk_ms):
+        m1 = min(n_ms, m0 + chunk_ms)
+        x = _synth_chunk(config, _MsParams(*[a[:, m0:m1] for a in params_d]),
+                         amps_d[:, m0:m1], codes3, geometry)
+        if noise_std > 0.0:
+            x = x + noise_std * torch.randn(x.shape, generator=gen,
+                                            dtype=torch.float32, device=dev)
+        out[m0:m1] = torch.clamp(torch.round(x), -128, 127).to(torch.int8)
+    return out.reshape(-1)

@@ -1,0 +1,307 @@
+"""The two tracking kernels, B2 (frames builder) and B1 (block tracker).
+
+For each ``track_block_ms`` block, ``scan.track`` gathers every channel's
+per-ms sample windows with :func:`build_frames` and then runs the block's
+milliseconds of DLL/PLL tracking, loop filters included, in one
+:func:`track_block` launch.  They port softgnss_tpu.track.megakernel's
+``_builder_kernel`` and ``_kernel`` (with ``mega_track_segment`` /
+``mega_finalize``): what those compute, not their Mosaic layout.  The
+CUDA C++ sources are ``softgnss_tpu_torch/csrc/*.cu``; each opens with
+the TPU kernel it replaces, what bounds it on the H100 and its design.
+
+Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
+version (``*_plain``, same module) for CPU tensors, and for nothing else:
+a CUDA tensor either launches the kernel or raises.  ``wrapper.launches``
+counts kernel launches.  The kernels are compiled at first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with
+a plain C interface under ``softgnss_tpu_torch/_build/<source hash>/``
+and bound with ``ctypes``; every launch runs on
+``torch.cuda.current_stream()``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+from softgnss_tpu_torch.config import ReceiverConfig
+from softgnss_tpu_torch.signals.nco import (
+    CODE_ONE,
+    carrier_step_u32,
+    carrier_turns,
+    chips_to_q,
+    code_step_q,
+    sin_turns,
+)
+from softgnss_tpu_torch.track.scan import (
+    MsOutputs,
+    TrackState,
+    _correlate_gather,
+    _filters_and_outputs,
+)
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+_SOURCES = ("build_frames.cu", "track_block.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
+                           "are built from softgnss_tpu_torch/csrc at first use")
+    return found
+
+
+class KernelLibrary:
+    """The built kernel library: the ctypes handle, its path, how long the
+    build took (0 when it was already built) and nvcc's output."""
+
+    def __init__(self, path: Path, build_s: float, log: str):
+        self.path = path
+        self.build_s = build_s
+        self.log = log
+        lib = ctypes.CDLL(str(path))
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.sg_build_frames.argtypes = [vp, ll, vp, vp, i, i, i, ll, vp]
+        lib.sg_build_frames.restype = i
+        lib.sg_track_block.argtypes = [vp] * 15 + [
+            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_longlong), vp]
+        lib.sg_track_block.restype = i
+        self.lib = lib
+
+
+@functools.cache
+def load_library() -> KernelLibrary:
+    """Build (once per source hash) and load the CUDA kernel library."""
+    srcs = [_CSRC / s for s in _SOURCES]
+    digest = hashlib.sha256()
+    for s in srcs:
+        digest.update(s.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out_dir = _PKG / "_build" / digest.hexdigest()[:16]
+    lib_path = out_dir / "libsgtrack.so"
+    log_path = out_dir / "nvcc.log"
+    if lib_path.exists():
+        return KernelLibrary(lib_path, 0.0, log_path.read_text() if log_path.exists() else "")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_s = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    log_path.write_text(log)
+    os.replace(tmp, lib_path)
+    return KernelLibrary(lib_path, build_s, log)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"{name}: the kernels take CUDA tensors (CPU tensors "
+                         f"take the plain versions), got {device}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+# --- B2: frames builder ----------------------------------------------------
+
+
+def build_frames_plain(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int,
+                       win_w: int, spc_w: int) -> torch.Tensor:
+    """frames[j, c, i] = cap_words[starts_w[c] + j*spc_w + i] (i < win_w),
+    0 outside the capture: (r, C, win_w) int32."""
+    dev = cap_words.device
+    idx = (starts_w[None, :, None]
+           + torch.arange(r, device=dev)[:, None, None] * spc_w
+           + torch.arange(win_w, device=dev)[None, None, :])
+    inside = (idx >= 0) & (idx < cap_words.shape[0])
+    return torch.where(inside, cap_words[idx.clamp(0, cap_words.shape[0] - 1)], 0)
+
+
+def build_frames(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int,
+                 win_w: int, spc_w: int) -> torch.Tensor:
+    """Per-ms frames of every channel, (r, C, win_w) int32 (see
+    :func:`build_frames_plain`).  ``cap_words``: (L,) int32 little-endian
+    word view of the int8 capture; ``starts_w``: (C,) int64 word offsets
+    of millisecond 0.  Kernel B2 (csrc/build_frames.cu) on CUDA tensors."""
+    if cap_words.device.type == "cpu":
+        return build_frames_plain(cap_words, starts_w, r, win_w, spc_w)
+    dev = cap_words.device
+    c = starts_w.shape[0]
+    _require(cap_words, "cap_words", torch.int32, (cap_words.shape[0],), dev)
+    _require(starts_w, "starts_w", torch.int64, (c,), dev)
+    frames = torch.empty((r, c, win_w), dtype=torch.int32, device=dev)
+    lib = load_library().lib
+    with torch.cuda.device(dev):
+        rc = lib.sg_build_frames(_ptr(cap_words), cap_words.shape[0], _ptr(starts_w),
+                                 _ptr(frames), r, c, win_w, spc_w, _stream(dev))
+    build_frames.launches += 1
+    _check(rc, "build_frames")
+    return frames
+
+
+build_frames.launches = 0
+
+
+# --- B1: block tracker -----------------------------------------------------
+
+
+def _overflow(o, blk, win: int, active):
+    """>0 where the true span [o, o+blk) leaves the frame (active channels)."""
+    bad = torch.maximum(-o, o + blk - win)
+    return torch.where(active, bad.clamp(min=0), 0)
+
+
+def track_block_plain(frames, fb0, state: TrackState, code_pads, carr_basis,
+                      active, config: ReceiverConfig, r: int):
+    """``r`` ms of tracking for all channels, one millisecond at a time:
+    the gather correlator of softgnss_tpu.track.scan._frame_ms over each
+    frame, then the float64 loop filters.  Returns (state, MsOutputs of
+    (r, C) leaves, (C,) int64 overflow)."""
+    dev = frames.device
+    fs = config.sampling_freq
+    spc = config.samples_per_code
+    win = frames.shape[2] * 4
+    code_len_q = config.code_length * CODE_ONE
+    samples = frames.view(torch.int8)                     # (r, C, win)
+    k = torch.arange(win, dtype=torch.int64, device=dev)
+    st = state
+    ovf = torch.zeros_like(fb0)
+    outs = []
+    for j in range(r):
+        step_q = code_step_q(st.code_freq, fs)
+        blk = torch.div(code_len_q - st.code_rem_q + step_q - 1, step_q,
+                        rounding_mode="floor")
+        o = st.ptr - (fb0 + j * spc)
+        ovf = torch.maximum(ovf, _overflow(o, blk, win, active))
+        mask = (k >= o[:, None]) & (k < (o + blk)[:, None])
+        raw = torch.where(mask, samples[j].to(torch.float32), 0.0)
+
+        w = carrier_step_u32(st.carr_freq, fs)
+        turns = carrier_turns((st.carr_phase.to(torch.int64) - w.to(torch.int64) * o)[:, None],
+                              w[:, None], k)
+        i_bb = sin_turns(turns) * raw
+        q_bb = sin_turns(turns + 0.25) * raw
+
+        tq = (st.code_rem_q - step_q * o)[:, None] + step_q[:, None] * k
+        corr = _correlate_gather(config, code_pads, tq, i_bb, q_bb)
+        st, out = _filters_and_outputs(config, carr_basis, active, st, step_q,
+                                       blk, w, corr)
+        outs.append(out)
+    ys = MsOutputs(*[torch.stack(leaf) for leaf in zip(*outs)])
+    return st, ys, ovf
+
+
+def _kernel_params(config: ReceiverConfig, r: int, c: int, win: int):
+    tau1c, tau2c = config.pll_taus
+    tau1d, tau2d = config.dll_taus
+    pdi = config.pdi_s
+    hf = (ctypes.c_double * 10)(
+        config.sampling_freq, config.code_freq_basis, config.intermediate_freq,
+        tau2c / tau1c, pdi / tau1c, tau2d / tau1d, pdi / tau1d,
+        (4.0 * config.fll_bandwidth_hz) * pdi, 2.0 * math.pi * pdi,
+        config.code_freq_basis / config.l1_freq)
+    hi = (ctypes.c_longlong * 9)(
+        config.code_length * CODE_ONE, chips_to_q(config.dll_correlator_spacing),
+        config.pdi_ms, int(config.fll_bandwidth_hz > 0),
+        int(config.carrier_aided_dll), config.samples_per_code, win, r, c)
+    return hf, hi
+
+
+_I64_FIELDS = ("ptr", "code_rem_q", "ms", "carr_phase")
+_F64_FIELDS = ("carr_freq", "code_freq", "carr_nco", "carr_err", "code_nco", "code_err")
+_F32_FIELDS = ("acc_i_e", "acc_i_p", "acc_i_l", "acc_q_e", "acc_q_p", "acc_q_l",
+               "fll_ip", "fll_qp")
+_OUT_F64 = ("sample_frac", "code_freq", "carr_freq", "dll_discr", "dll_discr_filt",
+            "pll_discr", "pll_discr_filt")
+_OUT_F32 = ("i_p", "i_e", "i_l", "q_e", "q_p", "q_l")
+
+
+def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
+                config: ReceiverConfig, r: int):
+    """Track ``r`` ms of every channel over ``frames`` ((r, C, win/4) int32
+    from :func:`build_frames`; frame (j, c) starts at absolute sample
+    ``fb0[c] + j*samples_per_code``).  Returns (state, MsOutputs of (r, C)
+    leaves, (C,) int64 overflow: > 0 where a ms span left its frame).
+    Kernel B1 (csrc/track_block.cu) on CUDA tensors."""
+    if frames.device.type == "cpu":
+        return track_block_plain(frames, fb0, state, code_pads, carr_basis,
+                                 active, config, r)
+    dev = frames.device
+    c = frames.shape[1]
+    win_w = frames.shape[2]
+    _require(frames, "frames", torch.int32, (r, c, win_w), dev)
+    _require(fb0, "fb0", torch.int64, (c,), dev)
+    _require(code_pads, "code_pads", torch.float32, (c, 1025), dev)
+    _require(carr_basis, "carr_basis", torch.float64, (c,), dev)
+    _require(active, "active", torch.bool, (c,), dev)
+    si = torch.stack([getattr(state, f).to(torch.int64) for f in _I64_FIELDS])
+    sf = torch.stack([getattr(state, f) for f in _F64_FIELDS])
+    sa = torch.stack([getattr(state, f) for f in _F32_FIELDS])
+    _require(sf, "state (float64 leaves)", torch.float64, (6, c), dev)
+    _require(sa, "state (float32 leaves)", torch.float32, (8, c), dev)
+    si_o, sf_o, sa_o = torch.empty_like(si), torch.empty_like(sf), torch.empty_like(sa)
+    abs_sample = torch.empty((r, c), dtype=torch.int64, device=dev)
+    of64 = torch.empty((len(_OUT_F64), r, c), dtype=torch.float64, device=dev)
+    of32 = torch.empty((len(_OUT_F32), r, c), dtype=torch.float32, device=dev)
+    ovf = torch.empty(c, dtype=torch.int64, device=dev)
+    act = active.to(torch.uint8)
+    hf, hi = _kernel_params(config, r, c, win_w * 4)
+    lib = load_library().lib
+    with torch.cuda.device(dev):
+        rc = lib.sg_track_block(
+            _ptr(frames), _ptr(fb0), _ptr(code_pads), _ptr(carr_basis), _ptr(act),
+            _ptr(si), _ptr(sf), _ptr(sa), _ptr(si_o), _ptr(sf_o), _ptr(sa_o),
+            _ptr(abs_sample), _ptr(of64), _ptr(of32), _ptr(ovf), hf, hi, _stream(dev))
+    track_block.launches += 1
+    _check(rc, "track_block")
+    leaves = dict(zip(_I64_FIELDS, si_o))
+    leaves["carr_phase"] = leaves["carr_phase"].to(torch.int32)
+    leaves.update(zip(_F64_FIELDS, sf_o))
+    leaves.update(zip(_F32_FIELDS, sa_o))
+    leaves["block_base"] = state.block_base
+    outs = dict(zip(_OUT_F64, of64))
+    outs.update(zip(_OUT_F32, of32))
+    outs["absolute_sample"] = abs_sample
+    return (TrackState(**leaves), MsOutputs(**outs), ovf)
+
+
+track_block.launches = 0

@@ -1,0 +1,380 @@
+"""Multi-channel DLL/PLL tracking, one block of milliseconds per kernel pair.
+
+The port of softgnss_tpu.track.scan on its megakernel branch: the capture
+lies on the device as int8 and is read through its int32 word view;
+blocks of ``track_block_ms`` milliseconds sit on the ABSOLUTE ms grid
+(a resumed run first finishes the block it stopped in, the "lead"
+segment), each anchored at ``block_base = ptr - track_frame_pre`` carried
+in the state, so a resumed run frames every millisecond exactly as the
+uninterrupted run does.  For each segment :func:`megakernel.build_frames`
+(B2) cuts the per-ms, per-channel frames and :func:`megakernel.track_block`
+(B1) runs the milliseconds, loop filters included.
+
+The per-ms math is the JAX 'gather' formulation: exact integer NCOs (Q40
+code phase, uint32 carrier turns), per-sample E/P/L lookups in the padded
+code, float32 correlator sums and float64 loop filters
+(reference: tracking.py:132-275):
+
+    PLL:  err = atan(Q_P / I_P) / 2pi
+          nco += (tau2/tau1)(err - err_prev) + err * PDI/tau1
+          carrFreq = acquiredFreq + nco
+    DLL:  err = (|E| - |L|) / (|E| + |L|),  |X| = sqrt(I_X^2 + Q_X^2)
+          nco += (tau2/tau1)(err - err_prev) + err * PDI/tau1
+          codeFreq = codeFreqBasis - nco
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from softgnss_tpu_torch.acquire.search import Channels
+from softgnss_tpu_torch.config import ReceiverConfig
+from softgnss_tpu_torch.signals.nco import (
+    CODE_ONE,
+    ceil_chip_index,
+    chips_to_q,
+    true_divide,
+    wrap_u32_to_i32,
+)
+from softgnss_tpu_torch.track.tables import build_tables
+
+
+class TrackState(NamedTuple):
+    """Per-channel tracking loop state; leaves are (C,) tensors with the
+    dtypes of softgnss_tpu.track.scan.TrackState."""
+
+    ptr: torch.Tensor          # i64: absolute sample index of next read
+    carr_phase: torch.Tensor   # i32: carrier NCO counts (uint32 semantics)
+    code_rem_q: torch.Tensor   # i64: remainder code phase, Q40 chips
+    carr_freq: torch.Tensor    # f64: current carrier frequency, Hz
+    code_freq: torch.Tensor    # f64: current code frequency, Hz
+    carr_nco: torch.Tensor     # f64: PLL filter accumulator
+    carr_err: torch.Tensor     # f64: previous PLL discriminator
+    code_nco: torch.Tensor     # f64: DLL filter accumulator
+    code_err: torch.Tensor     # f64: previous DLL discriminator
+    ms: torch.Tensor           # i64: milliseconds tracked so far
+    #: i64: frame anchor (ptr - track_frame_pre at block entry) of the
+    #: ms-grid block this state sits in (bit-exact resume)
+    block_base: torch.Tensor
+    #: f32: partial coherent sums (zero when config.pdi_ms == 1)
+    acc_i_e: torch.Tensor
+    acc_i_p: torch.Tensor
+    acc_i_l: torch.Tensor
+    acc_q_e: torch.Tensor
+    acc_q_p: torch.Tensor
+    acc_q_l: torch.Tensor
+    #: f32: previous update's prompt sums (FLL discriminator memory)
+    fll_ip: torch.Tensor
+    fll_qp: torch.Tensor
+
+
+#: the six coherent-accumulator leaves of TrackState, in corr-tuple order
+_ACC_FIELDS = ("acc_i_e", "acc_i_p", "acc_i_l",
+               "acc_q_e", "acc_q_p", "acc_q_l")
+_F32_FIELDS = _ACC_FIELDS + ("fll_ip", "fll_qp")
+
+
+class MsOutputs(NamedTuple):
+    """Per-ms logged observables (reference: tracking.py:253-275), plus
+    ``sample_frac``, the sub-sample fraction of the code-period boundary."""
+
+    absolute_sample: torch.Tensor  # i64
+    sample_frac: torch.Tensor      # f64 in [0, 1)
+    code_freq: torch.Tensor        # f64
+    carr_freq: torch.Tensor        # f64
+    i_p: torch.Tensor              # f32
+    i_e: torch.Tensor
+    i_l: torch.Tensor
+    q_e: torch.Tensor
+    q_p: torch.Tensor
+    q_l: torch.Tensor
+    dll_discr: torch.Tensor        # f64
+    dll_discr_filt: torch.Tensor
+    pll_discr: torch.Tensor
+    pll_discr_filt: torch.Tensor
+
+
+@dataclass
+class TrackResults:
+    """Tracking output; array fields are (channels, ms) NumPy arrays."""
+
+    prn: np.ndarray
+    status: list[str]
+    absolute_sample: np.ndarray
+    sample_frac: np.ndarray
+    code_freq: np.ndarray
+    carr_freq: np.ndarray
+    i_p: np.ndarray
+    i_e: np.ndarray
+    i_l: np.ndarray
+    q_e: np.ndarray
+    q_p: np.ndarray
+    q_l: np.ndarray
+    dll_discr: np.ndarray
+    dll_discr_filt: np.ndarray
+    pll_discr: np.ndarray
+    pll_discr_filt: np.ndarray
+    #: loop state after the last tracked ms (tensors on the tracking
+    #: device); pass as ``state=`` to :func:`track` to resume exactly
+    final_state: "TrackState | None" = None
+    #: per-channel ms at which lock was lost (inf = held), see pipeline
+    lock_loss_ms: np.ndarray | None = None
+
+    @property
+    def n_ms(self) -> int:
+        return self.i_p.shape[1]
+
+
+def initial_state(config: ReceiverConfig, channels: Channels,
+                  device="cpu") -> TrackState:
+    """Loop state at the first millisecond (reference: tracking.py:107-130)."""
+    c = len(channels)
+    ptr = torch.as_tensor(config.skip_samples + np.asarray(channels.code_phase),
+                          dtype=torch.int64).to(device)
+    z64 = torch.zeros(c, dtype=torch.float64, device=device)
+    return TrackState(
+        ptr=ptr,
+        carr_phase=torch.zeros(c, dtype=torch.int32, device=device),
+        code_rem_q=torch.zeros(c, dtype=torch.int64, device=device),
+        carr_freq=torch.as_tensor(np.asarray(channels.acquired_freq, np.float64)).to(device),
+        code_freq=torch.full((c,), config.code_freq_basis, dtype=torch.float64,
+                             device=device),
+        carr_nco=z64, carr_err=z64, code_nco=z64, code_err=z64,
+        ms=torch.zeros(c, dtype=torch.int64, device=device),
+        block_base=ptr - config.track_frame_pre,
+        **{f: torch.zeros(c, dtype=torch.float32, device=device) for f in _F32_FIELDS},
+    )
+
+
+def _correlate_gather(config: ReceiverConfig, code_pads, tq, i_bb, q_bb):
+    """Six float32 correlator sums over the last axis: per-sample E/P/L
+    lookups in the padded code at the ceil'd chip phase of ``tq`` (Q40)
+    and ``tq -/+ spacing`` (reference: tracking.py:164-190, 209-219).
+
+    The float32 products accumulate in float64 and round once to float32,
+    so a sum does not depend on the order it is taken in: kernel B1 and
+    this plain version agree to the last bit (JAX's float32 sums differ
+    from both by their own rounding, ~1e-7 relative)."""
+    half_q = chips_to_q(config.dll_correlator_spacing)
+    early, prompt, late = (
+        code_pads.gather(-1, ceil_chip_index(tq + d).clamp(0, 1024).to(torch.int64))
+        for d in (-half_q, 0, half_q))
+    return tuple((code * bb).to(torch.float64).sum(-1).to(torch.float32)
+                 for bb in (i_bb, q_bb) for code in (early, prompt, late))
+
+
+def _filters_and_outputs(config: ReceiverConfig, carr_basis, active, st: TrackState,
+                         step_q, blk, w, corr):
+    """Loop-filter updates and logged outputs from the six correlator sums,
+    channel-batched, float64 (softgnss_tpu.track.scan._filters_and_outputs,
+    reference tracking.py:221-275).  With ``config.pdi_ms`` K > 1 the sums
+    accumulate in the state and the filters run on every K-th code period."""
+    code_len_q = config.code_length * CODE_ONE
+    tau1c, tau2c = config.pll_taus
+    tau1d, tau2d = config.dll_taus
+    pdi = config.pdi_s
+    K = config.pdi_ms
+    i_e, i_p, i_l, q_e, q_p, q_l = corr
+    f64 = torch.float64
+
+    if K > 1:
+        a_ie, a_ip, a_il, a_qe, a_qp, a_ql = (
+            getattr(st, f) + c for f, c in zip(_ACC_FIELDS, corr))
+        upd = (st.ms % K) == (K - 1)
+    else:
+        a_ie, a_ip, a_il, a_qe, a_qp, a_ql = corr
+
+    # --- PLL (reference: tracking.py:221-235) -------------------------------
+    i_p64, q_p64 = a_ip.to(f64), a_qp.to(f64)
+    safe_ip = torch.where(i_p64 != 0, i_p64, 1.0)
+    carr_err = true_divide(torch.where(i_p64 != 0, torch.atan(q_p64 / safe_ip), 0.0),
+                           2.0 * math.pi)
+    carr_nco = st.carr_nco + tau2c / tau1c * (carr_err - st.carr_err) + carr_err * (pdi / tau1c)
+    if config.fll_bandwidth_hz > 0:
+        ip_prev = st.fll_ip.to(f64)
+        qp_prev = st.fll_qp.to(f64)
+        cross = ip_prev * q_p64 - qp_prev * i_p64
+        dot = ip_prev * i_p64 + qp_prev * q_p64
+        safe_dot = torch.where(dot != 0, dot, 1.0)
+        ferr = true_divide(torch.where(dot != 0, torch.atan(cross / safe_dot), 0.0),
+                           2.0 * math.pi * pdi)
+        carr_nco = carr_nco + (4.0 * config.fll_bandwidth_hz) * pdi * ferr
+    carr_freq = carr_basis + carr_nco
+
+    # --- DLL (reference: tracking.py:237-251) -------------------------------
+    e_mag = torch.sqrt(a_ie.to(f64) ** 2 + a_qe.to(f64) ** 2)
+    l_mag = torch.sqrt(a_il.to(f64) ** 2 + a_ql.to(f64) ** 2)
+    denom = torch.where(e_mag + l_mag > 0, e_mag + l_mag, 1.0)
+    code_err = torch.where(e_mag + l_mag > 0, (e_mag - l_mag) / denom, 0.0)
+    code_nco = st.code_nco + tau2d / tau1d * (code_err - st.code_err) + code_err * (pdi / tau1d)
+    code_freq = config.code_freq_basis - code_nco
+    if config.carrier_aided_dll:
+        code_freq = code_freq + (config.code_freq_basis / config.l1_freq) * (
+            carr_freq - config.intermediate_freq)
+
+    if K > 1:
+        carr_err = torch.where(upd, carr_err, st.carr_err)
+        carr_nco = torch.where(upd, carr_nco, st.carr_nco)
+        carr_freq = torch.where(upd, carr_freq, st.carr_freq)
+        code_err = torch.where(upd, code_err, st.code_err)
+        code_nco = torch.where(upd, code_nco, st.code_nco)
+        code_freq = torch.where(upd, code_freq, st.code_freq)
+        accs = {f: torch.where(upd, 0.0, a)
+                for f, a in zip(_ACC_FIELDS, (a_ie, a_ip, a_il, a_qe, a_qp, a_ql))}
+        accs["fll_ip"] = torch.where(upd, a_ip, st.fll_ip)
+        accs["fll_qp"] = torch.where(upd, a_qp, st.fll_qp)
+    else:
+        accs = {f: getattr(st, f) for f in _ACC_FIELDS}
+        accs["fll_ip"] = a_ip
+        accs["fll_qp"] = a_qp
+
+    # --- state update (frozen when inactive) --------------------------------
+    new = TrackState(
+        ptr=st.ptr + blk,
+        carr_phase=wrap_u32_to_i32(st.carr_phase.to(torch.int64) + w.to(torch.int64) * blk),
+        code_rem_q=st.code_rem_q + step_q * blk - code_len_q,
+        carr_freq=carr_freq,
+        code_freq=code_freq,
+        carr_nco=carr_nco,
+        carr_err=carr_err,
+        code_nco=code_nco,
+        code_err=code_err,
+        ms=st.ms + 1,
+        block_base=st.block_base,
+        **accs,
+    )
+    new = TrackState(*[torch.where(active, n, o) for n, o in zip(new, st)])
+
+    frac = new.code_rem_q.to(f64) / step_q.to(f64)
+    z = lambda x: torch.where(active, x, 0)                   # noqa: E731
+    outs = MsOutputs(
+        absolute_sample=z(new.ptr), sample_frac=z(frac),
+        code_freq=z(code_freq), carr_freq=z(carr_freq),
+        i_p=z(i_p), i_e=z(i_e), i_l=z(i_l), q_e=z(q_e), q_p=z(q_p), q_l=z(q_l),
+        dll_discr=z(code_err), dll_discr_filt=z(code_nco),
+        pll_discr=z(carr_err), pll_discr_filt=z(carr_nco),
+    )
+    return new, outs
+
+
+def _check_overflow(ovf: torch.Tensor) -> None:
+    """Raise if any frame failed to contain its ms span."""
+    n = int(ovf.max()) if ovf.numel() else 0
+    if n > 0:
+        raise RuntimeError(
+            f"tracking frame overflowed its static window by {n} samples — "
+            "code-phase drift within a block exceeded the frame slack; "
+            "increase config.track_frame_margin or reduce track_block_ms")
+
+
+def capture_words(signal: torch.Tensor) -> torch.Tensor:
+    """(L,) int32 little-endian word view of an int8 capture (free when
+    the capture starts on a 4-byte boundary; trailing samples dropped)."""
+    n = signal.shape[0] // 4 * 4
+    sig = signal[:n]
+    if sig.storage_offset() % 4:
+        sig = sig.clone()
+    return sig.view(torch.int32)
+
+
+def track_segments(config: ReceiverConfig, words, state: TrackState, code_pads,
+                  carr_basis, active, n_ms: int, start_ms: int,
+                  build, block):
+    """Run ``n_ms`` ms as lead / full / tail segments on the absolute ms
+    grid, each one ``build`` (frames) + ``block`` (tracker) call pair —
+    megakernel.build_frames / track_block in :func:`track`, or their plain
+    versions when a check holds the kernels against them.  ``words``:
+    the capture's int32 word view (:func:`capture_words`).
+    Returns (final_state, MsOutputs of (n_ms, C) leaves, (C,) overflow)."""
+    spc = config.samples_per_code
+    spc_w = spc // 4
+    win_w = config.track_window // 4
+    pre = config.track_frame_pre
+    B = max(1, config.track_block_ms)
+    phase = start_ms % B
+    lead = min(B - phase, n_ms) if phase else 0
+    n_full = (n_ms - lead) // B
+    r_tail = n_ms - lead - n_full * B
+
+    def segment(st, base, p0: int, r: int):
+        # frame (j, c) starts at word base//4 + (p0+j)*spc/4: a function of
+        # the absolute ms, so a resumed run rebuilds the same frames
+        start_w = torch.div(base, 4, rounding_mode="floor") + p0 * spc_w
+        # inactive channels' pointers freeze: keep their (never read)
+        # frames on an active channel's span
+        any_act = torch.where(active, start_w, 0).max()
+        start_w = torch.where(active, start_w, any_act)
+        frames = build(words, start_w, r, win_w, spc_w)
+        return block(frames, 4 * start_w, st, code_pads, carr_basis, active,
+                     config, r)
+
+    st = state
+    parts, ovfs = [], []
+    plan = ([("lead", phase, lead)] if lead else []) + [("block", 0, B)] * n_full \
+        + ([("block", 0, r_tail)] if r_tail else [])
+    for kind, p0, r in plan:
+        if kind == "lead":   # finish the grid block a resumed run stopped in
+            base = st.block_base
+        else:
+            base = st.ptr - pre
+            st = st._replace(block_base=base)
+        st, ys, ovf = segment(st, base, p0, r)
+        parts.append(ys)
+        ovfs.append(ovf)
+    ys = MsOutputs(*[torch.cat(leaf) for leaf in zip(*parts)])
+    return st, ys, torch.stack(ovfs).amax(0)
+
+
+def track(config: ReceiverConfig, signal: torch.Tensor, channels: Channels,
+          n_ms: int | None = None, state: TrackState | None = None) -> TrackResults:
+    """Track all channels over ``n_ms`` milliseconds of the capture, on the
+    device ``signal`` lies on.
+
+    ``signal`` is the full raw int8 capture, *including* any skipped
+    prefix — channel pointers are absolute sample indices
+    (reference: tracking.py:107,255).  ``state``: a previous run's
+    ``final_state`` (tensors on any device, or NumPy via
+    convert.track_state_from_numpy) to resume from."""
+    from softgnss_tpu_torch.track.megakernel import build_frames, track_block
+
+    signal = torch.as_tensor(signal)
+    dev = signal.device
+    spc = config.samples_per_code
+    if spc % 4:
+        raise ValueError(
+            f"the tracker reads the capture as int32 words and needs "
+            f"samples_per_code % 4 == 0 (got {spc}); other front ends take the "
+            "per-ms correlator, kernel B4 in ROADMAP.md, not ported yet")
+    n_ms = int(config.ms_to_process if n_ms is None else n_ms)
+    if n_ms <= 0:
+        raise ValueError(f"n_ms must be positive, got {n_ms}")
+    # anchor the length check at the resume pointer, not the capture start
+    start = (config.skip_samples if state is None else int(state.ptr.max()))
+    needed = start + (n_ms + 2) * spc
+    if signal.shape[0] < needed:
+        raise ValueError(
+            f"capture too short for tracking: need >= {needed} samples, got {signal.shape[0]}"
+        )
+
+    code_pads = build_tables(np.asarray(channels.prn), dev)
+    active = torch.tensor([s == "T" for s in channels.status], device=dev)
+    carr_basis = torch.as_tensor(np.asarray(channels.acquired_freq, np.float64)).to(dev)
+    if state is None:
+        state = initial_state(config, channels, dev)
+        start_ms = 0
+    else:
+        state = TrackState(*[torch.as_tensor(v).to(dev) for v in state])
+        start_ms = int(state.ms.max())
+
+    final, ys, ovf = track_segments(config, capture_words(signal), state, code_pads,
+                                   carr_basis, active, n_ms, start_ms,
+                                   build_frames, track_block)
+    _check_overflow(ovf)
+    host = {f: getattr(ys, f).cpu().numpy().T for f in MsOutputs._fields}
+    return TrackResults(final_state=final, prn=np.asarray(channels.prn),
+                        status=list(channels.status), **host)

@@ -1,0 +1,113 @@
+"""The port's two tracking kernels, build_frames (B2) and track_block (B1),
+without the JAX package: this file imports only torch, numpy and
+softgnss_tpu_torch, so it also runs on the card's machine, which has no
+JAX:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+On the CPU the wrappers run their plain versions; the ``gpu`` tests
+compare the CUDA kernels with those plain versions and skip without a
+card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import softgnss_tpu_torch as sgt
+from softgnss_tpu_torch.acquire.search import Channels
+from softgnss_tpu_torch.signals.synth import SatelliteSignal, synthesize_signal
+from softgnss_tpu_torch.track import megakernel as mk
+from softgnss_tpu_torch.track import scan
+
+torch.set_num_threads(1)
+
+
+def test_build_frames_zero_fill():
+    """Words before the capture start or past its end come back as 0."""
+    cap = torch.arange(1, 101, dtype=torch.int32)
+    frames = mk.build_frames(cap, torch.tensor([-3, 90]), 2, 8, 5)
+    want = np.zeros((2, 2, 8), np.int32)
+    for j in range(2):
+        for c, s in enumerate((-3, 90)):
+            for i in range(8):
+                k = s + 5 * j + i
+                want[j, c, i] = k + 1 if 0 <= k < 100 else 0
+    np.testing.assert_array_equal(frames.numpy(), want)
+
+
+def _scenario(device):
+    cfg = sgt.fast_config(number_of_channels=3, track_block_ms=16)
+    sats = [SatelliteSignal(prn=p, doppler_hz=d, delay_samples=float(s), phase0=ph,
+                            amplitude=2.0, nav_bits=(1, -1, -1, 1))
+            for p, d, s, ph in ((5, 1200.0, 333, 0.4), (11, -2500.0, 1777, 2.1),
+                                (20, 400.0, 40, 5.0))]
+    sig = synthesize_signal(cfg, sats, 100, noise_std=4.0, seed=4, device=device)
+    ch = Channels(prn=np.asarray([s.prn for s in sats]),
+                  acquired_freq=np.asarray([cfg.intermediate_freq + s.doppler_hz for s in sats]),
+                  code_phase=np.asarray([int(s.delay_samples) for s in sats], np.int64),
+                  status=["T", "-", "T"])
+    return cfg, sig, ch
+
+
+def test_plain_path_counts_no_launches():
+    """CPU tensors take the plain versions: no kernel launch is counted."""
+    cfg, sig, ch = _scenario("cpu")
+    before = (mk.build_frames.launches, mk.track_block.launches)
+    res = scan.track(cfg, sig, ch, n_ms=40)
+    assert (mk.build_frames.launches, mk.track_block.launches) == before
+    assert np.all(res.i_p[1] == 0) and np.any(res.i_p[0] != 0)
+
+
+def test_overflow_is_flagged():
+    """A frame that cannot hold its ms span is reported, never silent."""
+    cfg, sig, ch = _scenario("cpu")
+    words = scan.capture_words(sig)
+    st = scan.initial_state(cfg, ch)
+    start_w = torch.div(st.ptr, 4, rounding_mode="floor") + 40     # frames start late
+    frames = mk.build_frames(words, start_w, 4, cfg.track_window // 4,
+                             cfg.samples_per_code // 4)
+    _, _, ovf = mk.track_block(frames, 4 * start_w, st, scan.build_tables(ch.prn),
+                               torch.as_tensor(ch.acquired_freq),
+                               torch.ones(3, dtype=torch.bool), cfg, 4)
+    assert int(ovf.min()) > 0
+    with pytest.raises(RuntimeError, match="overflowed"):
+        scan._check_overflow(ovf)
+    scan._check_overflow(torch.zeros(3, dtype=torch.int64))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels are also checked by chip_smoke.py)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("opts", [{}, {"pdi_ms": 4, "fll_bandwidth_hz": 10.0,
+                                       "carrier_aided_dll": True,
+                                       "dll_correlator_spacing": 0.25}],
+                         ids=["default", "variant"])
+def test_kernels_match_plain_on_card(cuda_device, opts):
+    """Both kernels against their plain versions on the card, through the
+    segment loop (lead segment included), inactive channel included."""
+    cfg, sig, ch = _scenario(cuda_device)
+    cfg = cfg.with_options(**opts)
+    words = scan.capture_words(sig)
+    pads = scan.build_tables(ch.prn, cuda_device)
+    active = torch.tensor([s == "T" for s in ch.status], device=cuda_device)
+    cb = torch.as_tensor(ch.acquired_freq).to(cuda_device)
+    outs = []
+    for build, block in ((mk.build_frames, mk.track_block),
+                         (mk.build_frames_plain, mk.track_block_plain)):
+        st = scan.initial_state(cfg, ch, cuda_device)
+        st, ys1, ov1 = scan.track_segments(cfg, words, st, pads, cb, active, 37, 0,
+                                           build, block)
+        st, ys2, ov2 = scan.track_segments(cfg, words, st, pads, cb, active, 43, 37,
+                                           build, block)
+        assert int(torch.maximum(ov1, ov2).max()) == 0
+        outs.append([torch.cat(p).cpu().numpy() for p in zip(ys1, ys2)] +
+                    [v.cpu().numpy() for v in st])
+    for f, a, b in zip(scan.MsOutputs._fields + scan.TrackState._fields, *outs):
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    torch.cuda.synchronize()
