@@ -8,24 +8,40 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each printed with its seconds; the first failure raises and the
 script exits non-zero:
 
-1. card      — device name and nvidia-smi's name / power limit
-2. build     — nvcc builds both kernels from softgnss_tpu_torch/csrc
-3. nco       — signals.nco on CUDA tensors bit-equal to the same on CPU
-4. B2        — build_frames kernel bit-equal to its plain version at the
-               default geometry, frames past the capture ends included
-5. B1        — track_block kernel vs its plain version over 256 ms of an
-               8-satellite default_config capture synthesized on the card,
-               with a resume (lead segment), at default and in a variant
-               config (pdi_ms=4, FLL, carrier-aided DLL, spacing 0.25)
-6. main path — run_receiver(default_config(), navigate=False,
-               device="cuda") over the reference's 37 000 ms: every
-               injected PRN acquired and locked, every block through both
-               kernels
+1. card       — device name and nvidia-smi's name / power limit
+2. build      — nvcc builds the four kernels from softgnss_tpu_torch/csrc
+3. nco        — signals.nco on CUDA tensors bit-equal to the same on CPU
+4. B2         — build_frames kernel bit-equal to its plain version at the
+                default geometry, frames past the capture ends included
+5. synthesize — build_scenario(default_config(), n_sats=8) (circular
+                orbits, real nav subframes, C/N0 53 dB-Hz) synthesized on
+                the card by synthesize_scenario: 37 020 ms, 1.41 GB int8
+6. B1, B3, B4 — track_block, track_block_fused and correlate_ms against
+                their plain versions over 256 ms of that capture, with a
+                resume (lead segment) and an idle channel, at default and
+                in a variant config (pdi_ms=4, FLL, carrier-aided DLL,
+                spacing 0.25); each kernel's time per launch
+7. main path  — run_receiver(default_config(), navigate=True,
+                device="cuda") over the reference's 37 000 ms (block
+                tracker, B2 + B1): every satellite acquired and locked,
+                ephemerides decoded equal to truth, TOW equal, >= 90 % of
+                epochs fixed, 3D error median < 30 m and mean < 40 m,
+                static |v| median < 0.3 m/s
+8. fused      — the same channels with mega_fused_frames=True (B3):
+                every tracking output bit-equal to the main path's
+9. per-ms     — the same channels with correlator_impl='pallas' (B4,
+                loop filters in torch) and navigation: the closed-loop
+                bounds of the main path, and against the block tracker
+                absolute_sample within +-1, correlator relative RMS < 1e-3,
+                carr_freq within 0.5 Hz
+10. front end — 'auto' at fs = 38.194 MHz (samples_per_code % 4 != 0):
+                8 channels over 2 000 ms on the per-ms tracker, locked
 
-The line before the last is nvidia-smi's card name and power limit, the
-one before it the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Exits non-zero, printing no result, when
-no CUDA device is available.
+Each tracking phase zeroes every kernel's launch count just before it and
+checks the counts just after.  The line before the last is nvidia-smi's
+card name and power limit, the one before it the kernels' JSON record;
+the last line is {"ok": true, "device": {...}}.  Exits non-zero, printing
+no result, when no CUDA device is available.
 """
 
 from __future__ import annotations
@@ -45,6 +61,11 @@ NOISE_STD = 8.0
 #: peak metric sits near the 2.5 threshold (~2.3-3.9 on the fast front
 #: end), so the upper part of the 50-54 dB-Hz band keeps acquisition sure
 CN0_DBHZ = (52.0, 54.0)
+#: the closed-loop scenario's C/N0 (one amplitude for all satellites)
+SCENARIO_CN0_DBHZ = 53.0
+#: a front end whose code period is not whole int32 words (38194 samples)
+ODD_FS = 38_194_000.0
+ODD_MS = 2_000
 #: capture ms: the reference's ms_to_process plus acquisition and slack
 CAPTURE_MS = 37_020
 MAIN_MS = 37_000
@@ -52,6 +73,10 @@ PARITY_MS = (100, 156)     # two track calls: the second resumes mid-block
 TOL_CORR = 1e-4            # max |kernel - plain| / RMS, each correlator
 TOL_FREQ_HZ = 1e-3         # carr/code freq, a tenth of the NCO step fs/2^32
 TOL_FRAC = 1e-6            # sample_frac
+#: per-ms tracker against the block tracker over 37 000 ms (the oracle
+#: tolerances of ROADMAP's north star: the routes run the same math, the
+#: filters in torch on one and in B1 on the other)
+ROUTE_TOL = {"absolute_sample": 1, "corr_rel_rms": 1e-3, "carr_freq_hz": 0.5}
 
 
 @contextlib.contextmanager
@@ -74,14 +99,25 @@ def smi_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, n: int) -> float:
-    """Mean device ms of ``fn()`` over ``n`` calls, after one warm-up."""
+def cuda_ms(fn, n: int, busy: bool = False) -> float:
+    """Mean ms per call of ``fn()`` over ``n`` calls after one warm-up,
+    timed by CUDA events.  ``busy``: the card first spins
+    (``torch.cuda._sleep``) for longer than the host takes to enqueue the
+    calls, so they run back to back and the events time the device work
+    alone, not the host's launch rate (only for ``fn`` that never waits
+    for the card)."""
     import torch
 
     fn()
+    torch.cuda.synchronize()
+    if busy:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(3e9 * (time.perf_counter() - t0)))   # cycles, <= 2 GHz clock
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
     start.record()
     for _ in range(n):
         fn()
@@ -90,7 +126,21 @@ def cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(stop) / n
 
 
+def host_ms(fn, n: int) -> float:
+    """Mean host ms per call of ``fn()``, synchronized at both ends."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
 def make_scenario(cfg):
+    """Static satellites for a synthesize_signal capture at ``cfg``."""
     from softgnss_tpu_torch.signals.synth import SatelliteSignal, amplitude_for_cn0
 
     rng = np.random.default_rng(SEED)
@@ -105,6 +155,35 @@ def make_scenario(cfg):
             phase0=float(rng.uniform(0, 2 * np.pi)),
             nav_bits=tuple(int(b) for b in rng.choice([-1, 1], 64))))
     return sats
+
+
+def truth_channels(sc, status):
+    """Tracking channels at the scenario's truth (acquisition's values)."""
+    from softgnss_tpu_torch.acquire.search import Channels
+
+    spc = sc.config.samples_per_code
+    return Channels(
+        prn=np.asarray(sc.prns, np.int64),
+        acquired_freq=np.asarray([sc.expected_carrier_freq(i) for i in range(len(sc.prns))]),
+        code_phase=np.asarray([int(round(sc.expected_code_phase(i))) % spc
+                               for i in range(len(sc.prns))], np.int64),
+        status=list(status))
+
+
+def reset_launches():
+    from softgnss_tpu_torch.track import megakernel as mk
+    from softgnss_tpu_torch.track import pallas_kernel as pk
+
+    for fn in (mk.build_frames, mk.track_block, mk.track_block_fused, pk.correlate_ms):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from softgnss_tpu_torch.track import megakernel as mk
+    from softgnss_tpu_torch.track import pallas_kernel as pk
+
+    return {fn.__name__: fn.launches
+            for fn in (mk.build_frames, mk.track_block, mk.track_block_fused, pk.correlate_ms)}
 
 
 def phase_nco(dev) -> None:
@@ -153,7 +232,7 @@ def phase_b2(cfg, dev) -> dict:
     check(torch.equal(got, want), "B2 frames differ from the plain version")
     check(bool((got[0, 0, :2] == 0).all()) and bool((got[-1, 1, -2:] == 0).all()),
           "B2 zero fill")
-    ms = cuda_ms(lambda: mk.build_frames(cap, starts, r, win_w, spc_w), 50)
+    ms = cuda_ms(lambda: mk.build_frames(cap, starts, r, win_w, spc_w), 50, busy=True)
     plain_ms = cuda_ms(lambda: mk.build_frames_plain(cap, starts, r, win_w, spc_w), 10)
     print(f"  frames {tuple(got.shape)} int32 bit-equal; kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms per block")
@@ -164,144 +243,351 @@ def phase_b2(cfg, dev) -> dict:
             "ms": ms, "plain_ms": plain_ms}
 
 
-def run_split(cfg, words, channels, build, block):
-    """PARITY_MS[0] ms, then a resumed PARITY_MS[1] ms (lead segment)."""
+def run_split(cfg, sig, channels, build, block):
+    """PARITY_MS[0] ms, then a resumed PARITY_MS[1] ms (lead segment) on
+    the block tracker (``build=None``: fused) or, with ``build='per_ms'``,
+    on the per-ms tracker with ``block`` as its correlator."""
     import torch
 
-    from softgnss_tpu_torch.track.scan import MsOutputs, initial_state, track_segments
+    from softgnss_tpu_torch.track.scan import (MsOutputs, capture_words, initial_state,
+                                               track_ms, track_segments)
     from softgnss_tpu_torch.track.tables import build_tables
 
-    dev = words.device
+    dev = sig.device
     pads = build_tables(channels.prn, dev)
     active = torch.tensor([s == "T" for s in channels.status], device=dev)
     cb = torch.as_tensor(channels.acquired_freq).to(dev)
     st0 = initial_state(cfg, channels, dev)
-    st1, ys1, ov1 = track_segments(cfg, words, st0, pads, cb, active,
-                                   PARITY_MS[0], 0, build, block)
-    st2, ys2, ov2 = track_segments(cfg, words, st1, pads, cb, active,
-                                   PARITY_MS[1], PARITY_MS[0], build, block)
-    check(int(torch.maximum(ov1, ov2).max()) == 0, "frame overflow")
+    if build == "per_ms":
+        st1, ys1 = track_ms(cfg, sig, st0, pads, cb, active, PARITY_MS[0], 0, block)
+        st2, ys2 = track_ms(cfg, sig, st1, pads, cb, active, PARITY_MS[1], PARITY_MS[0],
+                            block)
+    else:
+        words = capture_words(sig)
+        st1, ys1, ov1 = track_segments(cfg, words, st0, pads, cb, active,
+                                       PARITY_MS[0], 0, build, block)
+        st2, ys2, ov2 = track_segments(cfg, words, st1, pads, cb, active,
+                                       PARITY_MS[1], PARITY_MS[0], build, block)
+        check(int(torch.maximum(ov1, ov2).max()) == 0, "frame overflow")
     ys = MsOutputs(*[torch.cat(p).cpu().numpy() for p in zip(ys1, ys2)])
     return st0, st2, ys
 
 
-def phase_b1(cfg, words, sats, dev) -> dict:
+VARIANT = dict(pdi_ms=4, fll_bandwidth_hz=10.0, carrier_aided_dll=True,
+               dll_correlator_spacing=0.25)
+
+
+def hold_against_plain(name, cfg, sig, channels, kernel, plain) -> float:
+    """Run ``kernel`` and ``plain`` ((build, block) pairs for run_split)
+    over the PARITY_MS split at default and VARIANT configs; check the
+    tolerances, the idle channel and finiteness.  Returns the worst
+    absolute correlator difference at the default config."""
     import torch
 
-    from softgnss_tpu_torch.acquire.search import Channels
-    from softgnss_tpu_torch.track import megakernel as mk
-    from softgnss_tpu_torch.track.scan import initial_state
-    from softgnss_tpu_torch.track.tables import build_tables
-
-    spc = cfg.samples_per_code
-    status = ["T"] * (N_SATS - 1) + ["-"]
-    channels = Channels(
-        prn=np.asarray([s.prn for s in sats], np.int64),
-        acquired_freq=np.asarray([cfg.intermediate_freq + s.doppler_hz for s in sats]),
-        code_phase=np.asarray([int(round(s.delay_samples)) % spc for s in sats], np.int64),
-        status=status)
-    act = np.asarray([s == "T" for s in status])
-    variant = dict(pdi_ms=4, fll_bandwidth_hz=10.0, carrier_aided_dll=True,
-                   dll_correlator_spacing=0.25)
+    act = np.asarray([s == "T" for s in channels.status])
     worst = 0.0
-    for label, c in (("default", cfg), ("variant", cfg.with_options(**variant))):
-        st0, stk, yk = run_split(c, words, channels, mk.build_frames, mk.track_block)
-        _, stp, yp = run_split(c, words, channels, mk.build_frames_plain,
-                               mk.track_block_plain)
+    for label, c in (("default", cfg), ("variant", cfg.with_options(**VARIANT))):
+        st0, stk, yk = run_split(c, sig, channels, *kernel)
+        _, stp, yp = run_split(c, sig, channels, *plain)
         check(np.array_equal(yk.absolute_sample, yp.absolute_sample),
-              f"B1 {label}: absolute_sample differs")
+              f"{name} {label}: absolute_sample differs")
         errs = {}
         for f in ("i_p", "i_e", "i_l", "q_e", "q_p", "q_l"):
             a, b = getattr(yk, f)[:, act], getattr(yp, f)[:, act]
             errs[f] = float(np.abs(a - b).max() / np.sqrt(np.mean(b.astype(np.float64) ** 2)))
-            check(errs[f] < TOL_CORR, f"B1 {label}: {f} rel err {errs[f]:.3e}")
+            check(errs[f] < TOL_CORR, f"{name} {label}: {f} rel err {errs[f]:.3e}")
             if label == "default":
                 worst = max(worst, float(np.abs(a - b).max()))
         for f, tol in (("carr_freq", TOL_FREQ_HZ), ("code_freq", TOL_FREQ_HZ),
                        ("sample_frac", TOL_FRAC)):
             errs[f] = float(np.abs(getattr(yk, f) - getattr(yp, f)).max())
-            check(errs[f] < tol, f"B1 {label}: {f} err {errs[f]:.3e}")
+            check(errs[f] < tol, f"{name} {label}: {f} err {errs[f]:.3e}")
+        n_diff = sum(int(np.any(getattr(yk, f) != getattr(yp, f), axis=1).sum())
+                     for f in yk._fields)
         # the inactive channel: zero outputs, state frozen
         for f in yk._fields:
-            check(not np.any(getattr(yk, f)[:, ~act]), f"B1 {label}: idle {f} not zero")
-        idle = ~torch.from_numpy(act).to(dev)
+            check(not np.any(getattr(yk, f)[:, ~act]), f"{name} {label}: idle {f} not zero")
+        idle = ~torch.from_numpy(act).to(sig.device)
         for f, v0, v in zip(st0._fields, st0, stk):
-            check(torch.equal(v0[idle], v[idle]), f"B1 {label}: idle channel state {f} moved")
+            check(torch.equal(v0[idle], v[idle]), f"{name} {label}: idle channel state {f} moved")
         check(all(np.isfinite(getattr(yk, f)).all() for f in yk._fields),
-              f"B1 {label}: non-finite outputs")
-        print(f"  {label}: {sum(PARITY_MS)} ms x {N_SATS} ch, absolute_sample equal; "
+              f"{name} {label}: non-finite outputs")
+        print(f"  {label}: {sum(PARITY_MS)} ms x {len(act)} ch, absolute_sample equal, "
+              f"{n_diff} (ms, output) rows not bit-equal; "
               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    return worst
+
+
+def phase_block_kernels(cfg, sig, sc, dev) -> tuple[dict, dict]:
+    """B1 and B3 against their plain versions; one full block timed."""
+    import torch
+
+    from softgnss_tpu_torch.track import megakernel as mk
+    from softgnss_tpu_torch.track.scan import capture_words, initial_state
+    from softgnss_tpu_torch.track.tables import build_tables
+
+    spc = cfg.samples_per_code
+    channels = truth_channels(sc, ["T"] * (N_SATS - 1) + ["-"])
+    worst_b1 = hold_against_plain("B1", cfg, sig, channels,
+                                  (mk.build_frames, mk.track_block),
+                                  (mk.build_frames_plain, mk.track_block_plain))
+    worst_b3 = hold_against_plain("B3", cfg, sig, channels,
+                                  (None, mk.track_block_fused),
+                                  (None, mk.track_block_fused_plain))
 
     # one full block at the main path's shapes
+    words = capture_words(sig)
     pads = build_tables(channels.prn, dev)
-    active = torch.from_numpy(act).to(dev)
+    active = torch.tensor([s == "T" for s in channels.status], device=dev)
     cb = torch.as_tensor(channels.acquired_freq).to(dev)
     st = initial_state(cfg, channels, dev)
     r = cfg.track_block_ms
     start_w = torch.div(st.ptr - cfg.track_frame_pre, 4, rounding_mode="floor")
     frames = mk.build_frames(words, start_w, r, cfg.track_window // 4, spc // 4)
     args = (frames, 4 * start_w, st, pads, cb, active, cfg, r)
-    ms = cuda_ms(lambda: mk.track_block(*args), 20)
-    plain_ms = cuda_ms(lambda: mk.track_block_plain(*args), 3)
-    print(f"  block r={r} x {N_SATS} ch: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    return {"name": "track_block", "route": "cuda",
-            "source": "softgnss_tpu_torch/csrc/track_block.cu",
-            "replaces": "softgnss_tpu/track/megakernel.py:254",
+    fargs = (words, start_w, st, pads, cb, active, cfg, r)
+    # capture edges: frames before its start and past its end read as
+    # zeros in B3 as B2 fills them (B2 + B1 on the card, and plain)
+    n_words = words.shape[0]
+    edge_w = start_w.clone()
+    edge_w[0], edge_w[1] = -3, n_words - 2 * (spc // 4)
+    st_e = st._replace(ptr=4 * edge_w + cfg.track_frame_pre)
+    e_frames = mk.build_frames(words, edge_w, 4, cfg.track_window // 4, spc // 4)
+    e_args = (st_e, pads, cb, active, cfg, 4)
+    outs = [mk.track_block_fused(words, edge_w, *e_args),
+            mk.track_block(e_frames, 4 * edge_w, *e_args),
+            mk.track_block_fused_plain(words, edge_w, *e_args)]
+    for got in outs[1:]:
+        for x, y in zip(outs[0][1], got[1]):
+            check(torch.equal(x, y), "B3 at the capture edges differs from B2 + B1")
+    print("  capture edges: B3 bit-equal to B2 + B1 (kernels and plain)")
+    b1_ms = cuda_ms(lambda: mk.track_block(*args), 20, busy=True)
+    b1_plain = cuda_ms(lambda: mk.track_block_plain(*args), 3)
+    b3_ms = cuda_ms(lambda: mk.track_block_fused(*fargs), 20, busy=True)
+    b3_plain = cuda_ms(lambda: mk.track_block_fused_plain(*fargs), 3)
+    print(f"  block r={r} x {N_SATS} ch: B1 {b1_ms:.3f} ms (plain {b1_plain:.3f} ms), "
+          f"B3 {b3_ms:.3f} ms (plain: build + track {b3_plain:.3f} ms)")
+    rec_b1 = {"name": "track_block", "route": "cuda",
+              "source": "softgnss_tpu_torch/csrc/track_block.cu",
+              "replaces": "softgnss_tpu/track/megakernel.py:254",
+              "max_abs_err": worst_b1, "ms": b1_ms, "plain_ms": b1_plain}
+    rec_b3 = {"name": "track_block_fused", "route": "cuda",
+              "source": "softgnss_tpu_torch/csrc/track_block.cu",
+              "replaces": "softgnss_tpu/track/megakernel.py:749",
+              "max_abs_err": worst_b3, "ms": b3_ms, "plain_ms": b3_plain}
+    return rec_b1, rec_b3
+
+
+def phase_b4(cfg, sig, sc, dev) -> dict:
+    """B4 against its plain version through the per-ms driver; one launch
+    timed at the main path's shapes."""
+    import torch
+
+    from softgnss_tpu_torch.signals.nco import CODE_ONE, carrier_step_u32, code_step_q
+    from softgnss_tpu_torch.track import pallas_kernel as pk
+    from softgnss_tpu_torch.track.scan import initial_state
+    from softgnss_tpu_torch.track.tables import build_tables
+
+    channels = truth_channels(sc, ["T"] * (N_SATS - 1) + ["-"])
+    worst = hold_against_plain("B4", cfg, sig, channels, ("per_ms", pk.correlate_ms),
+                               ("per_ms", pk.correlate_ms_plain))
+    st = initial_state(cfg, channels, dev)
+    step_q = code_step_q(st.code_freq, cfg.sampling_freq)
+    blk = torch.div(cfg.code_length * CODE_ONE - st.code_rem_q + step_q - 1, step_q,
+                    rounding_mode="floor")
+    w = carrier_step_u32(st.carr_freq, cfg.sampling_freq)
+    active = torch.tensor([s == "T" for s in channels.status], device=dev)
+    args = (cfg, sig, st.ptr, st.carr_phase, w, st.code_rem_q, step_q, blk,
+            build_tables(channels.prn, dev), active)
+    ms = cuda_ms(lambda: pk.correlate_ms(*args), 200, busy=True)
+    wrapper_ms = host_ms(lambda: pk.correlate_ms(*args), 200)
+    plain_ms = cuda_ms(lambda: pk.correlate_ms_plain(*args), 20)
+    print(f"  one ms x {N_SATS} ch: kernel {ms:.4f} ms of device time per launch "
+          f"({wrapper_ms:.4f} ms of host time per wrapper call), plain {plain_ms:.4f} ms")
+    return {"name": "correlate_ms", "route": "cuda",
+            "source": "softgnss_tpu_torch/csrc/correlate_ms.cu",
+            "replaces": "softgnss_tpu/track/pallas_kernel.py:98",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_main(cfg, sig, sats, card: str) -> dict:
-    from softgnss_tpu_torch.acquire.search import fine_freq_resolution
-    from softgnss_tpu_torch.pipeline import run_receiver
-    from softgnss_tpu_torch.track import megakernel as mk
+def check_locked(label, tr, skip_ms: int) -> None:
+    """Every channel tracking, its PLL locked (data on I_P) and finite."""
+    check(all(s == "T" for s in tr.status) and np.isinf(tr.lock_loss_ms).all(),
+          f"{label}: demoted channels: status {tr.status}")
+    for ch in range(len(tr.prn)):
+        ip = np.abs(tr.i_p[ch, skip_ms:]).mean()
+        qp = np.abs(tr.q_p[ch, skip_ms:]).mean()
+        check(ip / qp > 4.0, f"{label}: ch {ch} PRN {int(tr.prn[ch])} not phase locked "
+                             f"(|I_P|/|Q_P| {ip / qp:.2f})")
+    check(all(np.isfinite(getattr(tr, f)).all() for f in
+              ("carr_freq", "code_freq", "i_p", "q_p", "sample_frac")),
+          f"{label}: non-finite tracking")
 
-    spc = cfg.samples_per_code
+
+def check_fix(label, res, sc) -> dict:
+    """The closed-loop bounds of tests/test_end_to_end.py."""
+    check(res.has_fix, f"{label}: no position fix")
+    for i, prn in enumerate(sc.prns):
+        eph = res.ephemerides[prn - 1]
+        truth = sc.ephemerides[i]
+        check(eph is not None and eph.complete, f"{label}: PRN {prn} ephemeris missing")
+        check(abs(eph.sqrt_a - truth.sqrt_a) <= 2.0**-19 and eph.t_oe == truth.t_oe
+              and eph.iode_sf2 == truth.iode_sf2, f"{label}: PRN {prn} ephemeris differs")
+    sol = res.solutions
+    check(sol.tow == sc.tow_count * 6, f"{label}: TOW {sol.tow} != {sc.tow_count * 6}")
+    rx = sc.receiver_ecef
+    ok = np.isfinite(sol.x)
+    err = np.sqrt((sol.x[ok] - rx[0]) ** 2 + (sol.y[ok] - rx[1]) ** 2
+                  + (sol.z[ok] - rx[2]) ** 2)
+    v = np.sqrt(sol.vx**2 + sol.vy**2 + sol.vz**2)
+    out = {"fixed": int(ok.sum()), "epochs": int(sol.n_epochs),
+           "err_median_m": float(np.median(err)), "err_mean_m": float(np.mean(err)),
+           "v_median_ms": float(np.nanmedian(v))}
+    check(ok.sum() >= 0.9 * sol.n_epochs, f"{label}: {out}")
+    check(out["err_median_m"] < 30.0 and out["err_mean_m"] < 40.0, f"{label}: {out}")
+    check(out["v_median_ms"] < 0.3, f"{label}: {out}")
+    print(f"  {label} fix: {out['fixed']}/{out['epochs']} epochs, 3D error median "
+          f"{out['err_median_m']:.3f} m, mean {out['err_mean_m']:.3f} m, |v| median "
+          f"{out['v_median_ms']:.4f} m/s, TOW {sol.tow:.0f}")
+    return out
+
+
+def report_times(label, res, card: str) -> None:
+    spc = res.config.samples_per_code
+    n_ms = res.tracking.n_ms
+    t_trk = res.timings_s["track"]
+    msps = n_ms * spc / t_trk / 1e6
+    times = ", ".join(f"{k} {v:.3f} s" for k, v in res.timings_s.items())
+    print(f"  [{card}] {label}: {times} ({n_ms} ms: {msps:.1f} capture Msamples/s, "
+          f"{msps * len(res.tracking.prn):.1f} channel-Msamples/s)")
+
+
+def phase_main(cfg, sig, sc, card: str):
+    from softgnss_tpu_torch.pipeline import run_receiver
+
     B = cfg.track_block_ms
     n_segments = MAIN_MS // B + (MAIN_MS % B > 0)
-    mk.build_frames.launches = 0
-    mk.track_block.launches = 0
-    res = run_receiver(cfg, signal=sig, n_ms=MAIN_MS, navigate=False, device=sig.device)
-    launches = {"build_frames": mk.build_frames.launches,
-                "track_block": mk.track_block.launches}
+    reset_launches()
+    res = run_receiver(cfg, signal=sig, n_ms=MAIN_MS, navigate=True, device=sig.device)
+    launches = read_launches()
     print(res.summary())
 
     acq = res.acquisition
-    injected = {s.prn for s in sats}
+    injected = set(sc.prns)
     got = set((np.flatnonzero(acq.acquired) + 1).tolist())
     check(injected <= got, f"acquired {sorted(got)}, injected {sorted(injected)}")
     tr = res.tracking
     check(set(tr.prn.tolist()) == injected and len(tr.prn) == N_SATS,
           f"channels hold {sorted(tr.prn.tolist())}")
-    res_hz = fine_freq_resolution(cfg)
-    for s in sats:
-        cp = acq.code_phase[s.prn - 1]
-        d = (cp - s.delay_samples) % spc
-        check(min(d, spc - d) <= 1.0, f"PRN {s.prn}: code phase {cp} vs {s.delay_samples}")
-        df = abs(acq.carr_freq[s.prn - 1] - (cfg.intermediate_freq + s.doppler_hz))
-        check(df <= res_hz, f"PRN {s.prn}: fine freq off by {df:.2f} Hz")
+    # the truth delay is fractional and the acquisition grid has whole
+    # samples (37.3 per chip here): hold it to a tenth of a chip
+    tol = 0.1 * cfg.sampling_freq / cfg.code_freq_basis
+    for i, prn in enumerate(sc.prns):
+        d = abs(acq.code_phase[prn - 1] - sc.expected_code_phase(i))
+        check(d <= tol, f"PRN {prn}: code phase off by {d:.2f} samples")
+        df = abs(acq.carr_freq[prn - 1] - sc.expected_carrier_freq(i))
+        check(df < 20.0, f"PRN {prn}: fine freq off by {df:.2f} Hz")
     check(tr.n_ms == MAIN_MS, f"tracked {tr.n_ms} ms")
+    check_locked("main path", tr, 2000)
+    fix = check_fix("main path", res, sc)
+    want = {"build_frames": n_segments, "track_block": n_segments,
+            "track_block_fused": 0, "correlate_ms": 0}
+    check(launches == want, f"kernel launches {launches}, expected {want}")
+    print(f"  launches {launches} ({n_segments} segments)")
+    report_times("main path (block tracker)", res, card)
+    return res, launches, fix
+
+
+def phase_fused(cfg, sig, main, card: str) -> dict:
+    """B3 in place of B2 + B1: every tracking output bit-equal."""
+    import torch
+
+    from softgnss_tpu_torch.pipeline import run_receiver
+
+    B = cfg.track_block_ms
+    n_segments = MAIN_MS // B + (MAIN_MS % B > 0)
+    reset_launches()
+    res = run_receiver(cfg.with_options(mega_fused_frames=True), signal=sig, n_ms=MAIN_MS,
+                       navigate=False, channels=main.channels, device=sig.device)
+    launches = read_launches()
+    want = {"build_frames": 0, "track_block": 0, "track_block_fused": n_segments,
+            "correlate_ms": 0}
+    check(launches == want, f"fused: kernel launches {launches}, expected {want}")
+    a, b = res.tracking, main.tracking
+    for f in ("absolute_sample", "sample_frac", "code_freq", "carr_freq", "i_p", "i_e", "i_l",
+              "q_e", "q_p", "q_l", "dll_discr", "dll_discr_filt", "pll_discr",
+              "pll_discr_filt", "lock_loss_ms"):
+        check(np.array_equal(getattr(a, f), getattr(b, f)), f"fused: {f} not bit-equal")
+    for f, x, y in zip(a.final_state._fields, a.final_state, b.final_state):
+        check(torch.equal(x, y), f"fused: final state {f} not bit-equal")
+    check(a.status == b.status, "fused: status differs")
+    print(f"  launches {launches}; every output bit-equal to the main path")
+    report_times("fused (B3)", res, card)
+    return launches
+
+
+def phase_per_ms(cfg, sig, sc, main, card: str):
+    """The per-ms tracker (B4 + torch filters) with navigation."""
+    from softgnss_tpu_torch.pipeline import run_receiver
+
+    reset_launches()
+    res = run_receiver(cfg.with_options(correlator_impl="pallas"), signal=sig, n_ms=MAIN_MS,
+                       navigate=True, channels=main.channels, device=sig.device)
+    launches = read_launches()
+    want = {"build_frames": 0, "track_block": 0, "track_block_fused": 0,
+            "correlate_ms": MAIN_MS}
+    check(launches == want, f"per-ms: kernel launches {launches}, expected {want}")
+    a, b = res.tracking, main.tracking
+    check_locked("per-ms", a, 2000)
+    d_abs = np.abs(a.absolute_sample - b.absolute_sample)
+    rms = {f: float(np.sqrt(np.mean((getattr(a, f).astype(np.float64)
+                                     - getattr(b, f)) ** 2))
+                    / np.sqrt(np.mean(getattr(b, f).astype(np.float64) ** 2)))
+           for f in ("i_p", "i_e", "i_l", "q_e", "q_p", "q_l")}
+    d_carr = float(np.abs(a.carr_freq - b.carr_freq).max())
+    n_ms_diff = int(np.any(np.stack([np.any(getattr(a, f) != getattr(b, f), axis=0)
+                                     for f in ("absolute_sample", "i_p", "q_p", "carr_freq",
+                                               "code_freq")]), axis=0).sum())
+    print(f"  against the block tracker: |absolute_sample| diff max {int(d_abs.max())}, "
+          f"correlator rel RMS max {max(rms.values()):.3e}, carr_freq diff max "
+          f"{d_carr:.3e} Hz; {n_ms_diff} of {MAIN_MS} ms differ at all")
+    check(d_abs.max() <= ROUTE_TOL["absolute_sample"], "per-ms: absolute_sample off")
+    check(max(rms.values()) < ROUTE_TOL["corr_rel_rms"], f"per-ms: correlators {rms}")
+    check(d_carr < ROUTE_TOL["carr_freq_hz"], f"per-ms: carr_freq off by {d_carr}")
+    fix = check_fix("per-ms", res, sc)
+    report_times("per-ms (B4)", res, card)
+    return launches, fix
+
+
+def phase_front_end(dev, card: str) -> dict:
+    """'auto' at a front end with samples_per_code % 4 != 0."""
+    from softgnss_tpu_torch import default_config
+    from softgnss_tpu_torch.pipeline import run_receiver
+    from softgnss_tpu_torch.signals.synth import synthesize_signal
+
+    cfg = default_config(sampling_freq=ODD_FS)
+    check(cfg.samples_per_code % 4 != 0 and cfg.tracker == "per_ms",
+          f"front end: spc {cfg.samples_per_code}, tracker {cfg.tracker}")
+    sats = make_scenario(cfg)
+    sig = synthesize_signal(cfg, sats, ODD_MS + cfg.acquisition_ms + 2, noise_std=NOISE_STD,
+                            seed=SEED, device=dev)
+    reset_launches()
+    res = run_receiver(cfg, signal=sig, n_ms=ODD_MS, navigate=False, device=dev)
+    launches = read_launches()
+    want = {"build_frames": 0, "track_block": 0, "track_block_fused": 0,
+            "correlate_ms": ODD_MS}
+    check(launches == want, f"front end: kernel launches {launches}, expected {want}")
+    tr = res.tracking
+    check(set(tr.prn.tolist()) == {s.prn for s in sats}, f"front end: channels {tr.prn}")
+    check_locked("front end", tr, 300)
     by_prn = {s.prn: s for s in sats}
     for ch, prn in enumerate(tr.prn):
-        ip, qp = np.abs(tr.i_p[ch, 300:]), np.abs(tr.q_p[ch, 300:])
-        ratio = float(np.median(ip) / np.median(qp))
-        ferr = abs(float(np.median(tr.carr_freq[ch, 300:]))
-                   - cfg.intermediate_freq - by_prn[prn].doppler_hz)
-        check(ratio > 5, f"ch {ch} PRN {prn}: median |I_P|/|Q_P| = {ratio:.2f}")
-        check(ferr < 2.0, f"ch {ch} PRN {prn}: median carr_freq error {ferr:.3f} Hz")
-        print(f"  ch {ch} PRN {int(prn):2d}: |I_P|/|Q_P| {ratio:7.2f}, "
-              f"median carr_freq err {ferr:.4f} Hz")
-    check(tr.status == ["T"] * N_SATS and np.isinf(tr.lock_loss_ms).all(),
-          f"demoted channels: status {tr.status}")
-    check(all(np.isfinite(getattr(tr, f)).all() for f in
-              ("carr_freq", "code_freq", "i_p", "q_p", "sample_frac")), "non-finite tracking")
-    check(launches == {"build_frames": n_segments, "track_block": n_segments},
-          f"kernel launches {launches}, expected {n_segments} each")
-    t_acq, t_trk = res.timings_s["acquire"], res.timings_s["track"]
-    msps = MAIN_MS * spc / t_trk / 1e6
-    print(f"  launches {launches} ({n_segments} segments)")
-    print(f"  [{card}] acquire {t_acq:.3f} s, track {t_trk:.3f} s "
-          f"({MAIN_MS} ms): {msps:.1f} capture Msamples/s, "
-          f"{msps * N_SATS:.1f} channel-Msamples/s")
+        ferr = abs(float(np.median(tr.carr_freq[ch, 300:])) - cfg.intermediate_freq
+                   - by_prn[prn].doppler_hz)
+        check(ferr < 2.0, f"front end: ch {ch} PRN {prn}: carr_freq error {ferr:.3f} Hz")
+    print(f"  fs {ODD_FS / 1e6:.3f} MHz, samples_per_code {cfg.samples_per_code}: "
+          f"{len(tr.prn)} channels locked; launches {launches}")
+    report_times("front end (per-ms)", res, card)
     return launches
 
 
@@ -313,9 +599,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from softgnss_tpu_torch import default_config
-    from softgnss_tpu_torch.signals.synth import synthesize_signal
+    from softgnss_tpu_torch.scenario import build_scenario, synthesize_scenario
+    from softgnss_tpu_torch.signals.synth import amplitude_for_cn0
     from softgnss_tpu_torch.track import megakernel as mk
-    from softgnss_tpu_torch.track.scan import capture_words
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -329,27 +615,38 @@ def main() -> int:
         lib = mk.load_library()
         print(f"  nvcc build {lib.build_s:.2f} s -> {lib.path}")
         for line in lib.log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  " + line.strip())
     with phase("nco"):
         phase_nco(dev)
     cfg = default_config()
     with phase("B2 vs plain"):
         rec_b2 = phase_b2(cfg, dev)
-    sats = make_scenario(cfg)
     with phase("synthesize"):
-        sig = synthesize_signal(cfg, sats, CAPTURE_MS, noise_std=NOISE_STD,
-                                seed=SEED, device=dev)
+        sc = build_scenario(cfg, n_sats=N_SATS, noise_std=NOISE_STD,
+                            amplitude=amplitude_for_cn0(cfg, SCENARIO_CN0_DBHZ, NOISE_STD))
+        sig = synthesize_scenario(sc, CAPTURE_MS, seed=SEED, device=dev)
         torch.cuda.synchronize()
         print(f"  {CAPTURE_MS} ms, {sig.numel() / 1e9:.3f} GB int8 on {name}; PRNs "
-              f"{[s.prn for s in sats]}")
-    with phase("B1 vs plain"):
-        rec_b1 = phase_b1(cfg, capture_words(sig), sats, dev)
+              f"{sc.prns}, C/N0 {SCENARIO_CN0_DBHZ} dB-Hz")
+    with phase("B1 and B3 vs plain"):
+        rec_b1, rec_b3 = phase_block_kernels(cfg, sig, sc, dev)
+    with phase("B4 vs plain"):
+        rec_b4 = phase_b4(cfg, sig, sc, dev)
     with phase("main path"):
-        launches = phase_main(cfg, sig, sats, card)
+        main_res, launches, _ = phase_main(cfg, sig, sc, card)
+    with phase("fused"):
+        fused_launches = phase_fused(cfg, sig, main_res, card)
+    with phase("per-ms"):
+        per_ms_launches, _ = phase_per_ms(cfg, sig, sc, main_res, card)
+    del sig
+    with phase("front end"):
+        phase_front_end(dev, card)
     rec_b2["launches"] = launches["build_frames"]
     rec_b1["launches"] = launches["track_block"]
-    print(json.dumps({"kernels": [rec_b2, rec_b1]}))
+    rec_b3["launches"] = fused_launches["track_block_fused"]
+    rec_b4["launches"] = per_ms_launches["correlate_ms"]
+    print(json.dumps({"kernels": [rec_b2, rec_b1, rec_b3, rec_b4]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

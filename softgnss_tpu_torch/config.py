@@ -4,10 +4,15 @@ A frozen dataclass holding every knob of the reference settings object
 (reference: initialize.py:80-185) and the derived quantities the stages
 need.  Field names, defaults and derived properties are those of
 ``softgnss_tpu.config.ReceiverConfig``; the TPU layout knobs of that
-package (capture word packing, Pallas contraction and tiling, fused
-frames, mesh axis names, scan unroll and correlator tile) have no meaning
-on the GPU and are left out (``convert.config_from_dict`` drops them).
-Use :meth:`ReceiverConfig.with_options` to derive variants.
+package (capture word packing, Pallas contraction and tiling, mesh axis
+names, scan unroll and correlator tile) have no meaning on the GPU and are
+left out (``convert.config_from_dict`` drops them).  Use
+:meth:`ReceiverConfig.with_options` to derive variants.
+
+Two trackers (:attr:`ReceiverConfig.tracker`): the block tracker (kernels
+B2 + B1, or B3 with ``mega_fused_frames``) reads the capture through its
+int32 word view and needs ``samples_per_code % 4 == 0``; the per-ms
+tracker (kernel B4, loop filters in torch) takes any front end.
 """
 
 from __future__ import annotations
@@ -16,9 +21,11 @@ import dataclasses
 import math
 from dataclasses import dataclass
 
-#: tracker names accepted by ``correlator_impl``; all select the one
-#: block tracker of softgnss_tpu_torch.track (build_frames + track_block)
-_TRACKERS = ("auto", "gather", "megakernel")
+#: ``correlator_impl`` values and the tracker each selects (None: by the
+#: front end, :attr:`ReceiverConfig.tracker`).  Both trackers compute the
+#: 'gather' formulation, so 'gather' resolves like 'auto'.
+_TRACKERS = {"auto": None, "gather": None, "megakernel": "block",
+             "onehot": "per_ms", "pallas": "per_ms"}
 
 
 @dataclass(frozen=True)
@@ -111,8 +118,13 @@ class ReceiverConfig:
     track_block_ms: int = 64
     #: total static slack (samples) around each frame; 0 = auto-size
     track_frame_margin: int = 0
-    #: 'auto', 'gather' and 'megakernel' all select the block tracker
+    #: 'megakernel' selects the block tracker, 'onehot' / 'pallas' the
+    #: per-ms tracker; 'auto' and 'gather' pick the block tracker when
+    #: samples_per_code % 4 == 0 and the per-ms tracker otherwise
     correlator_impl: str = "auto"
+    #: block tracker only: read each ms window straight from the capture
+    #: inside the tracking kernel (B3) instead of building frames first (B2)
+    mega_fused_frames: bool = False
     #: warm-up ms per time shard (multi-device tracking, not ported yet)
     time_shard_warmup_ms: int = 250
     #: time-chunk size of the streamed tracker (not ported yet)
@@ -121,12 +133,27 @@ class ReceiverConfig:
     def __post_init__(self):
         if self.correlator_impl not in _TRACKERS:
             raise ValueError(
-                f"correlator_impl={self.correlator_impl!r} is not ported: the "
-                f"port has one tracker ({', '.join(map(repr, _TRACKERS))} all "
-                "select it); the per-ms Pallas/one-hot correlator is kernel B4 "
-                "in ROADMAP.md, still to be ported")
+                f"correlator_impl={self.correlator_impl!r}: expected one of "
+                f"{', '.join(map(repr, _TRACKERS))}")
 
     # --- derived ----------------------------------------------------------------
+    @property
+    def tracker(self) -> str:
+        """'block' (B2 + B1, or B3) or 'per_ms' (B4): the tracker
+        ``correlator_impl`` selects.  'auto' mirrors the JAX package's TPU
+        resolution: the block kernels where the int32 word view frames the
+        code period, the per-ms kernel elsewhere."""
+        chosen = _TRACKERS[self.correlator_impl]
+        if chosen is None:
+            chosen = "block" if self.samples_per_code % 4 == 0 else "per_ms"
+        if chosen == "block" and self.samples_per_code % 4:
+            raise ValueError(
+                f"correlator_impl={self.correlator_impl!r} selects the block "
+                "tracker, which reads the capture as int32 words and needs "
+                f"samples_per_code % 4 == 0 (got {self.samples_per_code}); use "
+                "'auto' or 'pallas' (the per-ms tracker) for this front end")
+        return chosen
+
     @property
     def samples_per_code(self) -> int:
         return int(round(self.sampling_freq / (self.code_freq_basis / self.code_length)))

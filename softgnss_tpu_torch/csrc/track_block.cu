@@ -32,6 +32,18 @@
 // filters.  Two barriers per ms.  Spreading one channel over a
 // thread-block cluster is later work (ROADMAP).
 //
+// B3, the fused block tracker, is the same kernel reading each ms window
+// straight from the capture (track_block_kernel<true>): it replaces
+// megakernel.py::_kernel(fused=True) (launched by _mega_call_fused), which
+// runs B2's slab-DMA prologue inside B1 so that no HBM frames array exists.
+// Here frame (j, c) is simply the capture's int32 words from
+// starts_w[c] + j*spc/4 on, zero outside the capture as build_frames.cu
+// fills them, so B3 is bit-equal to B2 followed by B1 and saves the frames
+// array's write and read (~39 MB per 64-ms block at the reference front
+// end).  Global loads are byte-addressable, so no slab or roll is needed;
+// each ms prefetches the next ms's window into L2, the staging that B2's
+// frames array gives B1.
+//
 // Numerics: build with -fmad=false so every float operation rounds as the
 // plain PyTorch version's does (no contraction); the sine coefficients are
 // the float32 values of softgnss_tpu.signals.nco.sin_turns, as hex
@@ -104,8 +116,13 @@ __device__ __forceinline__ long long floor_div(long long a, long long b) {
 // Outputs, (r, n_ch) planes:
 //   abs_sample int64; of64 [7]: sample_frac, code_freq, carr_freq, dll_discr,
 //   dll_discr_filt, pll_discr, pll_discr_filt; of32 [6]: i_p, i_e, i_l, q_e, q_p, q_l
+// kFused = false: ``src`` is the (r, n_ch, win/4) frames array of
+// build_frames.cu.  kFused = true: ``src`` is the capture's (n_words,) int32
+// word view and frame (j, c) starts at word starts_w[c] + j*spc/4.
+template <bool kFused>
 __global__ void __launch_bounds__(kThreads)
-track_block_kernel(const int32_t* __restrict__ frames,
+track_block_kernel(const int32_t* __restrict__ src, long long n_words,
+                   const long long* __restrict__ starts_w,
                    const long long* __restrict__ fb0,
                    const float* __restrict__ code_pads,
                    const double* __restrict__ carr_basis,
@@ -193,14 +210,33 @@ track_block_kernel(const int32_t* __restrict__ frames,
     const long long rem_j = s_rem, step = s_step;
     const unsigned int cp_j = s_cp, w = s_w;
     const int o = s_o, blk = s_blk;
-    const int8_t* fr = reinterpret_cast<const int8_t*>(
-        frames + (static_cast<long long>(j) * n_ch + c) * win_w);
+    const long long w0 = kFused ? starts_w[c] + static_cast<long long>(j) * (p.spc / 4)
+                                : (static_cast<long long>(j) * n_ch + c) * win_w;
+    const int8_t* src8 = reinterpret_cast<const int8_t*>(src);
+    if (kFused && j + 1 < p.r) {
+      // bring the next ms's window into L2 while this one is summed: its
+      // ~300 lines of 128 B, one per thread (B1 reads frames that B2 has
+      // just written, so its windows are in L2 already)
+      const long long line = 4 * (w0 + p.spc / 4) + 128LL * tid;
+      if (128 * tid < p.win && line >= 0 && line < 4 * n_words)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(src8 + line));
+    }
+    // frame samples [lo, hi) lie inside the source: all of the frame for
+    // B1; for B3 the part inside the capture (the rest reads as zero, as
+    // build_frames.cu fills it), computed once per ms
+    long long lo = 0, hi = p.win;
+    if (kFused) {
+      lo = min(max(-4 * w0, 0LL), static_cast<long long>(p.win));
+      hi = max(min(4 * (n_words - w0), static_cast<long long>(p.win)), lo);
+    }
+    const int lo_i = static_cast<int>(lo), hi_i = static_cast<int>(hi);
 
     double ie = 0.0, ip = 0.0, il = 0.0, qe = 0.0, qp = 0.0, ql = 0.0;
     for (int k = tid; k < blk; k += kThreads) {
       const int idx = o + k;
       if (idx < 0 || idx >= p.win) continue;  // overflow: flagged, raised by the wrapper
-      const float x = static_cast<float>(fr[idx]);
+      const float x = (idx >= lo_i && idx < hi_i)
+                          ? static_cast<float>(src8[4 * w0 + idx]) : 0.0f;
       const unsigned int counts = cp_j + w * static_cast<unsigned int>(k);
       const float turns = __int_as_float(static_cast<int>(0x3F800000u | (counts >> 9))) - 1.0f;
       const float ib = sin_turns(turns) * x;
@@ -344,17 +380,12 @@ track_block_kernel(const int32_t* __restrict__ frames,
 
 }  // namespace
 
+namespace {
+
 // hf: fs, code_freq_basis, intermediate_freq, pll_a, pll_b, dll_a, dll_b,
 //     fll_gain, fll_div, aid_ratio (host array)
 // hi: code_len_q, half_q, pdi_ms, fll_on, aided, spc, win, r, n_ch (host array)
-extern "C" int sg_track_block(const void* frames, const void* fb0,
-                              const void* code_pads, const void* carr_basis,
-                              const void* active, const void* si_in,
-                              const void* sf_in, const void* sa_in,
-                              void* si_out, void* sf_out, void* sa_out,
-                              void* abs_sample, void* of64, void* of32,
-                              void* ovf, const double* hf, const long long* hi,
-                              void* stream) {
+Params make_params(const double* hf, const long long* hi) {
   Params p;
   p.fs = hf[0];
   p.code_freq_basis = hf[1];
@@ -375,15 +406,56 @@ extern "C" int sg_track_block(const void* frames, const void* fb0,
   p.win = static_cast<int>(hi[6]);
   p.r = static_cast<int>(hi[7]);
   p.n_ch = static_cast<int>(hi[8]);
+  return p;
+}
+
+template <bool kFused>
+int launch(const void* src, long long n_words, const void* starts_w, const void* fb0,
+           const void* code_pads, const void* carr_basis, const void* active,
+           const void* si_in, const void* sf_in, const void* sa_in, void* si_out,
+           void* sf_out, void* sa_out, void* abs_sample, void* of64, void* of32,
+           void* ovf, const double* hf, const long long* hi, void* stream) {
+  const Params p = make_params(hf, hi);
   if (p.r <= 0 || p.n_ch <= 0) return 0;
-  track_block_kernel<<<p.n_ch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(frames), static_cast<const long long*>(fb0),
-      static_cast<const float*>(code_pads), static_cast<const double*>(carr_basis),
-      static_cast<const uint8_t*>(active), static_cast<const long long*>(si_in),
-      static_cast<const double*>(sf_in), static_cast<const float*>(sa_in),
-      static_cast<long long*>(si_out), static_cast<double*>(sf_out),
-      static_cast<float*>(sa_out), static_cast<long long*>(abs_sample),
-      static_cast<double*>(of64), static_cast<float*>(of32),
-      static_cast<long long*>(ovf), p);
+  track_block_kernel<kFused><<<p.n_ch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(src), n_words, static_cast<const long long*>(starts_w),
+      static_cast<const long long*>(fb0), static_cast<const float*>(code_pads),
+      static_cast<const double*>(carr_basis), static_cast<const uint8_t*>(active),
+      static_cast<const long long*>(si_in), static_cast<const double*>(sf_in),
+      static_cast<const float*>(sa_in), static_cast<long long*>(si_out),
+      static_cast<double*>(sf_out), static_cast<float*>(sa_out),
+      static_cast<long long*>(abs_sample), static_cast<double*>(of64),
+      static_cast<float*>(of32), static_cast<long long*>(ovf), p);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// B1 over the frames of build_frames.cu
+extern "C" int sg_track_block(const void* frames, const void* fb0,
+                              const void* code_pads, const void* carr_basis,
+                              const void* active, const void* si_in,
+                              const void* sf_in, const void* sa_in,
+                              void* si_out, void* sf_out, void* sa_out,
+                              void* abs_sample, void* of64, void* of32,
+                              void* ovf, const double* hf, const long long* hi,
+                              void* stream) {
+  return launch<false>(frames, 0, nullptr, fb0, code_pads, carr_basis, active, si_in,
+                       sf_in, sa_in, si_out, sf_out, sa_out, abs_sample, of64, of32,
+                       ovf, hf, hi, stream);
+}
+
+// B3: B1 reading the capture's (n_words,) int32 word view directly
+extern "C" int sg_track_block_fused(const void* cap_words, long long n_words,
+                                    const void* starts_w, const void* fb0,
+                                    const void* code_pads, const void* carr_basis,
+                                    const void* active, const void* si_in,
+                                    const void* sf_in, const void* sa_in,
+                                    void* si_out, void* sf_out, void* sa_out,
+                                    void* abs_sample, void* of64, void* of32,
+                                    void* ovf, const double* hf, const long long* hi,
+                                    void* stream) {
+  return launch<true>(cap_words, n_words, starts_w, fb0, code_pads, carr_basis, active,
+                      si_in, sf_in, sa_in, si_out, sf_out, sa_out, abs_sample, of64,
+                      of32, ovf, hf, hi, stream);
 }

@@ -1,11 +1,11 @@
-"""Receiver pipeline: probe -> acquire -> track -> lock demotion.
+"""Receiver pipeline: probe -> acquire -> track -> lock demotion -> navigate.
 
-The port of softgnss_tpu.pipeline up to navigation, which is not ported
-yet (ROADMAP A.6).  The capture is loaded once (file or in-memory array)
-and moved to ``device`` in one copy; acquisition and tracking run there;
-results come back as NumPy arrays.  Tracking results checkpoint to .npz
-with the JAX package's keys, so a checkpoint from either package loads in
-the other.
+The port of softgnss_tpu.pipeline (single device).  The capture is loaded
+once (file or in-memory array) and moved to ``device`` in one copy;
+acquisition and tracking run there; tracking results come back as NumPy
+arrays and navigation runs on the host CPU in float64, as in the JAX
+package.  Tracking results checkpoint to .npz with the JAX package's
+keys, so a checkpoint from either package loads in the other.
 """
 
 from __future__ import annotations
@@ -27,6 +27,8 @@ from softgnss_tpu_torch.acquire.search import (
 )
 from softgnss_tpu_torch.config import ReceiverConfig
 from softgnss_tpu_torch.convert import track_state_from_numpy, track_state_to_numpy
+from softgnss_tpu_torch.nav.message import Ephemeris
+from softgnss_tpu_torch.nav.solve import NavSolutions, post_navigate
 from softgnss_tpu_torch.profiling import StageTimer, channel_lock_loss
 from softgnss_tpu_torch.track.scan import TrackResults, track
 
@@ -46,7 +48,13 @@ class ReceiverResults:
     acquisition: AcquisitionResults | None = None
     channels: Channels | None = None
     tracking: TrackResults | None = None
+    solutions: NavSolutions | None = None
+    ephemerides: list[Ephemeris | None] = field(default_factory=lambda: [None] * 32)
     timings_s: dict = field(default_factory=dict)
+
+    @property
+    def has_fix(self) -> bool:
+        return self.solutions is not None and np.isfinite(self.solutions.x).any()
 
     def summary(self) -> str:
         lines = []
@@ -65,6 +73,39 @@ class ReceiverResults:
                                  f"(PRN {int(self.tracking.prn[ch])}) at "
                                  f"{self.tracking.lock_loss_ms[ch] / 1000.0:.1f} s "
                                  f"-> status 'L', demoted from navigation")
+        sol = self.solutions
+        if sol is not None:
+            ok = np.isfinite(sol.latitude)
+            if ok.any():
+                lines.append(
+                    f"PVT: {int(ok.sum())}/{sol.n_epochs} fixes, mean "
+                    f"lat {np.nanmean(sol.latitude):.6f} deg, "
+                    f"lon {np.nanmean(sol.longitude):.6f} deg, "
+                    f"hgt {np.nanmean(sol.height):.1f} m, "
+                    f"mean PDOP {np.nanmean(sol.dop[1]):.2f}, "
+                    f"TTFF {sol.ttff_ms / 1000.0:.1f} s")
+                if sol.vx is not None:
+                    v = np.sqrt(sol.vx**2 + sol.vy**2 + sol.vz**2)
+                    if np.isfinite(v).any():
+                        lines.append(f"Velocity: median |v| {np.nanmedian(v):.3f} m/s, "
+                                     f"clock drift {np.nanmedian(sol.clock_drift):.3f} m/s")
+                utc_off = sol.utc_offset_s()
+                if utc_off is not None:
+                    lines.append(f"UTC: GPS-UTC offset {utc_off:.9f} s (leap seconds "
+                                 f"{int(sol.utc_params.delta_t_ls)}; week {sol.week_number})")
+                flags = sol.raim_flag
+                if flags is not None and (flags > 0).any():
+                    n_ex = int((flags == 1).sum())
+                    n_bad = int((flags == 2).sum())
+                    prns = sorted(set(sol.raim_excluded_prn[flags == 1].tolist()))
+                    lines.append(
+                        f"RAIM: {n_ex} epoch(s) with a satellite excluded"
+                        + (f" (PRNs {prns})" if prns else "")
+                        + (f", {n_bad} epoch(s) invalidated (non-isolable fault)"
+                           if n_bad else ""))
+            else:
+                lines.append("PVT: no fixes")
+        elif self.tracking is not None:
             lines.append("PVT: navigation solution not computed")
         for stage, dt in self.timings_s.items():
             lines.append(f"  {stage:12s} {dt:8.2f} s")
@@ -123,6 +164,9 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
                  n_ms: int | None = None, probe: bool = False,
                  navigate: bool = True, checkpoint: str | None = None,
                  channels: Channels | None = None,
+                 ephemerides: list | None = None, iono=None, utc=None,
+                 assist_position: np.ndarray | None = None,
+                 assist_tow: float | None = None,
                  device="cuda") -> ReceiverResults:
     """Run the receiver chain on ``device``.
 
@@ -131,12 +175,22 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
     to read one.  It is moved to ``device`` once.  ``n_ms`` overrides
     ``config.ms_to_process``.  ``checkpoint``: .npz tracking checkpoint,
     loaded if it exists, written after tracking otherwise.  ``channels``:
-    pre-assigned tracking channels (skips acquisition).  Navigation is
-    not ported yet: ``navigate=True`` raises NotImplementedError."""
-    if navigate:
+    pre-assigned tracking channels (skips acquisition).  ``navigate``:
+    decode the nav message and solve PVT on the host
+    (nav.solve.post_navigate).
+
+    ``ephemerides``: per-PRN list of 32 for a warm start (a previous run's
+    ``results.ephemerides`` or ``nav.message.load_ephemerides``):
+    navigation then needs ~8 s of capture instead of the 36 s frame
+    decode; ``iono``/``utc``: Klobuchar coefficients and UTC parameters to
+    use in place of subframe 4.  With ``assist_position`` (approximate
+    receiver ECEF) and ``assist_tow`` (approximate GPS time of week at
+    capture start) too, acquisition is Doppler-hinted from the
+    ephemerides (nav.assist.predict_doppler)."""
+    if navigate and config.nav_filter != "lsq":
         raise NotImplementedError(
-            "navigation is not ported yet (ROADMAP A.6): call "
-            "run_receiver(..., navigate=False)")
+            f"nav_filter={config.nav_filter!r}: the EKF (softgnss_tpu/nav/ekf.py) is not "
+            "ported yet (ROADMAP A.6); use nav_filter='lsq'")
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device={device!r} requested but no CUDA device is "
@@ -162,6 +216,13 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
     if probe:
         results.probe = sio.probe_data(config, sig[skip: skip + 10 * spc].cpu().numpy())
 
+    def navigation():
+        if navigate:
+            with timer.stage("navigate"):
+                results.solutions, results.ephemerides = post_navigate(
+                    config, results.tracking, ephemerides=ephemerides, iono=iono, utc=utc)
+        return results
+
     # a loaded checkpoint supersedes acquisition and tracking
     if checkpoint is not None and os.path.exists(_checkpoint_path(checkpoint)):
         logger.info("Loading tracking checkpoint %s", _checkpoint_path(checkpoint))
@@ -169,7 +230,7 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
             results.tracking = load_tracking(checkpoint)
             if results.tracking.lock_loss_ms is None:
                 _demote_unlocked(config, results.tracking)
-        return results
+        return navigation()
 
     # --- acquisition (reference: initialize.py:481-492) --------------------
     if channels is not None:
@@ -182,8 +243,16 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
         if sig.shape[0] < skip + acq_need:
             raise ValueError(f"capture too short for acquisition: need "
                              f"{skip + acq_need} samples, got {sig.shape[0]}")
+        hints = None
+        if (ephemerides is not None and assist_position is not None
+                and assist_tow is not None):
+            from softgnss_tpu_torch.nav.assist import predict_doppler
+
+            hints = predict_doppler(config, ephemerides, np.asarray(assist_position),
+                                    float(assist_tow))
         with timer.stage("acquire"):
-            results.acquisition = acquire(config, sig[skip: skip + acq_need])
+            results.acquisition = acquire(config, sig[skip: skip + acq_need],
+                                          doppler_hints=hints)
         if not results.acquisition.acquired.any():
             logger.warning("No GNSS signals detected, signal processing finished.")
             return results
@@ -195,4 +264,4 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
         _demote_unlocked(config, results.tracking)
         if checkpoint is not None:
             save_tracking(checkpoint, results.tracking)
-    return results
+    return navigation()

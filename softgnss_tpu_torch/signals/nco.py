@@ -33,8 +33,10 @@ _LOW32 = 0xFFFFFFFF
 
 def true_divide(x: torch.Tensor, divisor: float) -> torch.Tensor:
     """x / divisor, correctly rounded on every device (PyTorch's CUDA
-    division by a Python scalar multiplies by its reciprocal instead)."""
-    return x / torch.tensor(divisor, dtype=x.dtype, device=x.device)
+    division by a Python scalar multiplies by its reciprocal instead).
+    The divisor tensor is filled on the device (``torch.full``): copying
+    it from the host would synchronize with the card on every call."""
+    return x / torch.full((), divisor, dtype=x.dtype, device=x.device)
 
 
 def wrap_u32_to_i32(x64: torch.Tensor) -> torch.Tensor:

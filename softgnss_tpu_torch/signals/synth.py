@@ -1,14 +1,17 @@
-"""Synthetic GPS L1 IF signal generator (static satellites).
+"""Synthetic GPS L1 IF signal generator.
 
-The port of softgnss_tpu.signals.synth.synthesize_signal: inject known
-PRNs / Doppler / delays / nav bits and synthesize int8 IF samples, so every
-receiver stage can be checked closed-loop against the injected truth.
+The port of softgnss_tpu.signals.synth's ``synthesize_signal`` (static
+satellites) and ``synthesize_dynamic`` (per-ms light times from a
+geometry, softgnss_tpu_torch.scenario): inject known PRNs / Doppler /
+delays / nav bits and synthesize int8 IF samples, so every receiver stage
+can be checked closed-loop against the injected truth.
 
 Signal model (per satellite)::
 
     s[k] = A * CA_prn(floor(chips(k)) mod 1023) * D(bit(chips(k)))
              * sin(2*pi*(IF + fd) * k/fs + phi0)
-    chips(k) = fc_eff * (k - delay_samples) / fs
+    chips(k) = fc_eff * (k - delay_samples) / fs          (static delay)
+    chips(k) = fc * (t_rx0 + k/fs - tau(k) - t_bits0)     (dynamic delay)
     fc_eff   = code_freq_basis * (1 + fd / fL1)
 
 Each millisecond reduces to a host-built (satellite, ms) parameter table
@@ -106,8 +109,9 @@ def _window_geometry(config: ReceiverConfig):
 
 
 def _build_params(chips0, chip_slope, cyc0, cyc_slope,
-                  bit_tables: list[np.ndarray]) -> _MsParams:
-    """Host-side per-ms parameter tables (float64/integer NumPy)."""
+                  bit_tables: list[np.ndarray], wrap_bits: bool = True) -> _MsParams:
+    """Host-side per-ms parameter tables (float64/integer NumPy); the bit
+    tables repeat (``wrap_bits``) or hold their edge bits."""
     c0 = np.floor(chips0).astype(np.int64)
     frac0_q = np.rint((chips0 - c0) * _QONE).astype(np.int64)
     carry = frac0_q >= _QONE
@@ -121,8 +125,12 @@ def _build_params(chips0, chip_slope, cyc0, cyc_slope,
     bit0 = np.empty(chips0.shape, np.float32)
     bit1 = np.empty(chips0.shape, np.float32)
     for i, table in enumerate(bit_tables):
-        bit0[i] = table[np.mod(b_idx[i], len(table))]
-        bit1[i] = table[np.mod(b_idx[i] + 1, len(table))]
+        if wrap_bits:
+            bit0[i] = table[np.mod(b_idx[i], len(table))]
+            bit1[i] = table[np.mod(b_idx[i] + 1, len(table))]
+        else:
+            bit0[i] = table[np.clip(b_idx[i], 0, len(table) - 1)]
+            bit1[i] = table[np.clip(b_idx[i] + 1, 0, len(table) - 1)]
 
     p0 = np.rint((cyc0 - np.floor(cyc0)) * 2.0**32).astype(np.int64)
     pw = np.rint(np.mod(cyc_slope, 1.0) * 2.0**32).astype(np.int64)
@@ -163,6 +171,40 @@ def _synth_chunk(config: ReceiverConfig, p: _MsParams, amps, codes3,
     return x
 
 
+def _run_synth(config: ReceiverConfig, prns, params: _MsParams, amps, n_ms: int,
+               noise_std: float, seed: int, device, chunk_ms: int) -> torch.Tensor:
+    """int8 samples on ``device`` from the host tables, ``chunk_ms``
+    milliseconds at a time.  ``amps``: (S,) constants or (S, n_ms)
+    per-ms envelopes."""
+    dev = torch.device(device)
+    s = len(prns)
+    amps = np.asarray(amps, np.float32)
+    if amps.ndim == 1:
+        amps = np.broadcast_to(amps[:, None], (s, n_ms))
+    if amps.shape != (s, int(n_ms)):
+        raise ValueError(f"amplitudes must be (n_sats,) or (n_sats, n_ms), got {amps.shape}")
+    codes = gold_codes()[np.asarray(prns) - 1].astype(np.float32)
+    codes3 = torch.from_numpy(np.concatenate([codes, codes, codes], axis=1)).to(dev)
+    w, win_chips, h_base = _window_geometry(config)
+    geometry = (w, win_chips, torch.from_numpy(h_base).to(dev))
+    params_d = _MsParams(*[torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                           for a in params])
+    amps_d = torch.from_numpy(np.ascontiguousarray(amps)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+
+    spms = config.samples_per_code
+    out = torch.empty((n_ms, spms), dtype=torch.int8, device=dev)
+    for m0 in range(0, n_ms, chunk_ms):
+        m1 = min(n_ms, m0 + chunk_ms)
+        x = _synth_chunk(config, _MsParams(*[a[:, m0:m1] for a in params_d]),
+                         amps_d[:, m0:m1], codes3, geometry)
+        if noise_std > 0.0:
+            x = x + noise_std * torch.randn(x.shape, generator=gen,
+                                            dtype=torch.float32, device=dev)
+        out[m0:m1] = torch.clamp(torch.round(x), -128, 127).to(torch.int8)
+    return out.reshape(-1)
+
+
 def synthesize_signal(config: ReceiverConfig, sats: list[SatelliteSignal],
                       n_ms: int, noise_std: float = 0.0, seed: int = 0,
                       device="cpu", chunk_ms: int = 64) -> torch.Tensor:
@@ -172,7 +214,6 @@ def synthesize_signal(config: ReceiverConfig, sats: list[SatelliteSignal],
         raise ValueError("synthesizer requires sampling_freq divisible by 1000")
     if not sats:
         raise ValueError("need at least one satellite")
-    dev = torch.device(device)
     fs = config.sampling_freq
     spms = config.samples_per_code
     m = np.arange(n_ms, dtype=np.float64)[None, :] * spms       # sample at ms start
@@ -194,23 +235,66 @@ def synthesize_signal(config: ReceiverConfig, sats: list[SatelliteSignal],
         k = min(len(a), n_ms)
         amps[i, :k] = a[:k]
         amps[i, k:] = a[-1]                                     # edge hold
+    return _run_synth(config, [s.prn for s in sats], params, amps, n_ms, noise_std,
+                      seed, device, chunk_ms)
 
-    codes = gold_codes()[np.asarray([s.prn for s in sats]) - 1].astype(np.float32)
-    codes3 = torch.from_numpy(np.concatenate([codes, codes, codes], axis=1)).to(dev)
-    w, win_chips, h_base = _window_geometry(config)
-    geometry = (w, win_chips, torch.from_numpy(h_base).to(dev))
-    params_d = _MsParams(*[torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                           for a in params])
-    amps_d = torch.from_numpy(amps).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
 
-    out = torch.empty((n_ms, spms), dtype=torch.int8, device=dev)
-    for m0 in range(0, n_ms, chunk_ms):
-        m1 = min(n_ms, m0 + chunk_ms)
-        x = _synth_chunk(config, _MsParams(*[a[:, m0:m1] for a in params_d]),
-                         amps_d[:, m0:m1], codes3, geometry)
-        if noise_std > 0.0:
-            x = x + noise_std * torch.randn(x.shape, generator=gen,
-                                            dtype=torch.float32, device=dev)
-        out[m0:m1] = torch.clamp(torch.round(x), -128, 127).to(torch.int8)
-    return out.reshape(-1)
+def synthesize_dynamic(config: ReceiverConfig, prns: list[int],
+                       delays_s: np.ndarray, bit_streams: np.ndarray,
+                       t_rx0_minus_bits0: float, n_ms: int,
+                       amplitudes: np.ndarray | None = None,
+                       phase0: np.ndarray | None = None,
+                       noise_std: float = 0.0, seed: int = 0,
+                       clock_ppm: float = 0.0, device="cpu",
+                       chunk_ms: int = 64) -> torch.Tensor:
+    """Geometry-consistent IF capture with per-ms time-varying delays, on
+    ``device`` (softgnss_tpu.signals.synth.synthesize_dynamic).
+
+    ``delays_s``: (S, >= n_ms+1) light times (s) at each ms boundary,
+    linearly interpolated within the ms; ``bit_streams``: (S, n_bits) +/-1
+    transmitted nav bits, bit 0 starting at transmit time 0;
+    ``t_rx0_minus_bits0``: capture start minus bit-stream start, GPS s.
+    ``amplitudes``: (S,) constants or (S, n_ms) per-ms envelopes.
+    ``clock_ppm``: receiver-oscillator fractional frequency offset: the
+    sampling clock runs at fs*(1+rho) and the LO at (f_L1 - f_IF)*(1+rho),
+    so every signal appears with a common carrier offset of ~ -f_L1*rho Hz
+    and a code-clock scale of 1/(1+rho); ``delays_s`` must be sampled at the
+    true boundary times t_rx0 + k*1e-3/(1+rho) (scenario.synthesize_scenario
+    does so).
+    """
+    if config.sampling_freq % 1000:
+        raise ValueError("synthesizer requires sampling_freq divisible by 1000")
+    s = len(prns)
+    delays_s = np.asarray(delays_s, np.float64)
+    if delays_s.shape[0] != s or delays_s.shape[1] < n_ms + 1:
+        raise ValueError(f"delays_s must be (n_sats, >= n_ms+1), got {delays_s.shape}")
+    bit_streams = np.asarray(bit_streams, np.float32)
+    if not np.all(np.abs(bit_streams) == 1):
+        raise ValueError("bit_streams must be +/-1")
+
+    fs = config.sampling_freq
+    spms = config.samples_per_code
+    fc = config.code_freq_basis
+    f_if = config.intermediate_freq
+    f_l1 = config.l1_freq
+    t0 = np.arange(n_ms, dtype=np.float64)[None, :] * (spms / fs)
+    tau0 = delays_s[:, :n_ms]
+    dtau = (delays_s[:, 1:n_ms + 1] - tau0) / spms              # s per sample
+
+    # receiver-clock warp: sample k sits at true time k/(fs*(1+rho))
+    rho = clock_ppm * 1e-6
+    fc_x = fc / (1.0 + rho)
+    f_if_x = (f_if - (f_l1 - f_if) * rho) / (1.0 + rho)
+
+    chips0 = fc * (t_rx0_minus_bits0 - tau0) + fc_x * t0
+    chip_slope = fc_x / fs - fc * dtau
+
+    phi0 = (np.zeros(s) if phase0 is None else np.asarray(phase0))[:, None]
+    cyc0 = f_if_x * t0 - f_l1 * tau0 + phi0 / (2.0 * np.pi)
+    cyc_slope = f_if_x / fs - f_l1 * dtau
+
+    params = _build_params(chips0, chip_slope, cyc0, cyc_slope, list(bit_streams),
+                           wrap_bits=False)
+    amps = (np.ones(s, np.float32) if amplitudes is None
+            else np.asarray(amplitudes, np.float32))
+    return _run_synth(config, prns, params, amps, n_ms, noise_std, seed, device, chunk_ms)

@@ -1,13 +1,17 @@
-"""The two tracking kernels, B2 (frames builder) and B1 (block tracker).
+"""The block tracker's kernels: B2 (frames builder), B1 (block tracker)
+and B3 (B1 reading the capture itself), and the library that holds every
+kernel of the port.
 
 For each ``track_block_ms`` block, ``scan.track`` gathers every channel's
 per-ms sample windows with :func:`build_frames` and then runs the block's
 milliseconds of DLL/PLL tracking, loop filters included, in one
-:func:`track_block` launch.  They port softgnss_tpu.track.megakernel's
-``_builder_kernel`` and ``_kernel`` (with ``mega_track_segment`` /
-``mega_finalize``): what those compute, not their Mosaic layout.  The
-CUDA C++ sources are ``softgnss_tpu_torch/csrc/*.cu``; each opens with
-the TPU kernel it replaces, what bounds it on the H100 and its design.
+:func:`track_block` launch; with ``config.mega_fused_frames`` one
+:func:`track_block_fused` launch does both.  They port
+softgnss_tpu.track.megakernel's ``_builder_kernel`` and ``_kernel``
+(unfused and fused, with ``mega_track_segment`` / ``mega_finalize``):
+what those compute, not their Mosaic layout.  The CUDA C++ sources are
+``softgnss_tpu_torch/csrc/*.cu``; each opens with the TPU kernel it
+replaces, what bounds it on the H100 and its design.
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
 version (``*_plain``, same module) for CPU tensors, and for nothing else:
@@ -15,7 +19,8 @@ a CUDA tensor either launches the kernel or raises.  ``wrapper.launches``
 counts kernel launches.  The kernels are compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with
 a plain C interface under ``softgnss_tpu_torch/_build/<source hash>/``
-and bound with ``ctypes``; every launch runs on
+(one ``nvcc -c`` per source, all started together, then one link) and
+bound with ``ctypes``; every launch runs on
 ``torch.cuda.current_stream()``.
 """
 
@@ -52,9 +57,10 @@ from softgnss_tpu_torch.track.scan import (
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("build_frames.cu", "track_block.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+_SOURCES = ("build_frames.cu", "track_block.cu", "correlate_ms.cu")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+              "-Xcompiler", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -81,15 +87,20 @@ class KernelLibrary:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.sg_build_frames.argtypes = [vp, ll, vp, vp, i, i, i, ll, vp]
         lib.sg_build_frames.restype = i
-        lib.sg_track_block.argtypes = [vp] * 15 + [
-            ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_longlong), vp]
+        hf, hi = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_longlong)
+        lib.sg_track_block.argtypes = [vp] * 15 + [hf, hi, vp]
         lib.sg_track_block.restype = i
+        lib.sg_track_block_fused.argtypes = [vp, ll] + [vp] * 15 + [hf, hi, vp]
+        lib.sg_track_block_fused.restype = i
+        lib.sg_correlate_ms.argtypes = [vp, ll] + [vp] * 8 + [ll, i, i, vp, vp, vp]
+        lib.sg_correlate_ms.restype = i
         self.lib = lib
 
 
 @functools.cache
 def load_library() -> KernelLibrary:
-    """Build (once per source hash) and load the CUDA kernel library."""
+    """Build (once per source hash) and load the CUDA kernel library: the
+    sources compile in parallel, one nvcc each, then link."""
     srcs = [_CSRC / s for s in _SOURCES]
     digest = hashlib.sha256()
     for s in srcs:
@@ -101,19 +112,28 @@ def load_library() -> KernelLibrary:
     if lib_path.exists():
         return KernelLibrary(lib_path, 0.0, log_path.read_text() if log_path.exists() else "")
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_s = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    log_path.write_text(log)
-    os.replace(tmp, lib_path)
-    return KernelLibrary(lib_path, build_s, log)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(srcs, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for c in cmds]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        for c, p, out in zip(cmds, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{out}")
+        so = Path(tmp) / "lib.so"
+        link = [nvcc, *_ARCH, "-shared", "-o", str(so), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{log}")
+        log_path.write_text(log)
+        os.replace(so, lib_path)
+    return KernelLibrary(lib_path, time.perf_counter() - t0, log)
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -255,20 +275,12 @@ _OUT_F64 = ("sample_frac", "code_freq", "carr_freq", "dll_discr", "dll_discr_fil
 _OUT_F32 = ("i_p", "i_e", "i_l", "q_e", "q_p", "q_l")
 
 
-def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
-                config: ReceiverConfig, r: int):
-    """Track ``r`` ms of every channel over ``frames`` ((r, C, win/4) int32
-    from :func:`build_frames`; frame (j, c) starts at absolute sample
-    ``fb0[c] + j*samples_per_code``).  Returns (state, MsOutputs of (r, C)
-    leaves, (C,) int64 overflow: > 0 where a ms span left its frame).
-    Kernel B1 (csrc/track_block.cu) on CUDA tensors."""
-    if frames.device.type == "cpu":
-        return track_block_plain(frames, fb0, state, code_pads, carr_basis,
-                                 active, config, r)
-    dev = frames.device
-    c = frames.shape[1]
-    win_w = frames.shape[2]
-    _require(frames, "frames", torch.int32, (r, c, win_w), dev)
+def _launch_block(name: str, launch, dev, fb0, state: TrackState, code_pads,
+                  carr_basis, active, config: ReceiverConfig, r: int):
+    """Check the common inputs of B1/B3, stack the state, call ``launch``
+    (the C entry point, given the trailing common pointer arguments) and
+    unpack (state, MsOutputs of (r, C) leaves, (C,) overflow)."""
+    c = fb0.shape[0]
     _require(fb0, "fb0", torch.int64, (c,), dev)
     _require(code_pads, "code_pads", torch.float32, (c, 1025), dev)
     _require(carr_basis, "carr_basis", torch.float64, (c,), dev)
@@ -284,15 +296,13 @@ def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
     of32 = torch.empty((len(_OUT_F32), r, c), dtype=torch.float32, device=dev)
     ovf = torch.empty(c, dtype=torch.int64, device=dev)
     act = active.to(torch.uint8)
-    hf, hi = _kernel_params(config, r, c, win_w * 4)
-    lib = load_library().lib
+    hf, hi = _kernel_params(config, r, c, config.track_window)
     with torch.cuda.device(dev):
-        rc = lib.sg_track_block(
-            _ptr(frames), _ptr(fb0), _ptr(code_pads), _ptr(carr_basis), _ptr(act),
-            _ptr(si), _ptr(sf), _ptr(sa), _ptr(si_o), _ptr(sf_o), _ptr(sa_o),
-            _ptr(abs_sample), _ptr(of64), _ptr(of32), _ptr(ovf), hf, hi, _stream(dev))
-    track_block.launches += 1
-    _check(rc, "track_block")
+        rc = launch(_ptr(fb0), _ptr(code_pads), _ptr(carr_basis), _ptr(act),
+                    _ptr(si), _ptr(sf), _ptr(sa), _ptr(si_o), _ptr(sf_o), _ptr(sa_o),
+                    _ptr(abs_sample), _ptr(of64), _ptr(of32), _ptr(ovf), hf, hi,
+                    _stream(dev))
+    _check(rc, name)
     leaves = dict(zip(_I64_FIELDS, si_o))
     leaves["carr_phase"] = leaves["carr_phase"].to(torch.int32)
     leaves.update(zip(_F64_FIELDS, sf_o))
@@ -304,4 +314,63 @@ def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
     return (TrackState(**leaves), MsOutputs(**outs), ovf)
 
 
+def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
+                config: ReceiverConfig, r: int):
+    """Track ``r`` ms of every channel over ``frames`` ((r, C, win/4) int32
+    from :func:`build_frames`; frame (j, c) starts at absolute sample
+    ``fb0[c] + j*samples_per_code``).  Returns (state, MsOutputs of (r, C)
+    leaves, (C,) int64 overflow: > 0 where a ms span left its frame).
+    Kernel B1 (csrc/track_block.cu) on CUDA tensors."""
+    if frames.device.type == "cpu":
+        return track_block_plain(frames, fb0, state, code_pads, carr_basis,
+                                 active, config, r)
+    dev = frames.device
+    _require(frames, "frames", torch.int32,
+             (r, fb0.shape[0], config.track_window // 4), dev)
+    lib = load_library().lib
+    out = _launch_block("track_block", lambda *a: lib.sg_track_block(_ptr(frames), *a),
+                        dev, fb0, state, code_pads, carr_basis, active, config, r)
+    track_block.launches += 1
+    return out
+
+
 track_block.launches = 0
+
+
+# --- B3: fused block tracker -----------------------------------------------
+
+
+def track_block_fused_plain(cap_words, starts_w, state: TrackState, code_pads,
+                            carr_basis, active, config: ReceiverConfig, r: int):
+    """:func:`build_frames_plain` followed by :func:`track_block_plain`."""
+    frames = build_frames_plain(cap_words, starts_w, r, config.track_window // 4,
+                                config.samples_per_code // 4)
+    return track_block_plain(frames, 4 * starts_w, state, code_pads, carr_basis,
+                             active, config, r)
+
+
+def track_block_fused(cap_words, starts_w, state: TrackState, code_pads, carr_basis,
+                      active, config: ReceiverConfig, r: int):
+    """:func:`build_frames` + :func:`track_block` in one kernel: each ms
+    window is read from ``cap_words`` ((L,) int32 word view of the capture)
+    at word ``starts_w[c] + j*samples_per_code/4`` (0 outside the capture),
+    and no frames array exists.  Same returns as :func:`track_block`.
+    Kernel B3 (csrc/track_block.cu, fused) on CUDA tensors."""
+    if cap_words.device.type == "cpu":
+        return track_block_fused_plain(cap_words, starts_w, state, code_pads,
+                                       carr_basis, active, config, r)
+    dev = cap_words.device
+    c = starts_w.shape[0]
+    _require(cap_words, "cap_words", torch.int32, (cap_words.shape[0],), dev)
+    _require(starts_w, "starts_w", torch.int64, (c,), dev)
+    lib = load_library().lib
+    n_words = cap_words.shape[0]
+    out = _launch_block(
+        "track_block_fused",
+        lambda *a: lib.sg_track_block_fused(_ptr(cap_words), n_words, _ptr(starts_w), *a),
+        dev, 4 * starts_w, state, code_pads, carr_basis, active, config, r)
+    track_block_fused.launches += 1
+    return out
+
+
+track_block_fused.launches = 0

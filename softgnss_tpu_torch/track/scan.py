@@ -1,14 +1,23 @@
-"""Multi-channel DLL/PLL tracking, one block of milliseconds per kernel pair.
+"""Multi-channel DLL/PLL tracking: the block tracker and the per-ms tracker.
 
-The port of softgnss_tpu.track.scan on its megakernel branch: the capture
-lies on the device as int8 and is read through its int32 word view;
-blocks of ``track_block_ms`` milliseconds sit on the ABSOLUTE ms grid
-(a resumed run first finishes the block it stopped in, the "lead"
-segment), each anchored at ``block_base = ptr - track_frame_pre`` carried
-in the state, so a resumed run frames every millisecond exactly as the
-uninterrupted run does.  For each segment :func:`megakernel.build_frames`
-(B2) cuts the per-ms, per-channel frames and :func:`megakernel.track_block`
-(B1) runs the milliseconds, loop filters included.
+The port of softgnss_tpu.track.scan on its megakernel and pallas
+branches; ``config.tracker`` picks one.  The capture lies on the device
+as int8.
+
+* **Block tracker** (:func:`track_segments`): the capture is read through
+  its int32 word view; blocks of ``track_block_ms`` milliseconds sit on
+  the ABSOLUTE ms grid (a resumed run first finishes the block it stopped
+  in, the "lead" segment), each anchored at
+  ``block_base = ptr - track_frame_pre`` carried in the state, so a
+  resumed run frames every millisecond exactly as the uninterrupted run
+  does.  For each segment :func:`megakernel.build_frames` (B2) cuts the
+  per-ms, per-channel frames and :func:`megakernel.track_block` (B1) runs
+  the milliseconds, loop filters included — or
+  :func:`megakernel.track_block_fused` (B3) does both in one kernel.
+* **Per-ms tracker** (:func:`track_ms`), for any front end: each
+  millisecond computes the NCO steps and block length in torch,
+  launches :func:`pallas_kernel.correlate_ms` (B4) on the capture itself,
+  and runs :func:`_filters_and_outputs` in float64 torch.
 
 The per-ms math is the JAX 'gather' formulation: exact integer NCOs (Q40
 code phase, uint32 carrier turns), per-sample E/P/L lookups in the padded
@@ -36,8 +45,10 @@ from softgnss_tpu_torch.acquire.search import Channels
 from softgnss_tpu_torch.config import ReceiverConfig
 from softgnss_tpu_torch.signals.nco import (
     CODE_ONE,
+    carrier_step_u32,
     ceil_chip_index,
     chips_to_q,
+    code_step_q,
     true_divide,
     wrap_u32_to_i32,
 )
@@ -288,8 +299,11 @@ def track_segments(config: ReceiverConfig, words, state: TrackState, code_pads,
     """Run ``n_ms`` ms as lead / full / tail segments on the absolute ms
     grid, each one ``build`` (frames) + ``block`` (tracker) call pair —
     megakernel.build_frames / track_block in :func:`track`, or their plain
-    versions when a check holds the kernels against them.  ``words``:
-    the capture's int32 word view (:func:`capture_words`).
+    versions when a check holds the kernels against them.  ``build=None``:
+    ``block`` is a fused tracker (megakernel.track_block_fused or its plain
+    version) that takes the word view and the (C,) frame word offsets in
+    place of frames and frame starts.  ``words``: the capture's int32 word
+    view (:func:`capture_words`).
     Returns (final_state, MsOutputs of (n_ms, C) leaves, (C,) overflow)."""
     spc = config.samples_per_code
     spc_w = spc // 4
@@ -309,6 +323,8 @@ def track_segments(config: ReceiverConfig, words, state: TrackState, code_pads,
         # frames on an active channel's span
         any_act = torch.where(active, start_w, 0).max()
         start_w = torch.where(active, start_w, any_act)
+        if build is None:
+            return block(words, start_w, st, code_pads, carr_basis, active, config, r)
         frames = build(words, start_w, r, win_w, spc_w)
         return block(frames, 4 * start_w, st, code_pads, carr_basis, active,
                      config, r)
@@ -330,26 +346,54 @@ def track_segments(config: ReceiverConfig, words, state: TrackState, code_pads,
     return st, ys, torch.stack(ovfs).amax(0)
 
 
+def track_ms(config: ReceiverConfig, signal, state: TrackState, code_pads, carr_basis,
+             active, n_ms: int, start_ms: int, correlate):
+    """Run ``n_ms`` ms one millisecond at a time: the NCO steps and the exact
+    block length ``blk = ceil((1023*2^40 - rem)/step)`` in torch, the six
+    sums from ``correlate`` (pallas_kernel.correlate_ms in :func:`track`, or
+    its plain version when a check holds the kernel against it) over
+    capture samples ``[ptr, ptr + blk)``, then the float64 loop filters
+    (softgnss_tpu.track.scan._frame_ms_pallas without the packed frame).
+    ``block_base`` is re-anchored on the absolute ``track_block_ms`` grid as
+    the block tracker does, so a final state resumes on either tracker.
+    Returns (final_state, MsOutputs of (n_ms, C) leaves)."""
+    fs = config.sampling_freq
+    code_len_q = config.code_length * CODE_ONE
+    B = max(1, config.track_block_ms)
+    st = state
+    outs = []
+    for j in range(n_ms):
+        if (start_ms + j) % B == 0:
+            st = st._replace(block_base=st.ptr - config.track_frame_pre)
+        step_q = code_step_q(st.code_freq, fs)
+        blk = torch.div(code_len_q - st.code_rem_q + step_q - 1, step_q,
+                        rounding_mode="floor")
+        w = carrier_step_u32(st.carr_freq, fs)
+        corr = correlate(config, signal, st.ptr, st.carr_phase, w, st.code_rem_q, step_q,
+                         blk, code_pads, active)
+        st, out = _filters_and_outputs(config, carr_basis, active, st, step_q, blk, w,
+                                       corr.unbind(1))
+        outs.append(out)
+    return st, MsOutputs(*[torch.stack(leaf) for leaf in zip(*outs)])
+
+
 def track(config: ReceiverConfig, signal: torch.Tensor, channels: Channels,
           n_ms: int | None = None, state: TrackState | None = None) -> TrackResults:
     """Track all channels over ``n_ms`` milliseconds of the capture, on the
-    device ``signal`` lies on.
+    device ``signal`` lies on, with the tracker ``config.tracker`` selects.
 
     ``signal`` is the full raw int8 capture, *including* any skipped
     prefix — channel pointers are absolute sample indices
     (reference: tracking.py:107,255).  ``state``: a previous run's
     ``final_state`` (tensors on any device, or NumPy via
-    convert.track_state_from_numpy) to resume from."""
-    from softgnss_tpu_torch.track.megakernel import build_frames, track_block
+    convert.track_state_from_numpy) to resume from, on either tracker."""
+    from softgnss_tpu_torch.track import megakernel as mk
+    from softgnss_tpu_torch.track.pallas_kernel import correlate_ms
 
     signal = torch.as_tensor(signal)
     dev = signal.device
     spc = config.samples_per_code
-    if spc % 4:
-        raise ValueError(
-            f"the tracker reads the capture as int32 words and needs "
-            f"samples_per_code % 4 == 0 (got {spc}); other front ends take the "
-            "per-ms correlator, kernel B4 in ROADMAP.md, not ported yet")
+    tracker = config.tracker
     n_ms = int(config.ms_to_process if n_ms is None else n_ms)
     if n_ms <= 0:
         raise ValueError(f"n_ms must be positive, got {n_ms}")
@@ -371,10 +415,15 @@ def track(config: ReceiverConfig, signal: torch.Tensor, channels: Channels,
         state = TrackState(*[torch.as_tensor(v).to(dev) for v in state])
         start_ms = int(state.ms.max())
 
-    final, ys, ovf = track_segments(config, capture_words(signal), state, code_pads,
-                                   carr_basis, active, n_ms, start_ms,
-                                   build_frames, track_block)
-    _check_overflow(ovf)
+    if tracker == "per_ms":
+        final, ys = track_ms(config, signal, state, code_pads, carr_basis, active, n_ms,
+                             start_ms, correlate_ms)
+    else:
+        build, block = ((None, mk.track_block_fused) if config.mega_fused_frames
+                        else (mk.build_frames, mk.track_block))
+        final, ys, ovf = track_segments(config, capture_words(signal), state, code_pads,
+                                       carr_basis, active, n_ms, start_ms, build, block)
+        _check_overflow(ovf)
     host = {f: getattr(ys, f).cpu().numpy().T for f in MsOutputs._fields}
     return TrackResults(final_state=final, prn=np.asarray(channels.prn),
                         status=list(channels.status), **host)

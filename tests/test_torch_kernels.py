@@ -1,7 +1,7 @@
-"""The port's two tracking kernels, build_frames (B2) and track_block (B1),
-without the JAX package: this file imports only torch, numpy and
-softgnss_tpu_torch, so it also runs on the card's machine, which has no
-JAX:
+"""The port's tracking kernels, build_frames (B2), track_block (B1),
+track_block_fused (B3) and correlate_ms (B4), without the JAX package:
+this file imports only torch, numpy and softgnss_tpu_torch, so it also
+runs on the card's machine, which has no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
@@ -18,6 +18,7 @@ import softgnss_tpu_torch as sgt
 from softgnss_tpu_torch.acquire.search import Channels
 from softgnss_tpu_torch.signals.synth import SatelliteSignal, synthesize_signal
 from softgnss_tpu_torch.track import megakernel as mk
+from softgnss_tpu_torch.track import pallas_kernel as pk
 from softgnss_tpu_torch.track import scan
 
 torch.set_num_threads(1)
@@ -50,13 +51,53 @@ def _scenario(device):
     return cfg, sig, ch
 
 
+def _counts():
+    return (mk.build_frames.launches, mk.track_block.launches,
+            mk.track_block_fused.launches, pk.correlate_ms.launches)
+
+
 def test_plain_path_counts_no_launches():
     """CPU tensors take the plain versions: no kernel launch is counted."""
     cfg, sig, ch = _scenario("cpu")
-    before = (mk.build_frames.launches, mk.track_block.launches)
+    before = _counts()
     res = scan.track(cfg, sig, ch, n_ms=40)
-    assert (mk.build_frames.launches, mk.track_block.launches) == before
+    assert _counts() == before
     assert np.all(res.i_p[1] == 0) and np.any(res.i_p[0] != 0)
+
+
+@pytest.mark.parametrize("route", [{"mega_fused_frames": True},
+                                   {"correlator_impl": "pallas"}], ids=["fused", "per_ms"])
+def test_plain_routes_count_no_launches(route):
+    """The fused and per-ms trackers on CPU tensors: plain versions only."""
+    cfg, sig, ch = _scenario("cpu")
+    before = _counts()
+    res = scan.track(cfg.with_options(**route), sig, ch, n_ms=40)
+    assert _counts() == before
+    assert np.all(res.i_p[1] == 0) and np.any(res.i_p[0] != 0)
+
+
+def test_correlate_ms_plain_reads_the_capture():
+    """B4's plain version sums [ptr, ptr + blk) of the capture, zero past
+    its ends and for idle channels."""
+    cfg, sig, ch = _scenario("cpu")
+    st = scan.initial_state(cfg, ch)
+    pads = scan.build_tables(ch.prn)
+    w = torch.zeros(3, dtype=torch.int32)                     # carrier at 0 turns: sin 0, cos 1
+    step = torch.full((3,), 1 << 40, dtype=torch.int64)       # one chip per sample
+    blk = torch.tensor([1023, 1023, 10])
+    ptr = torch.tensor([0, 5, sig.shape[0] - 4])               # the last one runs past the end
+    act = torch.tensor([True, False, True])
+    out = pk.correlate_ms_plain(cfg, sig, ptr, st.carr_phase, w, st.code_rem_q, step, blk,
+                                pads, act)
+    from softgnss_tpu_torch.signals.nco import sin_turns
+
+    q = (sin_turns(torch.tensor(0.25)) * sig.to(torch.float32)).to(torch.float64)
+    prompt = pads[0, :1023].to(torch.float64)                       # ceil(k) -> chip k
+    assert out.dtype == torch.float32 and out.shape == (3, 6)
+    assert float(out[0, 4]) == float((prompt * q[:1023]).sum().to(torch.float32))
+    assert not out[1].any() and not out[:, :3].any()               # idle; sin(0) = 0
+    assert float(out[2, 4]) == float((pads[2, :4].to(torch.float64) * q[-4:]).sum()
+                                     .to(torch.float32))
 
 
 def test_overflow_is_flagged():
@@ -110,4 +151,45 @@ def test_kernels_match_plain_on_card(cuda_device, opts):
                     [v.cpu().numpy() for v in st])
     for f, a, b in zip(scan.MsOutputs._fields + scan.TrackState._fields, *outs):
         np.testing.assert_array_equal(a, b, err_msg=f)
+    torch.cuda.synchronize()
+
+
+def _segments_then_resume(cfg, sig, ch, dev, build, block):
+    words = scan.capture_words(sig)
+    pads = scan.build_tables(ch.prn, dev)
+    active = torch.tensor([s == "T" for s in ch.status], device=dev)
+    cb = torch.as_tensor(ch.acquired_freq).to(dev)
+    st = scan.initial_state(cfg, ch, dev)
+    if build == "per_ms":
+        st, ys1 = scan.track_ms(cfg, sig, st, pads, cb, active, 37, 0, block)
+        st, ys2 = scan.track_ms(cfg, sig, st, pads, cb, active, 43, 37, block)
+    else:
+        st, ys1, ov1 = scan.track_segments(cfg, words, st, pads, cb, active, 37, 0,
+                                           build, block)
+        st, ys2, ov2 = scan.track_segments(cfg, words, st, pads, cb, active, 43, 37,
+                                           build, block)
+        assert int(torch.maximum(ov1, ov2).max()) == 0
+    return ([torch.cat(p).cpu().numpy() for p in zip(ys1, ys2)]
+            + [v.cpu().numpy() for v in st])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["B3", "B4"])
+def test_fused_and_per_ms_kernels_match_plain_on_card(cuda_device, kernel):
+    """B3 (bit-equal, as the B2 + B1 pair it fuses) and B4 (the per-ms
+    tracker through it: absolute_sample equal, correlators within 1e-4 of
+    the plain version's RMS) on the card, with a resume and an idle
+    channel."""
+    cfg, sig, ch = _scenario(cuda_device)
+    pair, plain = (((None, mk.track_block_fused), (None, mk.track_block_fused_plain))
+                   if kernel == "B3" else
+                   (("per_ms", pk.correlate_ms), ("per_ms", pk.correlate_ms_plain)))
+    got = _segments_then_resume(cfg, sig, ch, cuda_device, *pair)
+    want = _segments_then_resume(cfg, sig, ch, cuda_device, *plain)
+    fields = scan.MsOutputs._fields + scan.TrackState._fields
+    for f, a, b in zip(fields, got, want):
+        if kernel == "B3" or f == "absolute_sample":
+            np.testing.assert_array_equal(a, b, err_msg=f)
+        elif f in ("i_p", "i_e", "i_l", "q_e", "q_p", "q_l"):
+            assert np.abs(a - b).max() <= 1e-4 * np.sqrt(np.mean(b.astype(np.float64) ** 2)), f
     torch.cuda.synchronize()

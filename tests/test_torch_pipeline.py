@@ -102,10 +102,17 @@ def test_port_imports_no_jax():
 
 
 def test_no_silent_fallback(runs):
+    """navigate=True runs navigation (on too short a capture it finds no
+    fix, as the JAX package does); the unported EKF raises; a missing card
+    raises."""
     sig, _, _ = runs
     cfg = sgt.fast_config(**_OPTS)
+    res = tpipe.run_receiver(cfg, signal=sig, device="cpu")
+    assert res.solutions is None and not res.has_fix
+    assert res.ephemerides == [None] * 32 and "navigate" in res.timings_s
+    assert "PVT: navigation solution not computed" in res.summary()
     with pytest.raises(NotImplementedError, match="A.6"):
-        tpipe.run_receiver(cfg, signal=sig, device="cpu")
+        tpipe.run_receiver(cfg.with_options(nav_filter="ekf"), signal=sig, device="cpu")
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device='cuda' is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -115,7 +122,7 @@ def test_no_silent_fallback(runs):
 def test_convert_config_and_channels():
     jc = sg.fast_config(pdi_ms=2, track_tile=64, mega_fused_frames=True)
     tc = convert.config_from_dict(dataclasses.asdict(jc))
-    assert tc == sgt.fast_config(pdi_ms=2)
+    assert tc == sgt.fast_config(pdi_ms=2, mega_fused_frames=True)
     with pytest.raises(ValueError, match="unknown config fields"):
         convert.config_from_dict(dict(dataclasses.asdict(jc), bogus=1))
     ch = convert.channels_from_numpy([3, 0], [1.0e6, 0.0], [12, 0], "T-")

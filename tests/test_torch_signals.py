@@ -101,10 +101,20 @@ def test_config_derived_fields_match():
 
 @pytest.mark.parametrize("impl", ["onehot", "pallas"])
 def test_unported_correlators_rejected(impl):
-    with pytest.raises(ValueError, match="B4"):
-        sgt.fast_config(correlator_impl=impl)
-    for ok in ("auto", "gather", "megakernel"):
-        assert sgt.fast_config(correlator_impl=ok).correlator_impl == ok
+    """'onehot' and 'pallas' select the per-ms tracker (kernel B4) at any
+    front end; 'auto' and 'gather' the block tracker where the code period
+    is whole int32 words; unknown names are rejected."""
+    assert sgt.fast_config(correlator_impl=impl).tracker == "per_ms"
+    assert sgt.default_config(correlator_impl=impl, sampling_freq=38_194_000.0).tracker \
+        == "per_ms"
+    for ok, tracker in (("auto", "block"), ("gather", "block"), ("megakernel", "block")):
+        assert sgt.fast_config(correlator_impl=ok).tracker == tracker
+    assert sgt.fast_config(sampling_freq=4_094_000.0).tracker == "per_ms"
+    with pytest.raises(ValueError, match="expected one of"):
+        sgt.fast_config(correlator_impl=impl + "x")
+    # a JAX config naming the per-ms correlators carries across
+    tc = config_from_dict(dataclasses.asdict(sg.fast_config(correlator_impl=impl)))
+    assert tc.correlator_impl == impl and tc.tracker == "per_ms"
 
 
 def _sats(module, rng, n_sats=4):

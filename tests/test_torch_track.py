@@ -174,11 +174,18 @@ def test_inactive_channel_frozen_and_zero(three_sats):
 
 
 def test_front_end_without_word_frames_rejected(three_sats):
+    """A front end whose code period is not whole int32 words: the block
+    tracker ('megakernel') rejects it, 'auto' tracks it on the per-ms
+    tracker; a short capture is rejected either way."""
     signal, ch = three_sats
-    cfg = sgt.fast_config(sampling_freq=4_094_000.0)
-    assert cfg.samples_per_code % 4
-    with pytest.raises(ValueError, match="ROADMAP"):
-        track(cfg, torch.from_numpy(signal.copy()), _channels(Channels, ch), n_ms=10)
+    cfg = sgt.fast_config(number_of_channels=3, sampling_freq=4_094_000.0)
+    assert cfg.samples_per_code % 4 and cfg.tracker == "per_ms"
+    sig = torch.from_numpy(signal.copy())
+    with pytest.raises(ValueError, match="samples_per_code % 4"):
+        track(cfg.with_options(correlator_impl="megakernel"), sig,
+              _channels(Channels, ch), n_ms=10)
+    res = track(cfg, sig, _channels(Channels, ch), n_ms=10)
+    assert res.i_p.shape == (3, 10) and np.isfinite(res.carr_freq).all()
     with pytest.raises(ValueError, match="too short"):
         track(sgt.fast_config(), torch.from_numpy(signal[:50_000].copy()),
               _channels(Channels, ch), n_ms=20)
