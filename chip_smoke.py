@@ -21,6 +21,12 @@ script exits non-zero:
                 resume (lead segment) and an idle channel, at default and
                 in a variant config (pdi_ms=4, FLL, carrier-aided DLL,
                 spacing 0.25); each kernel's time per launch
+6b. probes    — the measurement probes softgnss_tpu_torch.scripts (S1
+                pallas_ablate, S2 mega_vmem_bisect, S3 builder_time, S4
+                dma_probe): every stage, variant and load pattern bit-equal
+                to its plain version, then each probe's timings (its own
+                path: the counts are zeroed before the timings and read
+                after)
 7. main path  — run_receiver(default_config(), navigate=True,
                 device="cuda") over the reference's 37 000 ms (block
                 tracker, B2 + B1): every satellite acquired and locked,
@@ -48,11 +54,13 @@ from __future__ import annotations
 
 import contextlib
 import json
-import subprocess
 import sys
 import time
 
 import numpy as np
+
+from softgnss_tpu_torch.scripts.timing import card as smi_line
+from softgnss_tpu_torch.scripts.timing import cuda_ms, host_ms
 
 SEED = 20261016
 N_SATS = 8
@@ -92,53 +100,6 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
-def cuda_ms(fn, n: int, busy: bool = False) -> float:
-    """Mean ms per call of ``fn()`` over ``n`` calls after one warm-up,
-    timed by CUDA events.  ``busy``: the card first spins
-    (``torch.cuda._sleep``) for longer than the host takes to enqueue the
-    calls, so they run back to back and the events time the device work
-    alone, not the host's launch rate (only for ``fn`` that never waits
-    for the card)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    if busy:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(int(3e9 * (time.perf_counter() - t0)))   # cycles, <= 2 GHz clock
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / n
-
-
-def host_ms(fn, n: int) -> float:
-    """Mean host ms per call of ``fn()``, synchronized at both ends."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / n
-
-
 def make_scenario(cfg):
     """Static satellites for a synthesize_signal capture at ``cfg``."""
     from softgnss_tpu_torch.signals.synth import SatelliteSignal, amplitude_for_cn0
@@ -170,20 +131,25 @@ def truth_channels(sc, status):
         status=list(status))
 
 
+def _kernel_wrappers():
+    """(the receiver's kernel wrappers B2, B1, B3, B4; the probes' S1-S4)"""
+    from softgnss_tpu_torch.scripts import builder_time, dma_probe, mega_vmem_bisect, pallas_ablate
+    from softgnss_tpu_torch.track import megakernel as mk
+    from softgnss_tpu_torch.track import pallas_kernel as pk
+
+    return ((mk.build_frames, mk.track_block, mk.track_block_fused, pk.correlate_ms),
+            (pallas_ablate.correlate_ms_stage, mega_vmem_bisect.track_block_stage,
+             builder_time.build_frames_vec4, dma_probe.dma_probe))
+
+
 def reset_launches():
-    from softgnss_tpu_torch.track import megakernel as mk
-    from softgnss_tpu_torch.track import pallas_kernel as pk
-
-    for fn in (mk.build_frames, mk.track_block, mk.track_block_fused, pk.correlate_ms):
-        fn.launches = 0
+    for fns in _kernel_wrappers():
+        for fn in fns:
+            fn.launches = 0
 
 
-def read_launches() -> dict:
-    from softgnss_tpu_torch.track import megakernel as mk
-    from softgnss_tpu_torch.track import pallas_kernel as pk
-
-    return {fn.__name__: fn.launches
-            for fn in (mk.build_frames, mk.track_block, mk.track_block_fused, pk.correlate_ms)}
+def read_launches(probes: bool = False) -> dict:
+    return {fn.__name__: fn.launches for fn in _kernel_wrappers()[probes]}
 
 
 def phase_nco(dev) -> None:
@@ -410,6 +376,53 @@ def phase_b4(cfg, sig, sc, dev) -> dict:
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
+def phase_probes(dev) -> list[dict]:
+    """S1-S4 through their modules: each stage, variant and pattern
+    bit-equal to its plain version, then the timings with the launch
+    counts zeroed before and read after."""
+    from softgnss_tpu_torch.scripts import builder_time as s3
+    from softgnss_tpu_torch.scripts import dma_probe as s4
+    from softgnss_tpu_torch.scripts import mega_vmem_bisect as s2
+    from softgnss_tpu_torch.scripts import pallas_ablate as s1
+
+    probes = (s1, s2, s3, s4)
+    errs = [m.check(dev) for m in probes]
+    print("  every S1-S4 stage, variant and load pattern bit-equal to its plain version")
+    reset_launches()
+    res = [m.measure(dev) for m in probes]
+    launches = read_launches(probes=True)
+    check(all(n > 0 for n in launches.values()), f"probe launches {launches}")
+    for m, r in zip(probes, res):
+        m.report(r)
+    print(f"  launches {launches}")
+    r1, r2, r3, r4 = res
+    c = s1.N_CHANNELS[0]
+    us = lambda ms, r=1: ms * 1e3 / r   # noqa: E731
+    extra = [
+        {"us_per_launch": {n: {s: {k: us(v) for k, v in r1[n][s].items()} for s in s1.STAGES}
+                           for n in r1}},
+        {"us_per_ms": {n: {s: us(r2[n][s], s2.R) for s in s2.STAGES} for n in r2}},
+        {"us_per_ms": {n: {v: {k: us(t, s3.R) for k, t in r3[n][v].items()} for v in s3.VARIANTS}
+                       for n in r3}},
+        {"us_per_ms": {f"{p}/{d}": {k: us(t, s4.R) for k, t in r4[(p, d)].items()}
+                       for p, d in s4.PATTERNS}},
+    ]
+    recs = [
+        ("correlate_ms_stage", "correlate_ms.cu", "scripts/pallas_ablate.py:49",
+         r1[c]["full"]["device"], r1[c]["plain"]),
+        ("track_block_stage", "track_block.cu", "scripts/mega_vmem_bisect.py:45",
+         r2[c]["full"], r2[c]["plain"]),
+        ("build_frames_vec4", "build_frames.cu", "scripts/builder_time.py:60",
+         r3[c]["vec4"]["warm"], r3[c]["plain"]),
+        ("dma_probe", "dma_probe.cu", "scripts/dma_probe.py:34",
+         r4[("direct", 1)]["warm"], r4["plain"]),
+    ]
+    return [{"name": name, "route": "cuda", "source": f"softgnss_tpu_torch/csrc/{src}",
+             "replaces": rep, "launches": launches[name], "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms, **x}
+            for (name, src, rep, ms, plain_ms), err, x in zip(recs, errs, extra)]
+
+
 def check_locked(label, tr, skip_ms: int) -> None:
     """Every channel tracking, its PLL locked (data on I_P) and finite."""
     check(all(s == "T" for s in tr.status) and np.isinf(tr.lock_loss_ms).all(),
@@ -633,6 +646,8 @@ def main() -> int:
         rec_b1, rec_b3 = phase_block_kernels(cfg, sig, sc, dev)
     with phase("B4 vs plain"):
         rec_b4 = phase_b4(cfg, sig, sc, dev)
+    with phase("probes"):
+        rec_probes = phase_probes(dev)
     with phase("main path"):
         main_res, launches, _ = phase_main(cfg, sig, sc, card)
     with phase("fused"):
@@ -646,7 +661,7 @@ def main() -> int:
     rec_b1["launches"] = launches["track_block"]
     rec_b3["launches"] = fused_launches["track_block_fused"]
     rec_b4["launches"] = per_ms_launches["correlate_ms"]
-    print(json.dumps({"kernels": [rec_b2, rec_b1, rec_b3, rec_b4]}))
+    print(json.dumps({"kernels": [rec_b2, rec_b1, rec_b3, rec_b4, *rec_probes]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

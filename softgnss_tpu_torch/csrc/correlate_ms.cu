@@ -31,6 +31,17 @@
 // version's to the last bit (bar a float64 sum within ~1e-16 of a float32
 // rounding boundary).  Inactive channels write zeros and read nothing.
 //
+// Stage ablation (the counterpart of scripts/pallas_ablate.py's
+// ``make_fn``, which stripped the TPU kernel stage by stage):
+// ``kStage`` strips the partial kernel at compile time.  kNoop launches
+// both kernels and writes zero partials; kCarrier loads the samples and
+// runs the carrier NCO and both sin_turns, I/Q sums into i_p and q_p;
+// kPhase adds the Q40 code phase and the three chip indices, summed as
+// integers into i_e (early), i_l (late) and q_e (prompt), with no lookup;
+// kFull is B4.  The per-ms route launches the kFull instantiation
+// (sg_correlate_ms), and sg_correlate_ms_stage(kFull) launches that same
+// instantiation.
+//
 // Numerics as track_block.cu: built with -fmad=false; the sine polynomial
 // coefficients are the float32 values of signals.nco.sin_turns.
 
@@ -43,6 +54,12 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPad = 1025;
 constexpr long long kCodeOne = 1LL << 40;
+
+// stages of the ablation (see the header)
+constexpr int kNoop = 0;
+constexpr int kCarrier = 1;
+constexpr int kPhase = 2;
+constexpr int kFull = 3;
 
 __device__ __forceinline__ float sin_turns(float x) {
   x = x - floorf(x + 0.5f);
@@ -62,6 +79,7 @@ __device__ __forceinline__ int chip_index(long long q) {
 }
 
 // partial[(c * n_cta + b) * 6 + f]: CTA b's float64 sum f of channel c
+template <int kStage>
 __global__ void __launch_bounds__(kThreads)
 correlate_partial_kernel(const int8_t* __restrict__ cap, long long n_cap,
                          const long long* __restrict__ ptr,
@@ -78,11 +96,17 @@ correlate_partial_kernel(const int8_t* __restrict__ cap, long long n_cap,
   const int c = blockIdx.y;
   const int tid = threadIdx.x;
   if (!active[c]) return;  // the reduce kernel writes the zeros
+  if constexpr (kStage == kNoop) {
+    if (tid < 6) partial[(static_cast<long long>(c) * n_cta + b) * 6 + tid] = 0.0;
+    return;
+  }
 
   __shared__ float pad[kPad];
   __shared__ double red[6][kWarps];
-  for (int i = tid; i < kPad; i += kThreads) pad[i] = code_pads[c * kPad + i];
-  __syncthreads();
+  if constexpr (kStage == kFull) {
+    for (int i = tid; i < kPad; i += kThreads) pad[i] = code_pads[c * kPad + i];
+    __syncthreads();
+  }
 
   const long long p0 = ptr[c], rem0 = rem[c], st = step[c], n = blk[c];
   const unsigned int cp = static_cast<unsigned int>(carr_phase[c]);
@@ -97,16 +121,28 @@ correlate_partial_kernel(const int8_t* __restrict__ cap, long long n_cap,
     const float turns = __int_as_float(static_cast<int>(0x3F800000u | (counts >> 9))) - 1.0f;
     const float ib = sin_turns(turns) * x;
     const float qb = sin_turns(turns + 0.25f) * x;
-    const long long tq = rem0 + st * k;
-    const float e = pad[chip_index(tq - half_q)];
-    const float pr = pad[chip_index(tq)];
-    const float l = pad[chip_index(tq + half_q)];
-    ie += static_cast<double>(e * ib);
-    ip += static_cast<double>(pr * ib);
-    il += static_cast<double>(l * ib);
-    qe += static_cast<double>(e * qb);
-    qp += static_cast<double>(pr * qb);
-    ql += static_cast<double>(l * qb);
+    if constexpr (kStage == kCarrier) {
+      ip += static_cast<double>(ib);
+      qp += static_cast<double>(qb);
+    } else if constexpr (kStage == kPhase) {
+      const long long tq = rem0 + st * k;
+      ie += static_cast<double>(chip_index(tq - half_q));
+      qe += static_cast<double>(chip_index(tq));
+      il += static_cast<double>(chip_index(tq + half_q));
+      ip += static_cast<double>(ib);
+      qp += static_cast<double>(qb);
+    } else {
+      const long long tq = rem0 + st * k;
+      const float e = pad[chip_index(tq - half_q)];
+      const float pr = pad[chip_index(tq)];
+      const float l = pad[chip_index(tq + half_q)];
+      ie += static_cast<double>(e * ib);
+      ip += static_cast<double>(pr * ib);
+      il += static_cast<double>(l * ib);
+      qe += static_cast<double>(e * qb);
+      qp += static_cast<double>(pr * qb);
+      ql += static_cast<double>(l * qb);
+    }
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
@@ -152,19 +188,16 @@ __global__ void correlate_reduce_kernel(const double* __restrict__ partial,
 
 }  // namespace
 
-// cap: (n_cap,) int8 capture; ptr, rem, step, blk: (n_ch,) int64;
-// carr_phase, carr_w: (n_ch,) int32; code_pads: (n_ch, 1025) float32;
-// active: (n_ch,) uint8; partial: (n_ch, n_cta, 6) float64 scratch;
-// out: (n_ch, 6) float32.  Two launches on ``stream``.
-extern "C" int sg_correlate_ms(const void* cap, long long n_cap, const void* ptr,
-                               const void* carr_phase, const void* carr_w,
-                               const void* rem, const void* step, const void* blk,
-                               const void* code_pads, const void* active,
-                               long long half_q, int n_ch, int n_cta,
-                               void* partial, void* out, void* stream) {
+namespace {
+
+template <int kStage>
+int launch(const void* cap, long long n_cap, const void* ptr, const void* carr_phase,
+           const void* carr_w, const void* rem, const void* step, const void* blk,
+           const void* code_pads, const void* active, long long half_q, int n_ch,
+           int n_cta, void* partial, void* out, void* stream) {
   if (n_ch <= 0 || n_cta <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  correlate_partial_kernel<<<dim3(n_cta, n_ch), kThreads, 0, s>>>(
+  correlate_partial_kernel<kStage><<<dim3(n_cta, n_ch), kThreads, 0, s>>>(
       static_cast<const int8_t*>(cap), n_cap, static_cast<const long long*>(ptr),
       static_cast<const int32_t*>(carr_phase), static_cast<const int32_t*>(carr_w),
       static_cast<const long long*>(rem), static_cast<const long long*>(step),
@@ -176,4 +209,42 @@ extern "C" int sg_correlate_ms(const void* cap, long long n_cap, const void* ptr
       static_cast<const double*>(partial), static_cast<const uint8_t*>(active), n_cta,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// cap: (n_cap,) int8 capture; ptr, rem, step, blk: (n_ch,) int64;
+// carr_phase, carr_w: (n_ch,) int32; code_pads: (n_ch, 1025) float32;
+// active: (n_ch,) uint8; partial: (n_ch, n_cta, 6) float64 scratch;
+// out: (n_ch, 6) float32.  Two launches on ``stream``.
+extern "C" int sg_correlate_ms(const void* cap, long long n_cap, const void* ptr,
+                               const void* carr_phase, const void* carr_w,
+                               const void* rem, const void* step, const void* blk,
+                               const void* code_pads, const void* active,
+                               long long half_q, int n_ch, int n_cta,
+                               void* partial, void* out, void* stream) {
+  return launch<kFull>(cap, n_cap, ptr, carr_phase, carr_w, rem, step, blk, code_pads,
+                       active, half_q, n_ch, n_cta, partial, out, stream);
+}
+
+// B4 stripped to ``stage`` (0 kNoop, 1 kCarrier, 2 kPhase, 3 kFull: the
+// very instantiation sg_correlate_ms launches); arguments as sg_correlate_ms
+extern "C" int sg_correlate_ms_stage(int stage, const void* cap, long long n_cap,
+                                     const void* ptr, const void* carr_phase,
+                                     const void* carr_w, const void* rem,
+                                     const void* step, const void* blk,
+                                     const void* code_pads, const void* active,
+                                     long long half_q, int n_ch, int n_cta,
+                                     void* partial, void* out, void* stream) {
+#define SG_STAGE(S)                                                                  \
+  launch<S>(cap, n_cap, ptr, carr_phase, carr_w, rem, step, blk, code_pads, active, \
+            half_q, n_ch, n_cta, partial, out, stream)
+  switch (stage) {
+    case kNoop: return SG_STAGE(kNoop);
+    case kCarrier: return SG_STAGE(kCarrier);
+    case kPhase: return SG_STAGE(kPhase);
+    case kFull: return SG_STAGE(kFull);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SG_STAGE
 }

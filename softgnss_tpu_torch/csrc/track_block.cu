@@ -44,6 +44,19 @@
 // each ms prefetches the next ms's window into L2, the staging that B2's
 // frames array gives B1.
 //
+// Stage ablation (the counterpart of scripts/mega_vmem_bisect.py's
+// ``kern``, which built B1 stage by stage on the TPU): ``kStage`` strips
+// the sample loop at compile time.  kFilters runs no sample loop (the
+// per-ms blk/o step, both barriers, the thread-0 filter step and the
+// output writes); kLoad adds the sample loads, summed into i_p; kCarrier
+// adds the carrier NCO and both sin_turns, I/Q sums into i_p and q_p;
+// kFull is B1.  Every stage writes what it computed, and every stage but
+// kFull runs open loop: the filters run and are written out, but the
+// state keeps its block-input carr_freq and code_freq, so each stage
+// reads the windows kFull reads and garbage sums steer nothing.  The main
+// path launches the kFull instantiation itself (sg_track_block), and
+// sg_track_block_stage(kFull) launches that same instantiation.
+//
 // Numerics: build with -fmad=false so every float operation rounds as the
 // plain PyTorch version's does (no contraction); the sine coefficients are
 // the float32 values of softgnss_tpu.signals.nco.sin_turns, as hex
@@ -63,6 +76,12 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPad = 1025;
 constexpr long long kCodeOne = 1LL << 40;
 constexpr double kTwoPi = 6.283185307179586;
+
+// stages of the ablation (see the header)
+constexpr int kFilters = 0;
+constexpr int kLoad = 1;
+constexpr int kCarrier = 2;
+constexpr int kFull = 3;
 
 struct Params {
   double fs;
@@ -119,7 +138,7 @@ __device__ __forceinline__ long long floor_div(long long a, long long b) {
 // kFused = false: ``src`` is the (r, n_ch, win/4) frames array of
 // build_frames.cu.  kFused = true: ``src`` is the capture's (n_words,) int32
 // word view and frame (j, c) starts at word starts_w[c] + j*spc/4.
-template <bool kFused>
+template <bool kFused, int kStage>
 __global__ void __launch_bounds__(kThreads)
 track_block_kernel(const int32_t* __restrict__ src, long long n_words,
                    const long long* __restrict__ starts_w,
@@ -232,25 +251,37 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
     const int lo_i = static_cast<int>(lo), hi_i = static_cast<int>(hi);
 
     double ie = 0.0, ip = 0.0, il = 0.0, qe = 0.0, qp = 0.0, ql = 0.0;
-    for (int k = tid; k < blk; k += kThreads) {
-      const int idx = o + k;
-      if (idx < 0 || idx >= p.win) continue;  // overflow: flagged, raised by the wrapper
-      const float x = (idx >= lo_i && idx < hi_i)
-                          ? static_cast<float>(src8[4 * w0 + idx]) : 0.0f;
-      const unsigned int counts = cp_j + w * static_cast<unsigned int>(k);
-      const float turns = __int_as_float(static_cast<int>(0x3F800000u | (counts >> 9))) - 1.0f;
-      const float ib = sin_turns(turns) * x;
-      const float qb = sin_turns(turns + 0.25f) * x;
-      const long long tq = rem_j + step * static_cast<long long>(k);
-      const float e = pad[chip_index(tq - p.half_q)];
-      const float pr = pad[chip_index(tq)];
-      const float l = pad[chip_index(tq + p.half_q)];
-      ie += static_cast<double>(e * ib);
-      ip += static_cast<double>(pr * ib);
-      il += static_cast<double>(l * ib);
-      qe += static_cast<double>(e * qb);
-      qp += static_cast<double>(pr * qb);
-      ql += static_cast<double>(l * qb);
+    if constexpr (kStage >= kLoad) {
+      for (int k = tid; k < blk; k += kThreads) {
+        const int idx = o + k;
+        if (idx < 0 || idx >= p.win) continue;  // overflow: flagged, raised by the wrapper
+        const float x = (idx >= lo_i && idx < hi_i)
+                            ? static_cast<float>(src8[4 * w0 + idx]) : 0.0f;
+        if constexpr (kStage == kLoad) {
+          ip += static_cast<double>(x);
+        } else {
+          const unsigned int counts = cp_j + w * static_cast<unsigned int>(k);
+          const float turns =
+              __int_as_float(static_cast<int>(0x3F800000u | (counts >> 9))) - 1.0f;
+          const float ib = sin_turns(turns) * x;
+          const float qb = sin_turns(turns + 0.25f) * x;
+          if constexpr (kStage == kCarrier) {
+            ip += static_cast<double>(ib);
+            qp += static_cast<double>(qb);
+          } else {
+            const long long tq = rem_j + step * static_cast<long long>(k);
+            const float e = pad[chip_index(tq - p.half_q)];
+            const float pr = pad[chip_index(tq)];
+            const float l = pad[chip_index(tq + p.half_q)];
+            ie += static_cast<double>(e * ib);
+            ip += static_cast<double>(pr * ib);
+            il += static_cast<double>(l * ib);
+            qe += static_cast<double>(e * qb);
+            qp += static_cast<double>(pr * qb);
+            ql += static_cast<double>(l * qb);
+          }
+        }
+      }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -335,8 +366,10 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
       cp = cp_j + w * static_cast<unsigned int>(blk);
       rem = rem_j + step * blk - p.code_len_q;
       ms += 1;
-      carr_freq = cfreq;
-      code_freq = dfreq;
+      if constexpr (kStage == kFull) {  // the ablated stages run open loop
+        carr_freq = cfreq;
+        code_freq = dfreq;
+      }
       carr_nco = cnco;
       carr_err = cerr;
       code_nco = dnco;
@@ -409,7 +442,7 @@ Params make_params(const double* hf, const long long* hi) {
   return p;
 }
 
-template <bool kFused>
+template <bool kFused, int kStage>
 int launch(const void* src, long long n_words, const void* starts_w, const void* fb0,
            const void* code_pads, const void* carr_basis, const void* active,
            const void* si_in, const void* sf_in, const void* sa_in, void* si_out,
@@ -417,7 +450,7 @@ int launch(const void* src, long long n_words, const void* starts_w, const void*
            void* ovf, const double* hf, const long long* hi, void* stream) {
   const Params p = make_params(hf, hi);
   if (p.r <= 0 || p.n_ch <= 0) return 0;
-  track_block_kernel<kFused><<<p.n_ch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  track_block_kernel<kFused, kStage><<<p.n_ch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(src), n_words, static_cast<const long long*>(starts_w),
       static_cast<const long long*>(fb0), static_cast<const float*>(code_pads),
       static_cast<const double*>(carr_basis), static_cast<const uint8_t*>(active),
@@ -440,7 +473,7 @@ extern "C" int sg_track_block(const void* frames, const void* fb0,
                               void* abs_sample, void* of64, void* of32,
                               void* ovf, const double* hf, const long long* hi,
                               void* stream) {
-  return launch<false>(frames, 0, nullptr, fb0, code_pads, carr_basis, active, si_in,
+  return launch<false, kFull>(frames, 0, nullptr, fb0, code_pads, carr_basis, active, si_in,
                        sf_in, sa_in, si_out, sf_out, sa_out, abs_sample, of64, of32,
                        ovf, hf, hi, stream);
 }
@@ -455,7 +488,31 @@ extern "C" int sg_track_block_fused(const void* cap_words, long long n_words,
                                     void* abs_sample, void* of64, void* of32,
                                     void* ovf, const double* hf, const long long* hi,
                                     void* stream) {
-  return launch<true>(cap_words, n_words, starts_w, fb0, code_pads, carr_basis, active,
+  return launch<true, kFull>(cap_words, n_words, starts_w, fb0, code_pads, carr_basis, active,
                       si_in, sf_in, sa_in, si_out, sf_out, sa_out, abs_sample, of64,
                       of32, ovf, hf, hi, stream);
+}
+
+// B1 stripped to ``stage`` (0 kFilters, 1 kLoad, 2 kCarrier, 3 kFull: the
+// very instantiation sg_track_block launches); arguments as sg_track_block
+extern "C" int sg_track_block_stage(int stage, const void* frames, const void* fb0,
+                                    const void* code_pads, const void* carr_basis,
+                                    const void* active, const void* si_in,
+                                    const void* sf_in, const void* sa_in,
+                                    void* si_out, void* sf_out, void* sa_out,
+                                    void* abs_sample, void* of64, void* of32,
+                                    void* ovf, const double* hf, const long long* hi,
+                                    void* stream) {
+#define SG_STAGE(S)                                                                   \
+  launch<false, S>(frames, 0, nullptr, fb0, code_pads, carr_basis, active, si_in,    \
+                   sf_in, sa_in, si_out, sf_out, sa_out, abs_sample, of64, of32, ovf, \
+                   hf, hi, stream)
+  switch (stage) {
+    case kFilters: return SG_STAGE(kFilters);
+    case kLoad: return SG_STAGE(kLoad);
+    case kCarrier: return SG_STAGE(kCarrier);
+    case kFull: return SG_STAGE(kFull);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SG_STAGE
 }

@@ -1,0 +1,15 @@
+"""The measurement probes of the port, each the counterpart of a TPU
+measurement script of ``scripts/`` with the same module name, run on a
+CUDA card as ``python -m softgnss_tpu_torch.scripts.<name>``:
+
+* ``pallas_ablate`` (S1) — B4 stage by stage; device, host and in-graph
+  time per launch;
+* ``mega_vmem_bisect`` (S2) — B1 stage by stage; us per ms of each stage;
+* ``builder_time`` (S3) — B2 and its 16-byte variant, L2 cold and warm;
+* ``dma_probe`` (S4) — direct, ``cp.async`` and TMA bulk window loads.
+
+Each holds its kernels bit-equal to their plain PyTorch versions before
+it times them, and prints every number beside nvidia-smi's card name and
+power limit.  ``timing`` holds the shared timers and ``inputs`` the
+shared synthetic inputs and the bit-equality check.
+"""

@@ -1,0 +1,143 @@
+"""Timers shared by the probes and ``chip_smoke.py``, for a CUDA card.
+
+* :func:`cuda_ms` — device ms per call by CUDA events (``busy``: the card
+  is kept busy so the events time device work, not the host's launches);
+* :func:`host_ms` — host ms per call, synchronized at both ends;
+* :func:`graph_marginal_ms` — the marginal device ms of one more call
+  inside a CUDA graph, from graphs of ``n_lo`` and ``n_hi`` calls;
+* :func:`cold_ms` — device ms per call with the L2 cache flushed before
+  each call (:func:`flush_l2`);
+* :func:`card` — the card's name and power limit as nvidia-smi gives them,
+  printed beside every number the probes report.
+
+Every function here needs a CUDA device; :func:`require_cuda` raises
+without one.
+"""
+
+from __future__ import annotations
+
+import functools
+import subprocess
+import time
+
+import torch
+
+#: bytes written by flush_l2: above the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
+
+
+def require_cuda() -> torch.device:
+    """The first CUDA device; raises when there is none (no CPU fallback)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false: the probes time CUDA "
+                           "kernels and need a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@functools.cache
+def card() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``'s
+    first line."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[0]
+
+
+def cuda_ms(fn, n: int, busy: bool = False) -> float:
+    """Mean ms per call of ``fn()`` over ``n`` calls after one warm-up,
+    timed by CUDA events.  ``busy``: the card first spins
+    (``torch.cuda._sleep``) for longer than the host takes to enqueue the
+    calls, so they run back to back and the events time the device work
+    alone, not the host's launch rate (only for ``fn`` that never waits
+    for the card)."""
+    fn()
+    torch.cuda.synchronize()
+    if busy:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(3e9 * (time.perf_counter() - t0)))   # cycles, <= 2 GHz clock
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
+def host_ms(fn, n: int) -> float:
+    """Mean host ms per call of ``fn()``, synchronized at both ends."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def graph_marginal_ms(fn, n_lo: int = 50, n_hi: int = 400, reps: int = 5) -> float:
+    """(t_hi - t_lo) / (n_hi - n_lo): the device ms one more call of
+    ``fn()`` adds inside a CUDA graph, where t_n is the best of ``reps``
+    replays of a graph that captured ``n`` calls.  The counterpart of the
+    N-scaling inside a ``lax.scan`` of scripts/pallas_ablate.py.  ``fn``
+    must not synchronize (no ``.item()``, no host-to-device copy)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm up off the default stream, as capture wants
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    best = {}
+    for n in (n_lo, n_hi):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start.record()
+            graph.replay()
+            stop.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(stop))
+        best[n] = min(times)
+        del graph
+    return (best[n_hi] - best[n_lo]) / (n_hi - n_lo)
+
+
+@functools.cache
+def _flush_buffer(device: torch.device) -> torch.Tensor:
+    return torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=device)
+
+
+def flush_l2(device: torch.device) -> None:
+    """Write a buffer larger than the L2 cache, evicting what it held."""
+    _flush_buffer(torch.device(device)).fill_(1)
+
+
+def cold_ms(fn, n: int, device: torch.device) -> float:
+    """Mean device ms per call of ``fn()`` over ``n`` calls, each after
+    :func:`flush_l2` and timed alone by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    for _ in range(n):
+        flush_l2(device)
+        torch.cuda._sleep(200_000)   # ~0.1 ms: the host enqueues fn before the card reaches it
+        start.record()
+        fn()
+        stop.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / n

@@ -57,7 +57,7 @@ from softgnss_tpu_torch.track.scan import (
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("build_frames.cu", "track_block.cu", "correlate_ms.cu")
+_SOURCES = ("build_frames.cu", "track_block.cu", "correlate_ms.cu", "dma_probe.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
               "-Xcompiler", "-fPIC")
@@ -85,15 +85,21 @@ class KernelLibrary:
         self.log = log
         lib = ctypes.CDLL(str(path))
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.sg_build_frames.argtypes = [vp, ll, vp, vp, i, i, i, ll, vp]
-        lib.sg_build_frames.restype = i
         hf, hi = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_longlong)
-        lib.sg_track_block.argtypes = [vp] * 15 + [hf, hi, vp]
-        lib.sg_track_block.restype = i
-        lib.sg_track_block_fused.argtypes = [vp, ll] + [vp] * 15 + [hf, hi, vp]
-        lib.sg_track_block_fused.restype = i
-        lib.sg_correlate_ms.argtypes = [vp, ll] + [vp] * 8 + [ll, i, i, vp, vp, vp]
-        lib.sg_correlate_ms.restype = i
+        block = [vp] * 15 + [hf, hi, vp]
+        correlate = [vp, ll] + [vp] * 8 + [ll, i, i, vp, vp, vp]
+        for name, args in (
+                ("sg_build_frames", [vp, ll, vp, vp, i, i, i, ll, vp]),
+                ("sg_build_frames_vec4", [vp, ll, vp, vp, i, i, i, ll, vp]),
+                ("sg_track_block", block),
+                ("sg_track_block_stage", [i] + block),
+                ("sg_track_block_fused", [vp, ll] + block),
+                ("sg_correlate_ms", correlate),
+                ("sg_correlate_ms_stage", [i] + correlate),
+                ("sg_dma_probe", [i, i, vp, vp, vp, i, i, i, i, vp])):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = i
         self.lib = lib
 
 
@@ -184,21 +190,30 @@ def build_frames(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int,
     of millisecond 0.  Kernel B2 (csrc/build_frames.cu) on CUDA tensors."""
     if cap_words.device.type == "cpu":
         return build_frames_plain(cap_words, starts_w, r, win_w, spc_w)
+    frames = _launch_frames("build_frames", load_library().lib.sg_build_frames, cap_words,
+                            starts_w, r, win_w, spc_w)
+    build_frames.launches += 1
+    return frames
+
+
+build_frames.launches = 0
+
+
+def _launch_frames(name: str, entry, cap_words, starts_w, r: int, win_w: int,
+                   spc_w: int) -> torch.Tensor:
+    """Check the inputs of :func:`build_frames`, allocate the frames and
+    call ``entry`` (a C entry point that takes the arguments of
+    ``sg_build_frames``) on the current stream."""
     dev = cap_words.device
     c = starts_w.shape[0]
     _require(cap_words, "cap_words", torch.int32, (cap_words.shape[0],), dev)
     _require(starts_w, "starts_w", torch.int64, (c,), dev)
     frames = torch.empty((r, c, win_w), dtype=torch.int32, device=dev)
-    lib = load_library().lib
     with torch.cuda.device(dev):
-        rc = lib.sg_build_frames(_ptr(cap_words), cap_words.shape[0], _ptr(starts_w),
-                                 _ptr(frames), r, c, win_w, spc_w, _stream(dev))
-    build_frames.launches += 1
-    _check(rc, "build_frames")
+        rc = entry(_ptr(cap_words), cap_words.shape[0], _ptr(starts_w), _ptr(frames), r, c,
+                   win_w, spc_w, _stream(dev))
+    _check(rc, name)
     return frames
-
-
-build_frames.launches = 0
 
 
 # --- B1: block tracker -----------------------------------------------------

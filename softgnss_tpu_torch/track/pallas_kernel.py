@@ -51,6 +51,34 @@ def correlate_ms_plain(config: ReceiverConfig, cap, ptr, carr_phase, w, code_rem
     return torch.where(active[:, None], corr, 0.0)
 
 
+def _launch_correlate(name: str, entry, config: ReceiverConfig, cap, ptr, carr_phase, w,
+                      code_rem_q, step_q, blk, code_pads, active) -> torch.Tensor:
+    """Check the inputs of :func:`correlate_ms`, allocate its output and
+    scratch, and call ``entry`` (a C entry point that takes the arguments
+    of ``sg_correlate_ms``) on the current stream.  Never synchronizes,
+    so a CUDA graph can capture it."""
+    dev = cap.device
+    c = ptr.shape[0]
+    _require(cap, "cap", torch.int8, (cap.shape[0],), dev)
+    for arg, t, dtype in (("ptr", ptr, torch.int64), ("carr_phase", carr_phase, torch.int32),
+                          ("w", w, torch.int32), ("code_rem_q", code_rem_q, torch.int64),
+                          ("step_q", step_q, torch.int64), ("blk", blk, torch.int64),
+                          ("active", active, torch.bool)):
+        _require(t, arg, dtype, (c,), dev)
+    _require(code_pads, "code_pads", torch.float32, (c, 1025), dev)
+    n_cta = -(-(config.samples_per_code + config.track_window_extra) // _SAMPLES_PER_CTA)
+    partial = torch.empty((c, n_cta, 6), dtype=torch.float64, device=dev)
+    out = torch.empty((c, 6), dtype=torch.float32, device=dev)
+    act = active.to(torch.uint8)
+    with torch.cuda.device(dev):
+        rc = entry(_ptr(cap), cap.shape[0], _ptr(ptr), _ptr(carr_phase), _ptr(w),
+                   _ptr(code_rem_q), _ptr(step_q), _ptr(blk), _ptr(code_pads), _ptr(act),
+                   chips_to_q(config.dll_correlator_spacing), c, n_cta, _ptr(partial),
+                   _ptr(out), _stream(dev))
+    _check(rc, name)
+    return out
+
+
 def correlate_ms(config: ReceiverConfig, cap, ptr, carr_phase, w, code_rem_q, step_q,
                  blk, code_pads, active) -> torch.Tensor:
     """Six correlator sums of one millisecond, all channels.
@@ -65,27 +93,8 @@ def correlate_ms(config: ReceiverConfig, cap, ptr, carr_phase, w, code_rem_q, st
     if cap.device.type == "cpu":
         return correlate_ms_plain(config, cap, ptr, carr_phase, w, code_rem_q, step_q,
                                   blk, code_pads, active)
-    dev = cap.device
-    c = ptr.shape[0]
-    _require(cap, "cap", torch.int8, (cap.shape[0],), dev)
-    for name, t, dtype in (("ptr", ptr, torch.int64), ("carr_phase", carr_phase, torch.int32),
-                           ("w", w, torch.int32), ("code_rem_q", code_rem_q, torch.int64),
-                           ("step_q", step_q, torch.int64), ("blk", blk, torch.int64),
-                           ("active", active, torch.bool)):
-        _require(t, name, dtype, (c,), dev)
-    _require(code_pads, "code_pads", torch.float32, (c, 1025), dev)
-    n_cta = -(-(config.samples_per_code + config.track_window_extra) // _SAMPLES_PER_CTA)
-    partial = torch.empty((c, n_cta, 6), dtype=torch.float64, device=dev)
-    out = torch.empty((c, 6), dtype=torch.float32, device=dev)
-    act = active.to(torch.uint8)
-    lib = load_library().lib
-    with torch.cuda.device(dev):
-        rc = lib.sg_correlate_ms(
-            _ptr(cap), cap.shape[0], _ptr(ptr), _ptr(carr_phase), _ptr(w),
-            _ptr(code_rem_q), _ptr(step_q), _ptr(blk), _ptr(code_pads), _ptr(act),
-            chips_to_q(config.dll_correlator_spacing), c, n_cta, _ptr(partial),
-            _ptr(out), _stream(dev))
-    _check(rc, "correlate_ms")
+    out = _launch_correlate("correlate_ms", load_library().lib.sg_correlate_ms, config, cap,
+                            ptr, carr_phase, w, code_rem_q, step_q, blk, code_pads, active)
     correlate_ms.launches += 1
     return out
 
