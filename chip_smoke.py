@@ -9,7 +9,9 @@ Phases, each printed with its seconds; the first failure raises and the
 script exits non-zero:
 
 1. card       — device name and nvidia-smi's name / power limit
-2. build      — nvcc builds the four kernels from softgnss_tpu_torch/csrc
+2. build      — nvcc builds every kernel from softgnss_tpu_torch/csrc (the
+                receiver's B1-B4, the probes' S1-S5); ptxas's registers,
+                shared memory and spills per entry
 3. nco        — signals.nco on CUDA tensors bit-equal to the same on CPU
 4. B2         — build_frames kernel bit-equal to its plain version at the
                 default geometry, frames past the capture ends included
@@ -23,10 +25,12 @@ script exits non-zero:
                 spacing 0.25); each kernel's time per launch
 6b. probes    — the measurement probes softgnss_tpu_torch.scripts (S1
                 pallas_ablate, S2 mega_vmem_bisect, S3 builder_time, S4
-                dma_probe): every stage, variant and load pattern bit-equal
-                to its plain version, then each probe's timings (its own
-                path: the counts are zeroed before the timings and read
-                after)
+                dma_probe, S5 pallas_probe): every stage, variant, load
+                pattern and construct against its plain version (bit-equal;
+                S5's tensor-core products within their TF32 bound), then
+                each probe's timings, S5's cluster reduce-and-barrier step
+                among them (its own path: the counts are zeroed before the
+                timings and read after)
 7. main path  — run_receiver(default_config(), navigate=True,
                 device="cuda") over the reference's 37 000 ms (block
                 tracker, B2 + B1): every satellite acquired and locked,
@@ -40,11 +44,25 @@ script exits non-zero:
                 bounds of the main path, and against the block tracker
                 absolute_sample within +-1, correlator relative RMS < 1e-3,
                 carr_freq within 0.5 Hz
-10. front end — 'auto' at fs = 38.194 MHz (samples_per_code % 4 != 0):
+10. stream    — the main path's capture copied once into pinned host
+                memory, then parallel.stream.track_streamed in 4 096-ms
+                chunks (upload, B2 + B1, readback overlapped): every output
+                bit-equal to the main path's; seconds and peak device
+                memory beside the main path's
+11. front end — 'auto' at fs = 38.194 MHz (samples_per_code % 4 != 0):
                 8 channels over 2 000 ms on the per-ms tracker, locked
+12. ekf       — post_navigate(nav_filter='ekf') on the main path's tracking:
+                >= 90 % of epochs fixed, 3D error median < 30 m
+13. cli       — softgnss_tpu_torch.cli.main(["--synthetic", "--stream",
+                "--set", "nav_filter=ekf"]) in process at default_config():
+                exit 0, a 3D-error mean < 30 m, B2 and B1 launched
 
 Each tracking phase zeroes every kernel's launch count just before it and
-checks the counts just after.  The line before the last is nvidia-smi's
+checks the counts just after.  Each kernel's record carries its time, its
+plain version's, one PyTorch call's that computes the same function where
+there is one, and its bound: the least time an H100 could take for the
+same work on this run's inputs (bytes over 3.35 TB/s, operations over 67
+TFLOP/s float32 or 495 TFLOP/s TF32, the larger).  The line before the last is nvidia-smi's
 card name and power limit, the one before it the kernels' JSON record;
 the last line is {"ok": true, "device": {...}}.  Exits non-zero, printing
 no result, when no CUDA device is available.
@@ -53,12 +71,15 @@ no result, when no CUDA device is available.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
+import re
 import sys
 import time
 
 import numpy as np
 
+from softgnss_tpu_torch.scripts.timing import bound_ms
 from softgnss_tpu_torch.scripts.timing import card as smi_line
 from softgnss_tpu_torch.scripts.timing import cuda_ms, host_ms
 
@@ -85,6 +106,15 @@ TOL_FRAC = 1e-6            # sample_frac
 #: tolerances of ROADMAP's north star: the routes run the same math, the
 #: filters in torch on one and in B1 on the other)
 ROUTE_TOL = {"absolute_sample": 1, "corr_rel_rms": 1e-3, "carr_freq_hz": 0.5}
+#: the streamed route's chunk (config.track_stream_chunk_ms's default)
+STREAM_CHUNK_MS = 4096
+#: operations per correlated sample in B1, B3 and B4 (and S1's and S2's
+#: ``full``), counted from the sample loops of csrc/track_block.cu and
+#: csrc/correlate_ms.cu: the byte load, its bounds and convert (~5), the
+#: carrier NCO counts and turns (~5), two sin_turns with their products
+#: (~39), the Q40 code phase, three chip indices and lookups (~22), six
+#: products widened and summed in float64 (~18)
+OPS_PER_SAMPLE = 90
 
 
 @contextlib.contextmanager
@@ -132,14 +162,43 @@ def truth_channels(sc, status):
 
 
 def _kernel_wrappers():
-    """(the receiver's kernel wrappers B2, B1, B3, B4; the probes' S1-S4)"""
-    from softgnss_tpu_torch.scripts import builder_time, dma_probe, mega_vmem_bisect, pallas_ablate
+    """(the receiver's kernel wrappers B2, B1, B3, B4; the probes' S1-S5)"""
+    from softgnss_tpu_torch.scripts import (builder_time, dma_probe, mega_vmem_bisect,
+                                            pallas_ablate, pallas_probe)
     from softgnss_tpu_torch.track import megakernel as mk
     from softgnss_tpu_torch.track import pallas_kernel as pk
 
     return ((mk.build_frames, mk.track_block, mk.track_block_fused, pk.correlate_ms),
             (pallas_ablate.correlate_ms_stage, mega_vmem_bisect.track_block_stage,
-             builder_time.build_frames_vec4, dma_probe.dma_probe))
+             builder_time.build_frames_vec4, dma_probe.dma_probe,
+             *pallas_probe.KERNELS.values()))
+
+
+def union_len(starts, length: int, limit: int) -> int:
+    """Elements covered by the intervals [s, s + length), s in ``starts``,
+    clipped to [0, limit): what a kernel must read at least once."""
+    total, hi = 0, 0
+    for s in sorted(int(v) for v in starts):
+        lo, end = max(s, hi, 0), min(s + length, limit)
+        if end > lo:
+            total += end - lo
+            hi = end
+    return total
+
+
+def block_bound(samples: int, n_bytes: int) -> tuple[float, str]:
+    """Bound of B1 / B3 / B4 work: ``samples`` correlated samples at
+    OPS_PER_SAMPLE float32 operations, ``n_bytes`` moved."""
+    return bound_ms(n_bytes, samples * OPS_PER_SAMPLE)
+
+
+def record(kid: str, name: str, source: str, replaces: str, max_abs_err: float, ms: float,
+           plain_ms: float, bound: tuple[float, str], library_ms: float | None) -> dict:
+    """One kernel's entry of the ``kernels`` line (``launches`` is filled
+    in from its main-path phase)."""
+    return {"id": kid, "name": name, "route": "cuda", "source": f"softgnss_tpu_torch/csrc/{source}",
+            "replaces": replaces, "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
 
 
 def reset_launches():
@@ -200,13 +259,39 @@ def phase_b2(cfg, dev) -> dict:
           "B2 zero fill")
     ms = cuda_ms(lambda: mk.build_frames(cap, starts, r, win_w, spc_w), 50, busy=True)
     plain_ms = cuda_ms(lambda: mk.build_frames_plain(cap, starts, r, win_w, spc_w), 10)
+    lib_ms = frames_library_ms(cap, starts, r, win_w, spc_w)
+    bound = frames_bound(cap, starts, r, win_w, spc_w)
     print(f"  frames {tuple(got.shape)} int32 bit-equal; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms per block")
-    return {"name": "build_frames", "route": "cuda",
-            "source": "softgnss_tpu_torch/csrc/build_frames.cu",
-            "replaces": "softgnss_tpu/track/megakernel.py:818",
-            "max_abs_err": float((got.to(torch.int64) - want).abs().max()),
-            "ms": ms, "plain_ms": plain_ms}
+          f"plain {plain_ms:.4f} ms, one indexing call {lib_ms:.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}) per block")
+    return record("B2", "build_frames", "build_frames.cu", "softgnss_tpu/track/megakernel.py:818",
+                  float((got.to(torch.int64) - want).abs().max()), ms, plain_ms, bound, lib_ms)
+
+
+def frames_bound(cap, starts, r: int, win_w: int, spc_w: int) -> tuple[float, str]:
+    """B2's (and S3's) bound: every capture word some frame holds, read
+    once, and the frames written."""
+    span = (r - 1) * spc_w + win_w
+    read = union_len(starts.tolist(), span, cap.shape[0]) * 4
+    return bound_ms(read + r * starts.shape[0] * win_w * 4, 0)
+
+
+def frames_library_ms(cap, starts, r: int, win_w: int, spc_w: int) -> float:
+    """One advanced-indexing gather with a prebuilt index computing B2's
+    function: the capture with one zero word appended, indexed there for
+    the words outside it."""
+    import torch
+
+    from softgnss_tpu_torch.track import megakernel as mk
+
+    n = cap.shape[0]
+    padded = torch.cat([cap, cap.new_zeros(1)])
+    idx = (starts[None, :, None] + torch.arange(r, device=cap.device)[:, None, None] * spc_w
+           + torch.arange(win_w, device=cap.device)[None, None, :])
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)
+    check(torch.equal(padded[idx], mk.build_frames_plain(cap, starts, r, win_w, spc_w)),
+          "the indexing call differs from B2's plain version")
+    return cuda_ms(lambda: padded[idx], 50, busy=True)
 
 
 def run_split(cfg, sig, channels, build, block):
@@ -331,16 +416,22 @@ def phase_block_kernels(cfg, sig, sc, dev) -> tuple[dict, dict]:
     b1_plain = cuda_ms(lambda: mk.track_block_plain(*args), 3)
     b3_ms = cuda_ms(lambda: mk.track_block_fused(*fargs), 20, busy=True)
     b3_plain = cuda_ms(lambda: mk.track_block_fused_plain(*fargs), 3)
-    print(f"  block r={r} x {N_SATS} ch: B1 {b1_ms:.3f} ms (plain {b1_plain:.3f} ms), "
-          f"B3 {b3_ms:.3f} ms (plain: build + track {b3_plain:.3f} ms)")
-    rec_b1 = {"name": "track_block", "route": "cuda",
-              "source": "softgnss_tpu_torch/csrc/track_block.cu",
-              "replaces": "softgnss_tpu/track/megakernel.py:254",
-              "max_abs_err": worst_b1, "ms": b1_ms, "plain_ms": b1_plain}
-    rec_b3 = {"name": "track_block_fused", "route": "cuda",
-              "source": "softgnss_tpu_torch/csrc/track_block.cu",
-              "replaces": "softgnss_tpu/track/megakernel.py:749",
-              "max_abs_err": worst_b3, "ms": b3_ms, "plain_ms": b3_plain}
+    # the bounds: the samples this block correlates (active channels), the
+    # frames (B1) or the capture span (B3) read once, tables and outputs
+    samples = int((mk.track_block(*args)[0].ptr - st.ptr)[active].sum())
+    n_act = int(active.sum())
+    side = n_act * 1025 * 4 + r * N_SATS * 88      # code tables; outputs per (ms, ch)
+    b1_bound = block_bound(samples, r * n_act * cfg.track_window + side)
+    span_w = (r - 1) * (spc // 4) + cfg.track_window // 4
+    b3_bound = block_bound(samples, 4 * union_len(start_w[active].tolist(), span_w, n_words) + side)
+    print(f"  block r={r} x {N_SATS} ch: B1 {b1_ms:.3f} ms (plain {b1_plain:.3f} ms, bound "
+          f"{b1_bound[0]:.4f} ms by {b1_bound[1]}), B3 {b3_ms:.3f} ms (plain: build + track "
+          f"{b3_plain:.3f} ms, bound {b3_bound[0]:.4f} ms by {b3_bound[1]}); {samples} samples")
+    rec_b1 = record("B1", "track_block", "track_block.cu", "softgnss_tpu/track/megakernel.py:254",
+                    worst_b1, b1_ms, b1_plain, b1_bound, None)
+    rec_b3 = record("B3", "track_block_fused", "track_block.cu",
+                    "softgnss_tpu/track/megakernel.py:749", worst_b3, b3_ms, b3_plain, b3_bound,
+                    None)
     return rec_b1, rec_b3
 
 
@@ -368,26 +459,42 @@ def phase_b4(cfg, sig, sc, dev) -> dict:
     ms = cuda_ms(lambda: pk.correlate_ms(*args), 200, busy=True)
     wrapper_ms = host_ms(lambda: pk.correlate_ms(*args), 200)
     plain_ms = cuda_ms(lambda: pk.correlate_ms_plain(*args), 20)
+    bound = ms_bound(st.ptr, blk, active)
     print(f"  one ms x {N_SATS} ch: kernel {ms:.4f} ms of device time per launch "
-          f"({wrapper_ms:.4f} ms of host time per wrapper call), plain {plain_ms:.4f} ms")
-    return {"name": "correlate_ms", "route": "cuda",
-            "source": "softgnss_tpu_torch/csrc/correlate_ms.cu",
-            "replaces": "softgnss_tpu/track/pallas_kernel.py:98",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+          f"({wrapper_ms:.4f} ms of host time per wrapper call), plain {plain_ms:.4f} ms, "
+          f"bound {bound[0]:.5f} ms ({bound[1]})")
+    return record("B4", "correlate_ms", "correlate_ms.cu", "softgnss_tpu/track/pallas_kernel.py:98",
+                  worst, ms, plain_ms, bound, None)
+
+
+def ms_bound(ptr, blk, active) -> tuple[float, str]:
+    """B4's (and S1's) bound for one ms: the active channels' samples
+    [ptr, ptr + blk) read once (blk differs between channels by a sample at
+    most: the longest is taken) and correlated, code tables, outputs."""
+    act = active.cpu().numpy()
+    p, b = ptr.cpu().numpy()[act], blk.cpu().numpy()[act]
+    read = union_len(p.tolist(), int(b.max()), 1 << 62) if len(p) else 0
+    return block_bound(int(b.sum()), read + int(act.sum()) * 1025 * 4 + act.size * 6 * 4)
 
 
 def phase_probes(dev) -> list[dict]:
-    """S1-S4 through their modules: each stage, variant and pattern
-    bit-equal to its plain version, then the timings with the launch
+    """S1-S5 through their modules: each stage, variant, pattern and
+    construct against its plain version, then the timings with the launch
     counts zeroed before and read after."""
+    import torch
+
+    from softgnss_tpu_torch import default_config
     from softgnss_tpu_torch.scripts import builder_time as s3
     from softgnss_tpu_torch.scripts import dma_probe as s4
     from softgnss_tpu_torch.scripts import mega_vmem_bisect as s2
     from softgnss_tpu_torch.scripts import pallas_ablate as s1
+    from softgnss_tpu_torch.scripts import pallas_probe as s5
 
-    probes = (s1, s2, s3, s4)
+    probes = (s1, s2, s3, s4, s5)
     errs = [m.check(dev) for m in probes]
-    print("  every S1-S4 stage, variant and load pattern bit-equal to its plain version")
+    print("  every S1-S4 stage, variant and load pattern bit-equal to its plain version; "
+          f"S5 constructs: max |kernel - plain| {errs[4]} (grid, acc, conv, onehot bit-equal; "
+          "bdot, dot within the TF32 bound)")
     reset_launches()
     res = [m.measure(dev) for m in probes]
     launches = read_launches(probes=True)
@@ -395,8 +502,26 @@ def phase_probes(dev) -> list[dict]:
     for m, r in zip(probes, res):
         m.report(r)
     print(f"  launches {launches}")
-    r1, r2, r3, r4 = res
+    r1, r2, r3, r4, r5 = res
     c = s1.N_CHANNELS[0]
+    print(f"  S5 cluster reduce-and-barrier step: {r5['acc_step_us']:.4f} us per rep "
+          f"(8-CTA cluster, DSMEM, two cluster barriers)")
+
+    # the bounds, at the inputs each probe timed (C = 8, r = 64)
+    cfg = default_config(number_of_channels=c)
+    a1 = s1.ms_args(cfg, dev)
+    b_s1 = ms_bound(a1[2], a1[7], a1[9])
+    a2 = s2.block_args(cfg, s2.R, dev)
+    samples = int((s2.track_block_stage("full", *a2)[0].ptr - a2[2].ptr).sum())
+    b_s2 = block_bound(samples, s2.R * c * cfg.track_window + c * 1025 * 4 + s2.R * c * 88)
+    a3 = s3.frame_args(c, s3.R, dev)
+    b_s3 = frames_bound(*a3)
+    lib_s3 = frames_library_ms(*a3)
+    cap, starts, r, win, spc = s4.probe_args(c, s4.R, dev)
+    span = (r - 1) * spc + win
+    b_s4 = bound_ms(union_len((4 * starts).tolist(), span, cap.shape[0]) + r * c * 8, r * c * win)
+    torch.cuda.synchronize(dev)
+
     us = lambda ms, r=1: ms * 1e3 / r   # noqa: E731
     extra = [
         {"us_per_launch": {n: {s: {k: us(v) for k, v in r1[n][s].items()} for s in s1.STAGES}
@@ -408,19 +533,27 @@ def phase_probes(dev) -> list[dict]:
                        for p, d in s4.PATTERNS}},
     ]
     recs = [
-        ("correlate_ms_stage", "correlate_ms.cu", "scripts/pallas_ablate.py:49",
-         r1[c]["full"]["device"], r1[c]["plain"]),
-        ("track_block_stage", "track_block.cu", "scripts/mega_vmem_bisect.py:45",
-         r2[c]["full"], r2[c]["plain"]),
-        ("build_frames_vec4", "build_frames.cu", "scripts/builder_time.py:60",
-         r3[c]["vec4"]["warm"], r3[c]["plain"]),
-        ("dma_probe", "dma_probe.cu", "scripts/dma_probe.py:34",
-         r4[("direct", 1)]["warm"], r4["plain"]),
+        ("S1", "correlate_ms_stage", "correlate_ms.cu", "scripts/pallas_ablate.py:49",
+         r1[c]["full"]["device"], r1[c]["plain"], b_s1, None),
+        ("S2", "track_block_stage", "track_block.cu", "scripts/mega_vmem_bisect.py:45",
+         r2[c]["full"], r2[c]["plain"], b_s2, None),
+        ("S3", "build_frames_vec4", "build_frames.cu", "scripts/builder_time.py:60",
+         r3[c]["vec4"]["warm"], r3[c]["plain"], b_s3, lib_s3),
+        ("S4", "dma_probe", "dma_probe.cu", "scripts/dma_probe.py:34",
+         r4[("direct", 1)]["warm"], r4["plain"], b_s4, None),
     ]
-    return [{"name": name, "route": "cuda", "source": f"softgnss_tpu_torch/csrc/{src}",
-             "replaces": rep, "launches": launches[name], "max_abs_err": err, "ms": ms,
-             "plain_ms": plain_ms, **x}
-            for (name, src, rep, ms, plain_ms), err, x in zip(recs, errs, extra)]
+    out = [{**record(kid, name, src, rep, err, ms, plain_ms, bound, lib),
+            "launches": launches[name], **x}
+           for (kid, name, src, rep, ms, plain_ms, bound, lib), err, x in zip(recs, errs, extra)]
+    for name in s5.PROBES:
+        t = r5[name]
+        rec = record("S5", f"probe_{name}", "pallas_probe.cu", s5.REPLACES[name], errs[4][name],
+                     t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]), t["library_ms"])
+        rec["launches"] = launches[f"probe_{name}"]
+        if name == "acc":
+            rec["us_per_cluster_step"] = r5["acc_step_us"]
+        out.append(rec)
+    return out
 
 
 def check_locked(label, tr, skip_ms: int) -> None:
@@ -478,11 +611,15 @@ def report_times(label, res, card: str) -> None:
 def phase_main(cfg, sig, sc, card: str):
     from softgnss_tpu_torch.pipeline import run_receiver
 
+    import torch
+
     B = cfg.track_block_ms
     n_segments = MAIN_MS // B + (MAIN_MS % B > 0)
+    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     res = run_receiver(cfg, signal=sig, n_ms=MAIN_MS, navigate=True, device=sig.device)
     launches = read_launches()
+    res.peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(res.summary())
 
     acq = res.acquisition
@@ -572,6 +709,107 @@ def phase_per_ms(cfg, sig, sc, main, card: str):
     return launches, fix
 
 
+def phase_stream(cfg, host, main, dev, card: str) -> dict:
+    """track_streamed from pinned host memory in STREAM_CHUNK_MS chunks,
+    against the main path: every output and the final state bit-equal."""
+    import torch
+
+    from softgnss_tpu_torch.parallel import track_streamed
+
+    B = cfg.track_block_ms
+    n_segments = MAIN_MS // B + (MAIN_MS % B > 0)
+    upload_s = host_ms(lambda: host.to(dev, non_blocking=True), 3) / 1e3
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = track_streamed(cfg, host, main.channels, n_ms=MAIN_MS, chunk_ms=STREAM_CHUNK_MS,
+                        device=dev)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    want = {"build_frames": n_segments, "track_block": n_segments, "track_block_fused": 0,
+            "correlate_ms": 0}
+    check(launches == want, f"stream: kernel launches {launches}, expected {want}")
+    ref = main.tracking
+    for f in ("absolute_sample", "sample_frac", "code_freq", "carr_freq", "i_p", "i_e", "i_l",
+              "q_e", "q_p", "q_l", "dll_discr", "dll_discr_filt", "pll_discr", "pll_discr_filt"):
+        check(np.array_equal(getattr(tr, f), getattr(ref, f)), f"stream: {f} not bit-equal")
+    for f, x, y in zip(tr.final_state._fields, tr.final_state, ref.final_state):
+        check(torch.equal(x, y), f"stream: final state {f} not bit-equal")
+    main_s = main.timings_s["track"]
+    print(f"  [{card}] streamed: {MAIN_MS} ms in {STREAM_CHUNK_MS}-ms chunks from pinned host "
+          f"memory: track {stream_s:.3f} s, peak device memory {peak_gb:.3f} GB above the "
+          f"{base / 1e9:.3f} GB held before it; main path: track {main_s:.3f} s + whole-capture upload {upload_s:.3f} s "
+          f"({host.numel() / 1e9:.3f} GB) = {main_s + upload_s:.3f} s, peak device memory "
+          f"{main.peak_gb:.3f} GB (capture resident); launches {launches}; every output and "
+          "the final state bit-equal to the main path")
+    return {"stream_track_s": stream_s, "main_track_s": main_s, "upload_s": upload_s,
+            "stream_peak_gb": peak_gb, "main_peak_gb": main.peak_gb}
+
+
+def phase_ekf(cfg, main, sc, card: str, save_dir: str | None = None) -> dict:
+    """The EKF fix on the main path's tracking; with ``save_dir``, that
+    tracking (a checkpoint either package loads) and the truth position are
+    written there, for tests/nav_checkpoint_parity.py."""
+    from softgnss_tpu_torch.nav.solve import post_navigate
+    from softgnss_tpu_torch.pipeline import save_tracking
+
+    if save_dir is not None:
+        save_tracking(f"{save_dir}/main_track.npz", main.tracking)
+        np.save(f"{save_dir}/main_truth_ecef.npy", np.asarray(sc.receiver_ecef))
+    t0 = time.perf_counter()
+    sol, _ = post_navigate(cfg.with_options(nav_filter="ekf"), main.tracking)
+    nav_s = time.perf_counter() - t0
+    check(sol is not None and sol.nav_filter == "ekf", "ekf: no solution")
+    rx = sc.receiver_ecef
+    err = lambda x, y, z: np.sqrt((x - rx[0]) ** 2 + (y - rx[1]) ** 2 + (z - rx[2]) ** 2)  # noqa: E731
+    e_kf = err(sol.x, sol.y, sol.z)
+    e_ls = err(sol.lsq_x, sol.lsq_y, sol.lsq_z)
+    fixed = int(np.isfinite(sol.x).sum())
+    tail = slice(2 * sol.n_epochs // 3, None)
+    out = {"fixed": fixed, "epochs": int(sol.n_epochs), "ekf_median_m": float(np.nanmedian(e_kf)),
+           "lsq_median_m": float(np.nanmedian(e_ls)), "navigate_s": nav_s,
+           "ekf_tail_median_m": float(np.nanmedian(e_kf[tail])),
+           "lsq_tail_median_m": float(np.nanmedian(e_ls[tail]))}
+    check(fixed >= 0.9 * sol.n_epochs and out["ekf_median_m"] < 30.0, f"ekf: {out}")
+    print(f"  [{card}] EKF: {fixed}/{sol.n_epochs} epochs fixed, 3D error median "
+          f"{out['ekf_median_m']:.3f} m (its least-squares columns {out['lsq_median_m']:.3f} m); "
+          f"last third {out['ekf_tail_median_m']:.3f} m (least squares "
+          f"{out['lsq_tail_median_m']:.3f} m); navigate {nav_s:.3f} s (main path, least "
+          f"squares: {main.timings_s['navigate']:.3f} s)")
+    return out
+
+
+def phase_cli(card: str) -> dict:
+    """The CLI in process at default_config(), on the card, streamed, EKF."""
+    from softgnss_tpu_torch import cli
+
+    argv = ["--synthetic", "--stream", "--set", "nav_filter=ekf"]
+    buf = io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    out = buf.getvalue()
+    print("\n".join("  | " + ln for ln in out.splitlines() if ln.strip()))
+    m = re.search(r"3D error vs injected truth: mean ([0-9.]+) m", out)
+    check(rc == 0 and m is not None, f"cli: exit {rc}, no 3D error line")
+    mean_m = float(m.group(1))
+    check(mean_m < 30.0, f"cli: 3D error mean {mean_m} m")
+    check("PVT (EKF)" in out, "cli: the solution is not the EKF's")
+    check(launches["build_frames"] > 0 and launches["track_block"] > 0
+          and launches["build_frames"] == launches["track_block"], f"cli: launches {launches}")
+    print(f"  [{card}] python -m softgnss_tpu_torch.cli {' '.join(argv)}: exit {rc}, 3D error "
+          f"mean {mean_m} m, {wall_s:.3f} s in process; launches {launches}")
+    return {"wall_s": wall_s, "err_mean_m": mean_m, "launches": launches}
+
+
 def phase_front_end(dev, card: str) -> dict:
     """'auto' at a front end with samples_per_code % 4 != 0."""
     from softgnss_tpu_torch import default_config
@@ -604,8 +842,16 @@ def phase_front_end(dev, card: str) -> dict:
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description="On-card smoke test of softgnss_tpu_torch")
+    parser.add_argument("--save-tracking", metavar="DIR",
+                        help="also write the main path's tracking checkpoint and the truth "
+                             "position to DIR (tests/nav_checkpoint_parity.py reads them)")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card",
@@ -625,11 +871,19 @@ def main() -> int:
         print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, device {name}")
         print(card)
     with phase("build"):
+        from softgnss_tpu_torch import native
+        from softgnss_tpu_torch.scripts.pallas_probe import resources
+
         lib = mk.load_library()
         print(f"  nvcc build {lib.build_s:.2f} s -> {lib.path}")
         for line in lib.log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  " + line.strip())
+        b1 = next(v for k, v in resources(lib.log).items() if "track_block_kernelILb0ELi3E" in k)
+        print(f"  B1 track_block_kernel<false, 3>: {b1['registers']} registers, {b1['smem']} B "
+              f"shared, {b1['spill_stores']} B spilled")
+        print(f"  native IO library (packed formats, probe statistics): "
+              f"{'used' if native.used() else 'not built: io takes its NumPy versions'}")
     with phase("nco"):
         phase_nco(dev)
     cfg = default_config()
@@ -654,9 +908,18 @@ def main() -> int:
         fused_launches = phase_fused(cfg, sig, main_res, card)
     with phase("per-ms"):
         per_ms_launches, _ = phase_per_ms(cfg, sig, sc, main_res, card)
+    host = torch.empty(sig.shape, dtype=sig.dtype, pin_memory=True)
+    host.copy_(sig)
     del sig
+    with phase("stream"):
+        phase_stream(cfg, host, main_res, dev, card)
+    del host
     with phase("front end"):
         phase_front_end(dev, card)
+    with phase("ekf"):
+        phase_ekf(cfg, main_res, sc, card, args.save_tracking)
+    with phase("cli"):
+        phase_cli(card)
     rec_b2["launches"] = launches["build_frames"]
     rec_b1["launches"] = launches["track_block"]
     rec_b3["launches"] = fused_launches["track_block_fused"]

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from softgnss_tpu_torch.config import ReceiverConfig
+from softgnss_tpu_torch.device import place
 from softgnss_tpu_torch.signals.ca import ca_table, gold_codes
 from softgnss_tpu_torch.signals.nco import carrier_sin_cos, carrier_step_u32
 
@@ -214,16 +215,18 @@ def hint_bin_mask(config: ReceiverConfig, doppler_hints,
     return np.where(full[:, None], True, inside)
 
 
-def acquire(config: ReceiverConfig, long_signal: torch.Tensor,
+def acquire(config: ReceiverConfig, long_signal,
             doppler_hints: np.ndarray | None = None,
-            hint_halfwidth_hz: float = 500.0) -> AcquisitionResults:
-    """Run acquisition on >= acquisition_ms milliseconds of raw IF samples,
-    on the device ``long_signal`` lies on.
+            hint_halfwidth_hz: float = 500.0, device=None) -> AcquisitionResults:
+    """Run acquisition on >= acquisition_ms milliseconds of raw IF samples.
 
+    It runs on ``device``; by default, on the device a tensor lies on, and
+    on the card for a NumPy capture (raising without one): pass a CPU
+    tensor or ``device="cpu"`` to run on the host.
     ``doppler_hints``: optional (32,) per-PRN predicted absolute carrier
     frequencies (NaN = no hint); hinted PRNs search only Doppler bins
     within ``hint_halfwidth_hz`` of the prediction."""
-    long_signal = torch.as_tensor(long_signal)
+    long_signal = place(long_signal, device)
     need = config.acquisition_ms * config.samples_per_code
     if long_signal.shape[0] < need:
         raise ValueError(f"acquisition needs {need} samples, got {long_signal.shape[0]}")

@@ -1,0 +1,265 @@
+// S5, the construct probes: six small kernels, each a Hopper construct that
+// the receiver's kernels use or that the cluster-per-channel B1 would use.
+//
+// Replaces scripts/pallas_probe.py, which checked that Mosaic lowers six
+// constructs on the TPU: a gridded kernel (_k_grid via gridded), a sum
+// whose output block is revisited across grid steps (_k_acc via
+// gridded_acc), an int32 -> float32 convert (_k_conv via conv), a
+// channel-batched one-hot compare and reduce (_k_3d via batched3d), a
+// batched dot_general (_k_bdot via bdot) and a 2-D dot in an in-kernel
+// fori loop (_k_dot via dot2d).  Each kernel here computes what its TPU
+// kernel computes, at the script's shapes:
+//   grid   — o = x + 1, one CTA per (8, 128) block;
+//   acc    — o[r] = sum_i sum_j x[8i + r, j], (64, 128) -> (8,): on the TPU
+//            the grid runs in order and the sum stays in VMEM; on Hopper
+//            the eight blocks run at once, so they form ONE 8-CTA thread
+//            block cluster: each CTA sums its (8, 128) block to 8 partials
+//            in shared memory, cluster.sync(), rank 0 reads the 8 ranks'
+//            partials through distributed shared memory (DSMEM) in rank
+//            order and writes o, and a second cluster.sync() keeps the
+//            peers resident while it reads.  ``reps`` repeats that step:
+//            its cost per rep is what the cluster-per-channel B1 pays per
+//            ms for its reduce and barrier;
+//   conv   — __int2float_rn, elementwise;
+//   onehot — o[c, k] = sum_w [h[c, w] == k] * b[c, w], one CTA per row c:
+//            h and b copied to shared memory, thread k owns bin k and walks
+//            w in order;
+//   bdot   — batched (B, 8, K) @ (B, K, 8) on the tensor cores by hand:
+//            mma.sync.aligned.m16n8k8 TF32 with float32 accumulation, M
+//            padded 8 -> 16 with zero rows, one warp per batch;
+//   dot    — steps * (a @ b): one warp per 16 x 8 output tile, the
+//            ``steps``-step loop inside the kernel accumulating into the
+//            same mma registers.
+//
+// Sums that must be bit-equal to the plain versions (acc, onehot) are
+// taken in float64 in a fixed order and rounded once; the plain versions
+// in scripts/pallas_probe.py repeat that order.  bdot and dot round their
+// inputs to TF32 (cvt.rna), so they are held to 2^-10 * sum_k |a_ik b_kj|.
+//
+// What bounds them on the H100: nothing but the launch.  The largest,
+// dot, moves 336 KB (0.1 us at 3.35 TB/s) and does 16.8 MFLOP (0.03 us at
+// 495 TF32 TFLOP/s); a launch costs microseconds.  acc's per-rep step is
+// two cluster barriers and eight DSMEM loads, the number it exists for.
+
+#include <cooperative_groups.h>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kBlockRows = 8;    // rows of one (8, 128) block
+constexpr int kCols = 128;
+constexpr int kCluster = 8;      // CTAs of the acc cluster: the script's grid
+constexpr int kBins = 32;        // one-hot bins
+constexpr int kMaxWidth = 1024;  // one-hot row width the shared copy holds
+
+// --- 1. grid ---------------------------------------------------------------
+
+__global__ void __launch_bounds__(256)
+probe_grid_kernel(const float* __restrict__ x, float* __restrict__ o) {
+  const long long base = static_cast<long long>(blockIdx.x) * kBlockRows * kCols;
+  for (int i = threadIdx.x; i < kBlockRows * kCols; i += blockDim.x) o[base + i] = x[base + i] + 1.0f;
+}
+
+// --- 2. acc: one 8-CTA cluster, DSMEM reduction ---------------------------
+
+// warp w of CTA ``rank`` sums row 8*rank + w: lane l adds x[row, l + 32 i],
+// i = 0..3, in order in float64, then a shuffle tree (offsets 16 .. 1)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kBlockRows * 32)
+probe_acc_kernel(const float* x, float* __restrict__ o, int reps) {
+  __shared__ double partials[kBlockRows];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float* row = x + (static_cast<long long>(rank) * kBlockRows + w) * kCols;
+  for (int rep = 0; rep < reps; ++rep) {
+    double v = static_cast<double>(row[lane]);
+#pragma unroll
+    for (int i = 1; i < kCols / 32; ++i) v += static_cast<double>(row[lane + 32 * i]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) partials[w] = v;
+    cluster.sync();                       // every rank's partials are written
+    if (rank == 0 && threadIdx.x < kBlockRows) {
+      double s = *cluster.map_shared_rank(&partials[threadIdx.x], 0);
+      for (int q = 1; q < kCluster; ++q) s += *cluster.map_shared_rank(&partials[threadIdx.x], q);
+      o[threadIdx.x] = static_cast<float>(s);
+    }
+    cluster.sync();                       // peers stay resident until rank 0 has read
+  }
+}
+
+// --- 3. conv ---------------------------------------------------------------
+
+__global__ void __launch_bounds__(256)
+probe_conv_kernel(const int* __restrict__ x, float* __restrict__ o, long long n) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<long long>(gridDim.x) * blockDim.x)
+    o[i] = __int2float_rn(x[i]);
+}
+
+// --- 4. onehot: weighted one-hot histogram per row -------------------------
+
+__global__ void __launch_bounds__(256)
+probe_onehot_kernel(const int* __restrict__ h, const float* __restrict__ b,
+                    float* __restrict__ o, int width) {
+  __shared__ int sh[kMaxWidth];
+  __shared__ float sb[kMaxWidth];
+  const long long row = static_cast<long long>(blockIdx.x) * width;
+  for (int i = threadIdx.x; i < width; i += blockDim.x) {
+    sh[i] = h[row + i];
+    sb[i] = b[row + i];
+  }
+  __syncthreads();
+  const int k = threadIdx.x;
+  if (k < kBins) {
+    double s = 0.0;
+    for (int i = 0; i < width; ++i)
+      if (sh[i] == k) s += static_cast<double>(sb[i]);
+    o[static_cast<long long>(blockIdx.x) * kBins + k] = static_cast<float>(s);
+  }
+}
+
+// --- 5, 6. tensor-core products: mma.sync m16n8k8 TF32 ---------------------
+
+__device__ __forceinline__ uint32_t to_tf32(float f) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(f));
+  return r;
+}
+
+// d += A (16 x 8) * B (8 x 8); fragments in the PTX ISA's m16n8k8 .tf32
+// layout: g = lane / 4, t = lane % 4; a = {A[g][t], A[g+8][t], A[g][t+4],
+// A[g+8][t+4]}, b = {B[t][g], B[t+4][g]}, d = {D[g][2t], D[g][2t+1],
+// D[g+8][2t], D[g+8][2t+1]}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// one 16 x 8 output tile at (m0, n0) of a (M, K) row-major times b (K, N)
+// row-major, rows >= m_valid read as zero; ``steps`` passes over K, one
+// dependent mma chain
+__device__ __forceinline__ void mma_tile(const float* __restrict__ a,
+                                         const float* __restrict__ b, int m0, int m_valid,
+                                         int n0, int k_dim, int n_dim, int steps,
+                                         float (&d)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool lo = m0 + g < m_valid, hi = m0 + g + 8 < m_valid;
+  const float* a_lo = a + static_cast<long long>(m0 + g) * k_dim;
+  const float* a_hi = a_lo + 8LL * k_dim;
+  for (int s = 0; s < steps; ++s) {
+    for (int k0 = 0; k0 < k_dim; k0 += 8) {
+      uint32_t fa[4], fb[2];
+      fa[0] = to_tf32(lo ? a_lo[k0 + t] : 0.0f);
+      fa[1] = to_tf32(hi ? a_hi[k0 + t] : 0.0f);
+      fa[2] = to_tf32(lo ? a_lo[k0 + t + 4] : 0.0f);
+      fa[3] = to_tf32(hi ? a_hi[k0 + t + 4] : 0.0f);
+      fb[0] = to_tf32(b[static_cast<long long>(k0 + t) * n_dim + n0 + g]);
+      fb[1] = to_tf32(b[static_cast<long long>(k0 + t + 4) * n_dim + n0 + g]);
+      mma_tf32(d, fa, fb);
+    }
+  }
+}
+
+// batch i of (B, 8, K) @ (B, K, 8) on warp i
+__global__ void __launch_bounds__(128)
+probe_bdot_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ o, int batch, int k_dim) {
+  const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (i >= batch) return;
+  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tile(a + static_cast<long long>(i) * 8 * k_dim, b + static_cast<long long>(i) * k_dim * 8,
+           0, 8, 0, k_dim, 8, 1, d);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* oi = o + static_cast<long long>(i) * 64;
+  oi[g * 8 + 2 * t] = d[0];      // rows 8..15 (d[2], d[3]) are the padding
+  oi[g * 8 + 2 * t + 1] = d[1];
+}
+
+// tile w = (tm, tn) of the (M, N) output on warp w
+__global__ void __launch_bounds__(256)
+probe_dot_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                 float* __restrict__ o, int m_dim, int k_dim, int n_dim, int steps) {
+  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int tiles_n = n_dim / 8;
+  if (w >= (m_dim / 16) * tiles_n) return;
+  const int m0 = (w / tiles_n) * 16, n0 = (w % tiles_n) * 8;
+  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tile(a, b, m0, m_dim, n0, k_dim, n_dim, steps, d);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* lo = o + static_cast<long long>(m0 + g) * n_dim + n0 + 2 * t;
+  float* hi = lo + 8LL * n_dim;
+  lo[0] = d[0];
+  lo[1] = d[1];
+  hi[0] = d[2];
+  hi[1] = d[3];
+}
+
+int last_error() { return static_cast<int>(cudaGetLastError()); }
+
+}  // namespace
+
+// Every entry launches on ``stream`` and returns cudaGetLastError(); the
+// wrappers in softgnss_tpu_torch/scripts/pallas_probe.py check shapes,
+// types and devices first.
+
+// x, o: (n_blocks * 8, 128) float32
+extern "C" int sg_probe_grid(const void* x, void* o, int n_blocks, void* stream) {
+  probe_grid_kernel<<<n_blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(o));
+  return last_error();
+}
+
+// x: (64, 128) float32; o: (8,) float32; reps >= 1
+extern "C" int sg_probe_acc(const void* x, void* o, int reps, void* stream) {
+  probe_acc_kernel<<<kCluster, kBlockRows * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(o), reps);
+  return last_error();
+}
+
+// x: (n,) int32; o: (n,) float32
+extern "C" int sg_probe_conv(const void* x, void* o, long long n, void* stream) {
+  const long long blocks = (n + 255) / 256;
+  probe_conv_kernel<<<static_cast<int>(blocks < 1024 ? blocks : 1024), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(static_cast<const int*>(x),
+                                                           static_cast<float*>(o), n);
+  return last_error();
+}
+
+// h: (rows, width) int32; b: (rows, width) float32; o: (rows, 32) float32;
+// width <= 1024
+extern "C" int sg_probe_onehot(const void* h, const void* b, void* o, int rows, int width,
+                               void* stream) {
+  if (width > kMaxWidth) return static_cast<int>(cudaErrorInvalidValue);
+  probe_onehot_kernel<<<rows, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(h), static_cast<const float*>(b), static_cast<float*>(o), width);
+  return last_error();
+}
+
+// a: (batch, 8, k) float32; b: (batch, k, 8) float32; o: (batch, 8, 8); k % 8 == 0
+extern "C" int sg_probe_bdot(const void* a, const void* b, void* o, int batch, int k_dim,
+                             void* stream) {
+  probe_bdot_kernel<<<(batch + 3) / 4, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(o), batch,
+      k_dim);
+  return last_error();
+}
+
+// a: (m, k); b: (k, n); o: (m, n) float32 = steps * (a @ b); m % 16, k % 8
+// and n % 8 == 0
+extern "C" int sg_probe_dot(const void* a, const void* b, void* o, int m_dim, int k_dim,
+                            int n_dim, int steps, void* stream) {
+  const int warps = (m_dim / 16) * (n_dim / 8);
+  probe_dot_kernel<<<(warps + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(o), m_dim,
+      k_dim, n_dim, steps);
+  return last_error();
+}

@@ -13,14 +13,17 @@ one copy.  Sample encodings (config.data_format):
 * ``iq8`` / ``iq16`` - interleaved complex I/Q pairs, upconverted by
   :func:`load_capture` to a real stream at fs/4 above the recorded center.
 
-The unpackers are the NumPy versions of softgnss_tpu.io; the native C++
-unpackers of that package are not ported yet (ROADMAP A.3).
+The packed formats, int16 narrowing and the probe's histogram take the
+native C++ library (softgnss_tpu_torch.native) where the JAX package's io
+does, and its NumPy versions where no compiler is available: the same
+bytes either way.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from softgnss_tpu_torch import native
 from softgnss_tpu_torch.config import ReceiverConfig
 
 _SAMPLES_PER_BYTE = {"int8": 1, "uint8": 1, "int4": 2, "int2": 4, "int1": 8}
@@ -29,6 +32,9 @@ _SAMPLES_PER_BYTE = {"int8": 1, "uint8": 1, "int4": 2, "int2": 4, "int1": 8}
 def _unpack(raw: np.ndarray, fmt: str) -> np.ndarray:
     if fmt == "int8":
         return raw.view(np.int8)
+    fast = native.unpack(raw, fmt)
+    if fast is not None:
+        return fast
     if fmt == "uint8":
         return (raw.astype(np.int16) - 128).astype(np.int8)
     if fmt == "int4":
@@ -48,6 +54,9 @@ def _unpack(raw: np.ndarray, fmt: str) -> np.ndarray:
 
 
 def _narrow_int16(x: np.ndarray) -> np.ndarray:
+    fast = native.narrow_int16(np.ascontiguousarray(x))
+    if fast is not None:
+        return fast
     return np.clip(np.asarray(x) >> 8, -128, 127).astype(np.int8)
 
 
@@ -152,7 +161,12 @@ def probe_data(config: ReceiverConfig, signal: np.ndarray,
     psd[1:-1] *= 2
     freqs = np.fft.rfftfreq(seg, 1.0 / config.sampling_freq)
 
-    values, counts = np.unique(signal[:n], return_counts=True)
+    fast = native.probe_stats(np.ascontiguousarray(signal[:n], np.int8))
+    if fast is not None:
+        nz = fast["hist"].nonzero()[0]
+        values, counts = (nz - 128).astype(signal.dtype), fast["hist"][nz]
+    else:
+        values, counts = np.unique(signal[:n], return_counts=True)
     half = min(n, config.samples_per_code // 2)
     return {
         "n_samples": int(n),

@@ -13,8 +13,10 @@ tensors, vectorized over channels.  Navigation is host float64 math on
 tiny arrays, so it runs on the CPU by design, as it does in the JAX
 package.  The documented divergences from the reference are the JAX
 package's (data-sized epoch capacity, channels indexed by channel number,
-TOW majority vote, UTM zone from the first fix).  The EKF filter
-(``config.nav_filter='ekf'``, softgnss_tpu.nav.ekf) is not ported yet.
+TOW majority vote, UTM zone from the first fix).  With
+``config.nav_filter='ekf'`` the filter of :mod:`softgnss_tpu_torch.nav.ekf`
+runs in the same loop and gives the primary solution; the per-epoch least
+squares stays in the ``lsq_*`` columns.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from softgnss_tpu_torch.config import ReceiverConfig
+from softgnss_tpu_torch.nav.ekf import ekf_epoch, initial_ekf_state
 from softgnss_tpu_torch.nav.geodesy import cart2geo, cart2utm, find_utm_zone
 from softgnss_tpu_torch.nav.message import (Ephemeris, UtcParams, decode_almanac_pages,
                                             decode_ephemeris, decode_iono, decode_tow,
@@ -98,10 +101,11 @@ class NavSolutions:
     utc_params: UtcParams | None = None
     #: full GPS week number of the decoded ephemerides
     week_number: int | None = None
-    #: which filter produced the primary columns: 'lsq' (the only one ported)
+    #: which filter produced the primary columns: 'lsq' (per-epoch least
+    #: squares) or 'ekf' (nav.ekf)
     nav_filter: str = "lsq"
-    #: the EKF's least-squares comparison columns and accepted updates
-    #: (None: the EKF is not ported)
+    #: with nav_filter='ekf': the per-epoch least-squares x, y, z, dt, and
+    #: (E,) accepted pseudorange updates per epoch
     lsq_x: np.ndarray | None = None
     lsq_y: np.ndarray | None = None
     lsq_z: np.ndarray | None = None
@@ -164,17 +168,21 @@ def _raim_exclude(sat_pos, obs, mask, use_trop, iono_tow, sigma2, dof):
 
 
 def _epoch_loop(config: ReceiverConfig, use_trop: bool, packed, base_mask, travel_time,
-                transmit_times, doppler_meas, lock_ok, iono8=None, raim_sigma=np.inf):
+                transmit_times, doppler_meas, lock_ok, iono8=None, raim_sigma=np.inf,
+                ekf_sigma=5.0):
     """softgnss_tpu.nav.solve._epoch_scan as a loop over epochs.
 
     packed: (C, F); base_mask: (C,) bool; travel_time: (C, E) ms units;
     transmit_times: (E,) s; doppler_meas: (C, E) measured carrier Doppler,
     Hz; lock_ok: (C, E) bool; iono8: optional (8,) Klobuchar coefficients;
     raim_sigma: one-sigma pseudorange error (m) of the RAIM fault test (inf
-    disables detection: the sigma-calibration pass).  All float64 CPU
-    tensors.  Returns the per-epoch outputs stacked along axis 0: (pos,
+    disables detection: the sigma-calibration pass); ekf_sigma: pseudorange
+    one-sigma (m) of the EKF (``config.nav_filter='ekf'``).  All float64
+    CPU tensors.  Returns the per-epoch outputs stacked along axis 0: (pos,
     dop, el, az, raw_p, corrected, lat, lon, hgt, vel4, raim_flag,
-    excl_ch, sse_raw, n_used)."""
+    excl_ch, sse_raw, n_used, ekf_out); ekf_out (9,) per epoch is the
+    filter's [pos (3), vel (3), cdt, cddt, accepted updates], zeros
+    without the EKF."""
     elev_mask = config.elevation_mask_deg
     c_light = config.speed_of_light
     lam = c_light / config.l1_freq
@@ -182,6 +190,13 @@ def _epoch_loop(config: ReceiverConfig, use_trop: bool, packed, base_mask, trave
     n_ep = travel_time.shape[1]
     sat_elev = torch.full(base_mask.shape, torch.inf, dtype=torch.float64)
     ones = torch.ones(base_mask.shape + (1,), dtype=torch.float64)
+    use_ekf = config.nav_filter == "ekf"
+    # the EKF needs a continuous common travel anchor across epochs (the
+    # least squares re-floors per epoch, stepping by whole ms): the first
+    # epoch's floor plus the nominal per-epoch advance
+    anchors = (torch.floor(torch.min(torch.where(base_mask, travel_time[:, 0], torch.inf)))
+               + config.nav_sol_period_ms * torch.arange(n_ep, dtype=torch.float64))
+    ekf_state = initial_ekf_state()
     rows = []
     for ep in range(n_ep):
         travel, t_tx = travel_time[:, ep], transmit_times[ep]
@@ -253,6 +268,25 @@ def _epoch_loop(config: ReceiverConfig, use_trop: bool, packed, base_mask, trave
         el_out = torch.where(shown, el, nan)
         az_out = torch.where(shown, az, nan)
         corrected = torch.where(mask_eff, raw_p + clk * c_light + pos[3], nan)
+
+        # --- EKF navigation filter (config.nav_filter='ekf'; nav.ekf) ------
+        ekf_out = torch.zeros(9, dtype=torch.float64)
+        if use_ekf:
+            anchor = anchors[ep]
+            pr_f = (travel - anchor + config.start_offset_ms) * c_light / 1000.0 + clk * c_light
+            rr_f = -lam * doppler + c_light * clk_drift
+            # the least-squares clock bias references this epoch's floor;
+            # the filter's pseudoranges reference the fixed anchor
+            ls_init = pos.clone()
+            ls_init[3] = ls_init[3] + (tmin - anchor) * c_light / 1000.0
+            ekf_state, (e_pos, e_vel, e_cdt, e_cddt, e_used) = ekf_epoch(
+                ekf_state, sat_pos, sat_vel, pr_f, rr_f, mask_eff, use_trop, iono_tow,
+                t_step=config.nav_sol_period_ms / 1000.0, q_accel=config.ekf_accel_psd,
+                q_clock=config.ekf_clock_psd, q_bias=config.ekf_clock_bias_psd,
+                r_pr=ekf_sigma, r_rr=config.ekf_doppler_sigma, gate=config.ekf_gate_sigma,
+                ls_pos=ls_init, ls_ok=ok, ls_vel=vel4)
+            ekf_out = torch.cat([e_pos, e_vel, torch.tensor([e_cdt, e_cddt, float(e_used)],
+                                                            dtype=torch.float64)])
         lat, lon, hgt = cart2geo(pos[0], pos[1], pos[2], 4)
 
         # after a successful solve, masked-out satellites get NaN elevations
@@ -261,7 +295,8 @@ def _epoch_loop(config: ReceiverConfig, use_trop: bool, packed, base_mask, trave
         if ok:
             sat_elev = torch.where(mask, el, nan)
         rows.append((pos, dop, el_out, az_out, torch.where(mask_eff, raw_p, nan),
-                     corrected, lat, lon, hgt, vel4, raim_flag, excl_ch, sse_raw, n_used))
+                     corrected, lat, lon, hgt, vel4, raim_flag, excl_ch, sse_raw, n_used,
+                     ekf_out))
     return tuple(
         torch.stack(col) if isinstance(col[0], torch.Tensor) else torch.tensor(col)
         for col in zip(*rows))
@@ -282,10 +317,6 @@ def post_navigate(config: ReceiverConfig, track, ephemerides=None, iono=None, ut
 
     Returns (solutions | None, per-PRN ephemeris list of length 32).
     """
-    if config.nav_filter != "lsq":
-        raise NotImplementedError(
-            f"nav_filter={config.nav_filter!r}: the EKF (softgnss_tpu/nav/ekf.py) is not "
-            "ported yet (ROADMAP A.6); use nav_filter='lsq'")
     eph_by_prn: list[Ephemeris | None] = [None] * 32
     i_p = np.asarray(track.i_p)
     n_ms = i_p.shape[1]
@@ -497,9 +528,29 @@ def post_navigate(config: ReceiverConfig, track, ephemerides=None, iono=None, ut
             raim_sigma = max(float(sigma_est), config.raim_sigma_floor_m)
             logger.info("RAIM sigma auto-calibrated: %.2f m over %d epochs.",
                         raim_sigma, int(sel.sum()))
+    ekf_sigma = (float(config.ekf_range_sigma_m) if config.ekf_range_sigma_m is not None
+                 else (raim_sigma if np.isfinite(raim_sigma) else config.raim_sigma_floor_m))
     (pos, dop, el, az, raw_p, corrected, lat, lon, hgt, vel4,
-     raim_flag, raim_excl_ch, _sse, n_used) = (
-        t.numpy() for t in _epoch_loop(config, use_trop, *loop_args, raim_sigma))
+     raim_flag, raim_excl_ch, _sse, n_used, ekf_out) = (
+        t.numpy() for t in _epoch_loop(config, use_trop, *loop_args, raim_sigma, ekf_sigma))
+
+    # --- the EKF as the primary solution (config.nav_filter='ekf'): the
+    # --- per-epoch least squares stays in the lsq_* columns ---------------
+    lsq_cols = ekf_used = None
+    if config.nav_filter == "ekf":
+        lsq_cols = tuple(pos[:, i].copy() for i in range(4))
+        ekf_used = ekf_out[:, 8].astype(np.int64)
+        pos = np.concatenate([ekf_out[:, 0:3], ekf_out[:, 6:7]], axis=1)
+        vel4 = np.concatenate([ekf_out[:, 3:6], ekf_out[:, 7:8]], axis=1)
+        fin = np.isfinite(pos[:, 0])
+        lat, lon, hgt = (np.full(n_epochs, np.nan) for _ in range(3))
+        if fin.any():
+            geo = cart2geo(*(torch.from_numpy(pos[fin, i]) for i in range(3)), 4)
+            lat[fin], lon[fin], hgt[fin] = (v.numpy() for v in geo)
+        n_bridge = int(np.sum(fin & (n_used <= 3)))
+        if n_bridge:
+            logger.info("EKF bridged %d epoch(s) with fewer than 4 usable satellites.",
+                        n_bridge)
 
     # --- UTM conversion (zone fixed from the first valid fix) ----------------
     valid = np.isfinite(lat)
@@ -540,5 +591,10 @@ def post_navigate(config: ReceiverConfig, track, ephemerides=None, iono=None, ut
         utc_params=utc_params,
         week_number=int(week) if week is not None else None,
         nav_filter=config.nav_filter,
+        lsq_x=None if lsq_cols is None else lsq_cols[0],
+        lsq_y=None if lsq_cols is None else lsq_cols[1],
+        lsq_z=None if lsq_cols is None else lsq_cols[2],
+        lsq_dt=None if lsq_cols is None else lsq_cols[3],
+        ekf_used=ekf_used,
     )
     return solutions, eph_by_prn

@@ -27,8 +27,10 @@ from softgnss_tpu_torch.acquire.search import (
 )
 from softgnss_tpu_torch.config import ReceiverConfig
 from softgnss_tpu_torch.convert import track_state_from_numpy, track_state_to_numpy
+from softgnss_tpu_torch.device import place, resolve
 from softgnss_tpu_torch.nav.message import Ephemeris
 from softgnss_tpu_torch.nav.solve import NavSolutions, post_navigate
+from softgnss_tpu_torch.parallel.stream import track_streamed
 from softgnss_tpu_torch.profiling import StageTimer, channel_lock_loss
 from softgnss_tpu_torch.track.scan import TrackResults, track
 
@@ -77,8 +79,11 @@ class ReceiverResults:
         if sol is not None:
             ok = np.isfinite(sol.latitude)
             if ok.any():
+                tag = " (EKF)" if sol.nav_filter == "ekf" else ""
+                if tag and sol.n_used is not None and (fin_lt4 := ok & (sol.n_used < 4)).any():
+                    tag += f", {int(fin_lt4.sum())} epochs bridged with < 4 usable satellites"
                 lines.append(
-                    f"PVT: {int(ok.sum())}/{sol.n_epochs} fixes, mean "
+                    f"PVT{tag}: {int(ok.sum())}/{sol.n_epochs} fixes, mean "
                     f"lat {np.nanmean(sol.latitude):.6f} deg, "
                     f"lon {np.nanmean(sol.longitude):.6f} deg, "
                     f"hgt {np.nanmean(sol.height):.1f} m, "
@@ -166,13 +171,17 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
                  channels: Channels | None = None,
                  ephemerides: list | None = None, iono=None, utc=None,
                  assist_position: np.ndarray | None = None,
-                 assist_tow: float | None = None,
+                 assist_tow: float | None = None, stream: bool = False,
                  device="cuda") -> ReceiverResults:
     """Run the receiver chain on ``device``.
 
-    ``signal``: in-memory int8 capture (NumPy array or tensor; absolute
-    sample indexing including ``config.skip_samples``), or ``file_name``
-    to read one.  It is moved to ``device`` once.  ``n_ms`` overrides
+    ``signal``: in-memory int8 capture (NumPy array, ``np.memmap`` or
+    tensor; absolute sample indexing including ``config.skip_samples``),
+    or ``file_name`` to read one.  It is moved to ``device`` once; with
+    ``stream`` only the acquisition window is, and tracking streams the
+    capture up in ``config.track_stream_chunk_ms`` chunks
+    (parallel.stream.track_streamed; every output equal to the monolithic
+    run's).  ``n_ms`` overrides
     ``config.ms_to_process``.  ``checkpoint``: .npz tracking checkpoint,
     loaded if it exists, written after tracking otherwise.  ``channels``:
     pre-assigned tracking channels (skips acquisition).  ``navigate``:
@@ -187,14 +196,7 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
     receiver ECEF) and ``assist_tow`` (approximate GPS time of week at
     capture start) too, acquisition is Doppler-hinted from the
     ephemerides (nav.assist.predict_doppler)."""
-    if navigate and config.nav_filter != "lsq":
-        raise NotImplementedError(
-            f"nav_filter={config.nav_filter!r}: the EKF (softgnss_tpu/nav/ekf.py) is not "
-            "ported yet (ROADMAP A.6); use nav_filter='lsq'")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device!r} requested but no CUDA device is "
-                           "available; pass device='cpu' to run on the host")
+    dev = resolve(device)
     results = ReceiverResults(config=config)
     timer = StageTimer(dev, results.timings_s)
     if signal is None:
@@ -205,16 +207,15 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
             # up by fs/4: the returned config governs everything downstream
             signal, config = sio.load_capture(file_name or config.file_name, config)
         results.config = config
-    if isinstance(signal, torch.Tensor):
-        sig = signal.to(dev)
-    else:
-        sig = torch.from_numpy(np.require(signal, np.int8, ["C", "W"])).to(dev)
+    sig = signal if stream else place(signal, dev)
 
     n_ms = int(config.ms_to_process if n_ms is None else n_ms)
     skip = config.skip_samples
     spc = config.samples_per_code
     if probe:
-        results.probe = sio.probe_data(config, sig[skip: skip + 10 * spc].cpu().numpy())
+        head = sig[skip: skip + 10 * spc]
+        results.probe = sio.probe_data(
+            config, head.cpu().numpy() if isinstance(head, torch.Tensor) else np.asarray(head))
 
     def navigation():
         if navigate:
@@ -252,7 +253,7 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
                                     float(assist_tow))
         with timer.stage("acquire"):
             results.acquisition = acquire(config, sig[skip: skip + acq_need],
-                                          doppler_hints=hints)
+                                          doppler_hints=hints, device=dev)
         if not results.acquisition.acquired.any():
             logger.warning("No GNSS signals detected, signal processing finished.")
             return results
@@ -260,7 +261,11 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
 
     # --- tracking -----------------------------------------------------------
     with timer.stage("track"):
-        results.tracking = track(config, sig, results.channels, n_ms=n_ms)
+        if stream:
+            results.tracking = track_streamed(config, sig, results.channels, n_ms=n_ms,
+                                              device=dev)
+        else:
+            results.tracking = track(config, sig, results.channels, n_ms=n_ms)
         _demote_unlocked(config, results.tracking)
         if checkpoint is not None:
             save_tracking(checkpoint, results.tracking)

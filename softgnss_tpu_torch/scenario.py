@@ -367,9 +367,9 @@ def build_scenario(config: ReceiverConfig, n_sats: int = 5,
 
 
 def synthesize_scenario(scenario: Scenario, n_ms: int, seed: int = 0,
-                        device="cpu") -> torch.Tensor:
+                        device="cuda") -> torch.Tensor:
     """int8 IF capture of ``n_ms`` milliseconds for the scenario, on
-    ``device``.
+    ``device`` (the card unless the caller names the CPU).
 
     Also fills ``scenario.delays``/``scenario.dopplers`` with the truth
     tables used (for assertions against receiver output).

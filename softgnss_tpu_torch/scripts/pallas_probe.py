@@ -1,0 +1,465 @@
+"""S5: the construct probes — six Hopper constructs, each against its plain
+version, with its resources and its time.
+
+Replaces ``scripts/pallas_probe.py``, which checked that Mosaic lowers six
+constructs on the TPU (``_k_grid`` :31 via ``gridded`` :35, ``_k_acc`` :47
+via ``gridded_acc`` :54, ``_k_conv`` :66 via ``conv`` :70, ``_k_3d`` :79
+via ``batched3d`` :86, ``_k_bdot`` :96 via ``bdot`` :102, ``_k_dot`` :112
+via ``dot2d`` :120).  Its counterpart here is ``csrc/pallas_probe.cu``:
+
+* ``grid`` — ``x + 1``, (64, 128) float32, 8 CTAs of one (8, 128) block;
+* ``acc`` — ``o[r] = sum_i sum_j x[8i + r, j]`` into (8, 1): ONE 8-CTA
+  thread block cluster reducing its partials through distributed shared
+  memory between two cluster barriers; ``reps`` repeats that step, and
+  ``(t(64) - t(1)) / 63`` is the cost of one reduce-and-barrier step;
+* ``conv`` — int32 -> float32, round to nearest even;
+* ``onehot`` — ``o[c, k] = sum_w [h[c, w] == k] * b[c, w]``, (8, 256) ->
+  (8, 32);
+* ``bdot`` — (4, 8, 128) @ (4, 128, 8) on the tensor cores
+  (``mma.sync`` m16n8k8 TF32);
+* ``dot`` — ``4 * (a @ b)``, (32, 512) @ (512, 128), by a 4-step loop in
+  the kernel on the tensor cores.
+
+What "does it lower" was on the TPU is here what ptxas reports for each
+kernel (registers, shared memory, stack, spills), parsed from the kernel
+library's ``-Xptxas -v`` log.
+
+Run on a CUDA card from the repository root::
+
+    python -m softgnss_tpu_torch.scripts.pallas_probe
+
+It prints the card line and each kernel's resources, holds each kernel
+against its plain version on the TPU script's own inputs (ones, arange)
+and on seeded random inputs, printing ``[ok]`` or ``[FAIL]`` as the TPU
+script does (``grid``, ``acc``, ``conv`` and ``onehot`` bit-equal;
+``bdot`` and ``dot`` within ``2^-10 * sum_k |a_ik b_kj|`` per output, the
+TF32 rounding of both inputs, and bit-equal on the script's ones), then
+times each kernel, its plain version and one PyTorch call that computes
+the same function.  Without a CUDA card it raises.
+"""
+
+from __future__ import annotations
+
+import re
+import sys
+
+import numpy as np
+import torch
+
+from softgnss_tpu_torch.scripts.inputs import SEED
+from softgnss_tpu_torch.scripts.timing import TF32_OPS_PER_S, bound_ms, card, cuda_ms, require_cuda
+from softgnss_tpu_torch.track import megakernel as mk
+
+PROBES = ("grid", "acc", "conv", "onehot", "bdot", "dot")
+#: the TPU script's line number of each kernel's pl.pallas_call
+REPLACES = {"grid": "scripts/pallas_probe.py:37", "acc": "scripts/pallas_probe.py:56",
+            "conv": "scripts/pallas_probe.py:72", "onehot": "scripts/pallas_probe.py:89",
+            "bdot": "scripts/pallas_probe.py:105", "dot": "scripts/pallas_probe.py:123"}
+#: the TF32 bound of bdot and dot: |kernel - plain| <= TF32_REL * sum_k |a_ik b_kj|
+TF32_REL = 2.0**-10
+DOT_STEPS = 4
+#: the reps of acc timed against one rep: their difference is 63 steps
+ACC_REPS = 64
+_BLOCK_ROWS, _COLS, _CLUSTER, _BINS = 8, 128, 8, 32
+
+
+def _lib():
+    return mk.load_library().lib
+
+
+def _out(shape, dtype, like: torch.Tensor) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=like.device)
+
+
+def _launch(name: str, fn, *args) -> None:
+    dev = args[0].device if isinstance(args[0], torch.Tensor) else None
+    with torch.cuda.device(dev):
+        rc = fn(*[mk._ptr(a) if isinstance(a, torch.Tensor) else a for a in args],
+                mk._stream(dev))
+    mk._check(rc, name)
+
+
+# --- 1. grid -----------------------------------------------------------------
+
+
+def probe_grid_plain(x: torch.Tensor) -> torch.Tensor:
+    return x + 1.0
+
+
+def probe_grid(x: torch.Tensor) -> torch.Tensor:
+    """``x + 1`` for (8n, 128) float32: kernel ``probe_grid_kernel`` on a
+    CUDA tensor, :func:`probe_grid_plain` on a CPU tensor."""
+    if x.device.type == "cpu":
+        return probe_grid_plain(x)
+    if x.dim() != 2 or x.shape[0] % _BLOCK_ROWS:
+        raise ValueError(f"probe_grid: x must be (8n, 128), got {tuple(x.shape)}")
+    mk._require(x, "x", torch.float32, (x.shape[0], _COLS), x.device)
+    o = _out(x.shape, torch.float32, x)
+    _launch("probe_grid", _lib().sg_probe_grid, x, o, x.shape[0] // _BLOCK_ROWS)
+    probe_grid.launches += 1
+    return o
+
+
+probe_grid.launches = 0
+
+
+# --- 2. acc: one 8-CTA cluster -----------------------------------------------
+
+
+def probe_acc_plain(x: torch.Tensor) -> torch.Tensor:
+    """(8, 1) float32: ``o[r] = sum_i sum_j x[8i + r, j]`` in the kernel's
+    order: for CTA i and row r, lane l sums x[8i + r, l + 32q] over q in
+    float64, a shuffle tree over the 32 lanes (offsets 16 .. 1), then
+    rank 0 sums the 8 CTAs' partials in rank order; rounded once."""
+    v = x.reshape(_CLUSTER, _BLOCK_ROWS, _COLS // 32, 32).to(torch.float64)
+    lanes = v[:, :, 0]
+    for q in range(1, _COLS // 32):
+        lanes = lanes + v[:, :, q]
+    off = 16
+    while off:
+        lanes = torch.cat([lanes[..., :off] + lanes[..., off:2 * off], lanes[..., off:]], -1)
+        off //= 2
+    part = lanes[..., 0]                                  # (rank, row)
+    s = part[0]
+    for q in range(1, _CLUSTER):
+        s = s + part[q]
+    return s.to(torch.float32)[:, None]
+
+
+def probe_acc(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
+    """:func:`probe_acc_plain` of (64, 128) float32 by kernel
+    ``probe_acc_kernel``, one 8-CTA cluster (DSMEM reduction) run ``reps``
+    times, on a CUDA tensor; the plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return probe_acc_plain(x)
+    if reps < 1:
+        raise ValueError(f"probe_acc: reps must be >= 1, got {reps}")
+    mk._require(x, "x", torch.float32, (_CLUSTER * _BLOCK_ROWS, _COLS), x.device)
+    o = _out((_BLOCK_ROWS, 1), torch.float32, x)
+    _launch("probe_acc", _lib().sg_probe_acc, x, o, int(reps))
+    probe_acc.launches += 1
+    return o
+
+
+probe_acc.launches = 0
+
+
+# --- 3. conv -----------------------------------------------------------------
+
+
+def probe_conv_plain(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32)
+
+
+def probe_conv(x: torch.Tensor) -> torch.Tensor:
+    """int32 -> float32 (round to nearest even): kernel ``probe_conv_kernel``
+    on a CUDA tensor, :func:`probe_conv_plain` on a CPU tensor."""
+    if x.device.type == "cpu":
+        return probe_conv_plain(x)
+    mk._require(x, "x", torch.int32, tuple(x.shape), x.device)
+    o = _out(x.shape, torch.float32, x)
+    _launch("probe_conv", _lib().sg_probe_conv, x, o, x.numel())
+    probe_conv.launches += 1
+    return o
+
+
+probe_conv.launches = 0
+
+
+# --- 4. onehot ---------------------------------------------------------------
+
+
+def probe_onehot_plain(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(rows, 32) float32: ``o[c, k] = sum_w [h[c, w] == k] * b[c, w]``,
+    summed over w in order in float64 and rounded once."""
+    bins = torch.arange(_BINS, device=h.device)
+    acc = torch.zeros((h.shape[0], _BINS), dtype=torch.float64, device=h.device)
+    bd = b.to(torch.float64)
+    for w in range(h.shape[1]):
+        acc = acc + torch.where(h[:, w, None] == bins, bd[:, w, None], 0.0)
+    return acc.to(torch.float32)
+
+
+def probe_onehot(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`probe_onehot_plain` by kernel ``probe_onehot_kernel`` (one CTA
+    per row, width <= 1024) on CUDA tensors, the plain version on CPU
+    tensors."""
+    if h.device.type == "cpu":
+        return probe_onehot_plain(h, b)
+    rows, width = h.shape
+    if width > 1024:
+        raise ValueError(f"probe_onehot: width {width} > 1024")
+    mk._require(h, "h", torch.int32, (rows, width), h.device)
+    mk._require(b, "b", torch.float32, (rows, width), h.device)
+    o = _out((rows, _BINS), torch.float32, h)
+    _launch("probe_onehot", _lib().sg_probe_onehot, h, b, o, rows, width)
+    probe_onehot.launches += 1
+    return o
+
+
+probe_onehot.launches = 0
+
+
+# --- 5. bdot, 6. dot: tensor cores -------------------------------------------
+
+
+def probe_bdot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, 8, 8) float32: the batched product in float64, rounded once."""
+    return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.float32)
+
+
+def probe_bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, 8, K) @ (B, K, 8), K % 8 == 0, by kernel ``probe_bdot_kernel``
+    (mma.sync m16n8k8 TF32, float32 accumulation) on CUDA tensors;
+    :func:`probe_bdot_plain` on CPU tensors."""
+    if a.device.type == "cpu":
+        return probe_bdot_plain(a, b)
+    batch, m, k = a.shape
+    if m != 8 or k % 8:
+        raise ValueError(f"probe_bdot: a must be (B, 8, 8n), got {tuple(a.shape)}")
+    mk._require(a, "a", torch.float32, (batch, 8, k), a.device)
+    mk._require(b, "b", torch.float32, (batch, k, 8), a.device)
+    o = _out((batch, 8, 8), torch.float32, a)
+    _launch("probe_bdot", _lib().sg_probe_bdot, a, b, o, batch, k)
+    probe_bdot.launches += 1
+    return o
+
+
+probe_bdot.launches = 0
+
+
+def probe_dot_plain(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS) -> torch.Tensor:
+    """(M, N) float32: ``steps * (a @ b)`` in float64, rounded once."""
+    return (steps * (a.to(torch.float64) @ b.to(torch.float64))).to(torch.float32)
+
+
+def probe_dot(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS) -> torch.Tensor:
+    """``steps * (a @ b)`` for (M, K) @ (K, N), M % 16, K % 8, N % 8 == 0,
+    by kernel ``probe_dot_kernel`` (the ``steps``-step loop in the kernel,
+    mma.sync TF32) on CUDA tensors; :func:`probe_dot_plain` on CPU tensors."""
+    if a.device.type == "cpu":
+        return probe_dot_plain(a, b, steps)
+    m, k = a.shape
+    n = b.shape[1]
+    if m % 16 or k % 8 or n % 8:
+        raise ValueError(f"probe_dot: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    mk._require(a, "a", torch.float32, (m, k), a.device)
+    mk._require(b, "b", torch.float32, (k, n), a.device)
+    o = _out((m, n), torch.float32, a)
+    _launch("probe_dot", _lib().sg_probe_dot, a, b, o, m, k, n, int(steps))
+    probe_dot.launches += 1
+    return o
+
+
+probe_dot.launches = 0
+
+KERNELS = {"grid": probe_grid, "acc": probe_acc, "conv": probe_conv, "onehot": probe_onehot,
+           "bdot": probe_bdot, "dot": probe_dot}
+PLAINS = {"grid": probe_grid_plain, "acc": probe_acc_plain, "conv": probe_conv_plain,
+          "onehot": probe_onehot_plain, "bdot": probe_bdot_plain, "dot": probe_dot_plain}
+#: one PyTorch call computing the same function (timed beside the kernel,
+#: never called by the port)
+LIBRARY = {
+    "grid": lambda x: x + 1.0,
+    "acc": lambda x: x.view(_CLUSTER, _BLOCK_ROWS, _COLS).sum((0, 2)),
+    "conv": lambda x: x.to(torch.float32),
+    "onehot": lambda h, b: torch.zeros((h.shape[0], _BINS), dtype=torch.float32,
+                                       device=h.device).scatter_add_(1, h.long(), b),
+    "bdot": torch.bmm,
+    "dot": torch.matmul,
+}
+
+
+# --- inputs --------------------------------------------------------------------
+
+
+def script_inputs(device) -> dict:
+    """The TPU script's own inputs: ones, arange, tiled arange."""
+    ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)  # noqa: E731
+    return {
+        "grid": (ones(64, 128),),
+        "acc": (ones(64, 128),),
+        "conv": (torch.arange(8 * 128, dtype=torch.int32, device=device).reshape(8, 128),),
+        "onehot": ((torch.arange(256, dtype=torch.int32, device=device) // 8).repeat(8, 1),
+                   ones(8, 256)),
+        "bdot": (ones(4, 8, 128), ones(4, 128, 8)),
+        "dot": (ones(32, 512), ones(512, 128)),
+    }
+
+
+def seeded_inputs(device, seed: int = SEED) -> dict:
+    """The same shapes from a numpy seed: normal float32, full-range int32
+    for ``conv`` (rounding above 2^24), one-hot indices in [-4, 36) (bins
+    outside [0, 32) match nothing)."""
+    rng = np.random.default_rng(seed)
+    def f(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+    return {
+        "grid": (f(64, 128),),
+        "acc": (f(64, 128),),
+        "conv": (torch.from_numpy(rng.integers(-2**31, 2**31, (8, 128)).astype(np.int32))
+                 .to(device),),
+        "onehot": (torch.from_numpy(rng.integers(-4, 36, (8, 256)).astype(np.int32)).to(device),
+                   f(8, 256)),
+        "bdot": (f(4, 8, 128), f(4, 128, 8)),
+        "dot": (f(32, 512), f(512, 128)),
+    }
+
+
+def tf32_tolerance(name: str, args) -> torch.Tensor | None:
+    """``TF32_REL * sum_k |a_ik b_kj|`` per output of bdot and dot (None
+    for the bit-equal probes)."""
+    if name not in ("bdot", "dot"):
+        return None
+    a, b = (t.abs().to(torch.float64) for t in args)
+    scale = a @ b
+    return TF32_REL * (DOT_STEPS * scale if name == "dot" else scale)
+
+
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, args, exact: bool) -> float:
+    """Raise unless ``got`` equals ``want`` bit for bit (``exact``, or a
+    bit-equal probe) or lies within the TF32 tolerance; returns the largest
+    absolute difference."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"S5 {name}: {got.dtype} {tuple(got.shape)}, the plain version's "
+                             f"{want.dtype} {tuple(want.shape)}")
+    diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+    worst = float(diff.max())
+    tol = tf32_tolerance(name, args)
+    if tol is None or exact:
+        if not torch.equal(got, want):
+            raise AssertionError(f"S5 {name}: differs from the plain version "
+                                 f"(max abs diff {worst:.3e})")
+    elif not bool((diff <= tol).all()):
+        raise AssertionError(f"S5 {name}: outside the TF32 bound (max abs diff {worst:.3e}, "
+                             f"worst ratio to the bound {float((diff / tol).max()):.3f})")
+    return worst
+
+
+def check(device, verbose: bool = False) -> dict:
+    """Every kernel against its plain version on the script's inputs
+    (bit-equal, all six) and on seeded inputs (bit-equal, or the TF32
+    bound for bdot and dot); raises on the first failure.  Returns
+    {probe: largest absolute difference}."""
+    worst = {}
+    for label, inputs in (("script", script_inputs(device)), ("seeded", seeded_inputs(device))):
+        for name in PROBES:
+            args = inputs[name]
+            try:
+                got = KERNELS[name](*args)
+                err = compare(name, got, PLAINS[name](*args), args, exact=label == "script")
+            except (AssertionError, RuntimeError) as exc:
+                if verbose:
+                    print(f"[FAIL] {name} ({label} inputs): {type(exc).__name__}: {exc}")
+                raise
+            if verbose:
+                print(f"[ok]   {name} ({label} inputs): {got.reshape(-1)[:4].tolist()}, "
+                      f"max |kernel - plain| {err:.3e}")
+            worst[name] = max(worst.get(name, 0.0), err)
+    acc_x = seeded_inputs(device)["acc"][0]
+    compare("acc reps", probe_acc(acc_x, ACC_REPS), probe_acc_plain(acc_x), (acc_x,), True)
+    torch.cuda.synchronize(device)
+    return worst
+
+
+def bound(name: str, args) -> tuple[float, str]:
+    """(ms, 'bytes' or 'operations'): the least time an H100 could take for
+    ``name`` on ``args``: each input read once, each output written once,
+    over 3.35 TB/s; operations over 67 TFLOP/s (float32) or 495 (TF32)."""
+    n_in = sum(t.numel() * t.element_size() for t in args)
+    if name in ("grid", "conv"):
+        return bound_ms(2 * n_in, args[0].numel())
+    if name == "acc":
+        return bound_ms(n_in + _BLOCK_ROWS * 4, args[0].numel())
+    if name == "onehot":
+        h = args[0]
+        return bound_ms(n_in + h.shape[0] * _BINS * 4, 2 * h.numel() * _BINS)
+    a, b = args
+    if name == "bdot":
+        batch, m, k = a.shape
+        n = b.shape[2]
+        return bound_ms(n_in + batch * m * n * 4, 2 * batch * m * n * k, TF32_OPS_PER_S)
+    m, k = a.shape
+    n = b.shape[1]
+    return bound_ms(n_in + m * n * 4, 2 * DOT_STEPS * m * n * k, TF32_OPS_PER_S)
+
+
+def measure(device, n: int = 200) -> dict:
+    """On the script's own inputs: {probe: {"ms", "plain_ms",
+    "library_ms", "bound_ms", "bound_by"}}, plus "acc_reps" (ms of one
+    launch at ACC_REPS reps) and "acc_step_us", the cost of one cluster
+    reduce-and-barrier step: (t(ACC_REPS) - t(1)) / (ACC_REPS - 1)."""
+    inputs = script_inputs(device)
+    res = {}
+    for name in PROBES:
+        args = inputs[name]
+        kernel, plain, lib = KERNELS[name], PLAINS[name], LIBRARY[name]
+        b_ms, b_by = bound(name, args)
+        res[name] = {"ms": cuda_ms(lambda: kernel(*args), n, busy=True),
+                     "plain_ms": cuda_ms(lambda: plain(*args), 10),
+                     "library_ms": cuda_ms(lambda: lib(*args), n, busy=True),
+                     "bound_ms": b_ms, "bound_by": b_by}
+    x = inputs["acc"][0]
+    res["acc_reps"] = cuda_ms(lambda: probe_acc(x, ACC_REPS), n, busy=True)
+    res["acc_step_us"] = (res["acc_reps"] - res["acc"]["ms"]) * 1e3 / (ACC_REPS - 1)
+    return res
+
+
+def report(res: dict) -> None:
+    for name in PROBES:
+        r = res[name]
+        print(f"S5 {name:6s}: kernel {r['ms'] * 1e3:8.3f} us, plain {r['plain_ms'] * 1e3:9.3f} us, "
+              f"library {r['library_ms'] * 1e3:8.3f} us, bound {r['bound_ms'] * 1e3:.4f} us "
+              f"({r['bound_by']}) per launch [{card()}]")
+    print(f"S5 acc cluster of 8 CTAs: {res['acc']['ms'] * 1e3:.3f} us at 1 rep, "
+          f"{res['acc_reps'] * 1e3:.3f} us at {ACC_REPS} reps: "
+          f"{res['acc_step_us']:.4f} us per cluster reduce-and-barrier step [{card()}]")
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_PTXAS_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_USED = re.compile(r"Used (\d+) registers")
+_PTXAS_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def resources(log: str) -> dict:
+    """{mangled kernel name: {"registers", "smem", "stack", "spill_stores",
+    "spill_loads"}} from nvcc's ``-Xptxas -v`` output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            cur = out.setdefault(m.group(1), {"registers": 0, "smem": 0, "stack": 0,
+                                              "spill_stores": 0, "spill_loads": 0})
+        elif cur is not None and (m := _PTXAS_STACK.search(line)):
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        elif cur is not None and (m := _PTXAS_USED.search(line)):
+            smem = _PTXAS_SMEM.search(line)
+            cur.update(registers=int(m.group(1)), smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
+def probe_resources(log: str) -> dict:
+    """{probe: resources} of the six S5 kernels."""
+    res = resources(log)
+    return {name: next(v for k, v in res.items() if f"probe_{name}_kernel" in k)
+            for name in PROBES}
+
+
+def main() -> int:
+    device = require_cuda()
+    print(card())
+    lib = mk.load_library()
+    for name, r in probe_resources(lib.log).items():
+        print(f"S5 {name:6s}: {r['registers']} registers, {r['smem']} B shared, {r['stack']} B "
+              f"stack, spills {r['spill_stores']} B stored / {r['spill_loads']} B loaded")
+    worst = check(device, verbose=True)
+    print(f"worst |kernel - plain|: {worst}")
+    report(measure(device))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

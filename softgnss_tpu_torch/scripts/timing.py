@@ -8,9 +8,11 @@
 * :func:`cold_ms` — device ms per call with the L2 cache flushed before
   each call (:func:`flush_l2`);
 * :func:`card` — the card's name and power limit as nvidia-smi gives them,
-  printed beside every number the probes report.
+  printed beside every number the probes report;
+* :func:`bound_ms` — the least time an H100 SXM could take for a given
+  count of bytes and operations (NVIDIA's published peaks, below).
 
-Every function here needs a CUDA device; :func:`require_cuda` raises
+Every timer here needs a CUDA device; :func:`require_cuda` raises
 without one.
 """
 
@@ -24,6 +26,20 @@ import torch
 
 #: bytes written by flush_l2: above the H100's 50 MB L2
 L2_FLUSH_BYTES = 256 << 20
+#: H100 SXM published peaks at 700 W (NVIDIA data sheet, dense): HBM3
+#: bytes/s, float32 operations/s outside the tensor cores, TF32 tensor-core
+#: operations/s
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
+
+
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    """(ms, 'bytes' or 'operations'): the larger of ``n_bytes`` over the
+    HBM rate and ``n_ops`` over ``ops_per_s``, and which one it is."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def require_cuda() -> torch.device:

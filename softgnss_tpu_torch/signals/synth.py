@@ -1,10 +1,11 @@
 """Synthetic GPS L1 IF signal generator.
 
-The port of softgnss_tpu.signals.synth's ``synthesize_signal`` (static
-satellites) and ``synthesize_dynamic`` (per-ms light times from a
-geometry, softgnss_tpu_torch.scenario): inject known PRNs / Doppler /
-delays / nav bits and synthesize int8 IF samples, so every receiver stage
-can be checked closed-loop against the injected truth.
+The port of softgnss_tpu.signals.synth: ``synthesize_signal`` (static
+satellites), ``synthesize_iq`` (the same as complex baseband I/Q pairs),
+``synthesize_dynamic`` (per-ms light times from a geometry,
+softgnss_tpu_torch.scenario) and ``default_scenario``: inject known PRNs /
+Doppler / delays / nav bits and synthesize int8 IF samples, so every
+receiver stage can be checked closed-loop against the injected truth.
 
 Signal model (per satellite)::
 
@@ -26,6 +27,7 @@ distribution as the JAX synthesizer's, not the same numbers.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from softgnss_tpu_torch.config import ReceiverConfig
+from softgnss_tpu_torch.device import resolve
 from softgnss_tpu_torch.signals.ca import gold_codes
 from softgnss_tpu_torch.signals.nco import carrier_turns, sin_turns
 
@@ -176,7 +179,7 @@ def _run_synth(config: ReceiverConfig, prns, params: _MsParams, amps, n_ms: int,
     """int8 samples on ``device`` from the host tables, ``chunk_ms``
     milliseconds at a time.  ``amps``: (S,) constants or (S, n_ms)
     per-ms envelopes."""
-    dev = torch.device(device)
+    dev = resolve(device)
     s = len(prns)
     amps = np.asarray(amps, np.float32)
     if amps.ndim == 1:
@@ -207,8 +210,9 @@ def _run_synth(config: ReceiverConfig, prns, params: _MsParams, amps, n_ms: int,
 
 def synthesize_signal(config: ReceiverConfig, sats: list[SatelliteSignal],
                       n_ms: int, noise_std: float = 0.0, seed: int = 0,
-                      device="cpu", chunk_ms: int = 64) -> torch.Tensor:
-    """Generate ``n_ms`` milliseconds of int8 IF samples on ``device``,
+                      device="cuda", chunk_ms: int = 64) -> torch.Tensor:
+    """Generate ``n_ms`` milliseconds of int8 IF samples on ``device`` (the
+    card unless the caller names the CPU; raises without one),
     ``chunk_ms`` milliseconds at a time."""
     if config.sampling_freq % 1000:
         raise ValueError("synthesizer requires sampling_freq divisible by 1000")
@@ -245,10 +249,11 @@ def synthesize_dynamic(config: ReceiverConfig, prns: list[int],
                        amplitudes: np.ndarray | None = None,
                        phase0: np.ndarray | None = None,
                        noise_std: float = 0.0, seed: int = 0,
-                       clock_ppm: float = 0.0, device="cpu",
+                       clock_ppm: float = 0.0, device="cuda",
                        chunk_ms: int = 64) -> torch.Tensor:
     """Geometry-consistent IF capture with per-ms time-varying delays, on
-    ``device`` (softgnss_tpu.signals.synth.synthesize_dynamic).
+    ``device`` (the card unless the caller names the CPU;
+    softgnss_tpu.signals.synth.synthesize_dynamic).
 
     ``delays_s``: (S, >= n_ms+1) light times (s) at each ms boundary,
     linearly interpolated within the ms; ``bit_streams``: (S, n_bits) +/-1
@@ -298,3 +303,58 @@ def synthesize_dynamic(config: ReceiverConfig, prns: list[int],
     amps = (np.ones(s, np.float32) if amplitudes is None
             else np.asarray(amplitudes, np.float32))
     return _run_synth(config, prns, params, amps, n_ms, noise_std, seed, device, chunk_ms)
+
+
+def synthesize_iq(config: ReceiverConfig, sats: list[SatelliteSignal], n_ms: int,
+                  noise_std: float = 0.0, seed: int = 0, device="cuda",
+                  chunk_ms: int = 64) -> torch.Tensor:
+    """A complex baseband I/Q capture, (N, 2) int8 [I, Q] pairs on ``device``
+    (softgnss_tpu.signals.synth.synthesize_iq).
+
+    ``config.intermediate_freq`` is the recorded complex centre offset (0
+    for a zero-IF front end); each satellite appears at
+    ``intermediate_freq + doppler_hz``.  Q is the same synthesis with the
+    carrier phase retarded by pi/2 and its own noise (seed + 0x5EED), so
+    upconverting with :func:`softgnss_tpu_torch.io.upconvert_iq` gives the
+    real capture :func:`synthesize_signal` emits at ``intermediate_freq +
+    fs/4``: the test source of the iq8/iq16 front ends."""
+    sats_q = [dataclasses.replace(s, phase0=s.phase0 - np.pi / 2.0) for s in sats]
+    i = synthesize_signal(config, sats, n_ms, noise_std=noise_std, seed=seed, device=device,
+                          chunk_ms=chunk_ms)
+    q = synthesize_signal(config, sats_q, n_ms, noise_std=noise_std, seed=seed + 0x5EED,
+                          device=device, chunk_ms=chunk_ms)
+    return torch.stack([i, q], dim=1)
+
+
+def default_scenario(config: ReceiverConfig, num_sats: int = 4, noise_std: float = 2.0,
+                     seed: int = 7, device="cuda") -> tuple[list[SatelliteSignal], torch.Tensor]:
+    """A reproducible multi-satellite scenario and its IF capture of
+    ``ms_to_process + acquisition_ms + 2`` ms on ``device``: the JAX
+    package's satellites for the same seed (its noise has the same spread,
+    not the same numbers)."""
+    rng = np.random.default_rng(seed)
+    spc = config.samples_per_code
+    sats = []
+    for i in range(num_sats):
+        sats.append(SatelliteSignal(
+            prn=int(rng.integers(1, 33)) if i else 5,
+            doppler_hz=float(rng.uniform(-4000, 4000)),
+            delay_samples=float(rng.uniform(0, spc)),
+            amplitude=float(rng.uniform(0.8, 1.5)),
+            phase0=float(rng.uniform(0, 2 * np.pi)),
+            nav_bits=tuple(rng.choice([-1, 1], size=64)),
+        ))
+    # distinct PRNs: a repeat takes the lowest PRN not yet handed out
+    seen = set()
+    uniq = []
+    next_prn = 1
+    for s in sats:
+        prn = s.prn
+        while prn in seen:
+            prn = next_prn
+            next_prn += 1
+        seen.add(prn)
+        uniq.append(dataclasses.replace(s, prn=prn))
+    signal = synthesize_signal(config, uniq, config.ms_to_process + config.acquisition_ms + 2,
+                               noise_std=noise_std, seed=seed, device=device)
+    return uniq, signal

@@ -57,7 +57,8 @@ from softgnss_tpu_torch.track.scan import (
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = ("build_frames.cu", "track_block.cu", "correlate_ms.cu", "dma_probe.cu")
+_SOURCES = ("build_frames.cu", "track_block.cu", "correlate_ms.cu", "dma_probe.cu",
+            "pallas_probe.cu")
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
               "-Xcompiler", "-fPIC")
@@ -96,7 +97,13 @@ class KernelLibrary:
                 ("sg_track_block_fused", [vp, ll] + block),
                 ("sg_correlate_ms", correlate),
                 ("sg_correlate_ms_stage", [i] + correlate),
-                ("sg_dma_probe", [i, i, vp, vp, vp, i, i, i, i, vp])):
+                ("sg_dma_probe", [i, i, vp, vp, vp, i, i, i, i, vp]),
+                ("sg_probe_grid", [vp, vp, i, vp]),
+                ("sg_probe_acc", [vp, vp, i, vp]),
+                ("sg_probe_conv", [vp, vp, ll, vp]),
+                ("sg_probe_onehot", [vp, vp, vp, i, i, vp]),
+                ("sg_probe_bdot", [vp, vp, vp, i, i, vp]),
+                ("sg_probe_dot", [vp, vp, vp, i, i, i, i, vp])):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = i

@@ -43,6 +43,7 @@ import torch
 
 from softgnss_tpu_torch.acquire.search import Channels
 from softgnss_tpu_torch.config import ReceiverConfig
+from softgnss_tpu_torch.device import place
 from softgnss_tpu_torch.signals.nco import (
     CODE_ONE,
     carrier_step_u32,
@@ -377,23 +378,22 @@ def track_ms(config: ReceiverConfig, signal, state: TrackState, code_pads, carr_
     return st, MsOutputs(*[torch.stack(leaf) for leaf in zip(*outs)])
 
 
-def track(config: ReceiverConfig, signal: torch.Tensor, channels: Channels,
-          n_ms: int | None = None, state: TrackState | None = None) -> TrackResults:
-    """Track all channels over ``n_ms`` milliseconds of the capture, on the
-    device ``signal`` lies on, with the tracker ``config.tracker`` selects.
+def track(config: ReceiverConfig, signal, channels: Channels,
+          n_ms: int | None = None, state: TrackState | None = None,
+          device=None) -> TrackResults:
+    """Track all channels over ``n_ms`` milliseconds of the capture with the
+    tracker ``config.tracker`` selects, on ``device``: by default the
+    device a tensor lies on, and the card for a NumPy capture (raising
+    without one); a CPU tensor or ``device="cpu"`` runs on the host.
 
     ``signal`` is the full raw int8 capture, *including* any skipped
     prefix — channel pointers are absolute sample indices
     (reference: tracking.py:107,255).  ``state``: a previous run's
     ``final_state`` (tensors on any device, or NumPy via
     convert.track_state_from_numpy) to resume from, on either tracker."""
-    from softgnss_tpu_torch.track import megakernel as mk
-    from softgnss_tpu_torch.track.pallas_kernel import correlate_ms
-
-    signal = torch.as_tensor(signal)
+    signal = place(signal, device)
     dev = signal.device
     spc = config.samples_per_code
-    tracker = config.tracker
     n_ms = int(config.ms_to_process if n_ms is None else n_ms)
     if n_ms <= 0:
         raise ValueError(f"n_ms must be positive, got {n_ms}")
@@ -405,25 +405,46 @@ def track(config: ReceiverConfig, signal: torch.Tensor, channels: Channels,
             f"capture too short for tracking: need >= {needed} samples, got {signal.shape[0]}"
         )
 
-    code_pads = build_tables(np.asarray(channels.prn), dev)
-    active = torch.tensor([s == "T" for s in channels.status], device=dev)
-    carr_basis = torch.as_tensor(np.asarray(channels.acquired_freq, np.float64)).to(dev)
+    tables = channel_tables(channels, dev)
     if state is None:
         state = initial_state(config, channels, dev)
         start_ms = 0
     else:
         state = TrackState(*[torch.as_tensor(v).to(dev) for v in state])
         start_ms = int(state.ms.max())
-
-    if tracker == "per_ms":
-        final, ys = track_ms(config, signal, state, code_pads, carr_basis, active, n_ms,
-                             start_ms, correlate_ms)
-    else:
-        build, block = ((None, mk.track_block_fused) if config.mega_fused_frames
-                        else (mk.build_frames, mk.track_block))
-        final, ys, ovf = track_segments(config, capture_words(signal), state, code_pads,
-                                       carr_basis, active, n_ms, start_ms, build, block)
-        _check_overflow(ovf)
+    final, ys, ovf = track_on_device(config, signal, tables, state, n_ms, start_ms)
+    _check_overflow(ovf)
     host = {f: getattr(ys, f).cpu().numpy().T for f in MsOutputs._fields}
     return TrackResults(final_state=final, prn=np.asarray(channels.prn),
                         status=list(channels.status), **host)
+
+
+def channel_tables(channels: Channels, device):
+    """(code_pads, carr_basis, active) of ``channels`` on ``device``: the
+    padded codes, the acquired carrier frequencies and the active mask."""
+    return (build_tables(np.asarray(channels.prn), device),
+            torch.as_tensor(np.asarray(channels.acquired_freq, np.float64)).to(device),
+            torch.tensor([s == "T" for s in channels.status], device=device))
+
+
+def track_on_device(config: ReceiverConfig, signal: torch.Tensor, tables, state: TrackState,
+                    n_ms: int, start_ms: int):
+    """``n_ms`` ms from ``state`` at absolute ms ``start_ms`` (the largest
+    ``state.ms``, which places the block grid) on the device ``signal``
+    lies on, with the tracker ``config.tracker`` selects, without waiting
+    for the device: returns (final state,
+    MsOutputs of (n_ms, C) device tensors, (C,) overflow: > 0 where a frame
+    failed to hold its ms).  ``tables``: :func:`channel_tables`.
+    :func:`track` and the streamed tracker (parallel.stream) run this."""
+    from softgnss_tpu_torch.track import megakernel as mk
+    from softgnss_tpu_torch.track.pallas_kernel import correlate_ms
+
+    code_pads, carr_basis, active = tables
+    if config.tracker == "per_ms":
+        final, ys = track_ms(config, signal, state, code_pads, carr_basis, active, n_ms,
+                             start_ms, correlate_ms)
+        return final, ys, torch.zeros_like(final.ptr)
+    build, block = ((None, mk.track_block_fused) if config.mega_fused_frames
+                    else (mk.build_frames, mk.track_block))
+    return track_segments(config, capture_words(signal), state, code_pads, carr_basis, active,
+                          n_ms, start_ms, build, block)

@@ -4,7 +4,10 @@ Nav bits and messages are held bit for bit; orbits, geodesy, atmosphere,
 ionosphere and the least-squares PVT to 1e-6 (m, or relative); the whole
 post_navigate stage, on the fabricated observables of
 tests/test_postnav.py, to 1e-3 m with equal TOW, decoded ephemerides and
-RAIM flags.  Both packages get the same NumPy inputs.
+RAIM flags, with the least squares and with the EKF (nav_filter='ekf':
+its lsq_* columns and accepted updates too, also with an inactive channel
+and through an outage); ekf_epoch alone to 1e-9 relative.  Both packages
+get the same NumPy inputs.
 """
 
 import dataclasses
@@ -17,6 +20,7 @@ import softgnss_tpu as sg
 import softgnss_tpu_torch as sgt
 from softgnss_tpu.nav import assist as jassist
 from softgnss_tpu.nav import atmosphere as jatm
+from softgnss_tpu.nav import ekf as jekf
 from softgnss_tpu.nav import geodesy as jgeo
 from softgnss_tpu.nav import iono as jiono
 from softgnss_tpu.nav import message as jmsg
@@ -28,6 +32,7 @@ from softgnss_tpu.nav import solve as jsolve
 from softgnss_tpu_torch import convert
 from softgnss_tpu_torch.nav import assist as tassist
 from softgnss_tpu_torch.nav import atmosphere as tatm
+from softgnss_tpu_torch.nav import ekf as tekf
 from softgnss_tpu_torch.nav import geodesy as tgeo
 from softgnss_tpu_torch.nav import iono as tiono
 from softgnss_tpu_torch.nav import message as tmsg
@@ -242,6 +247,11 @@ def _compare(tsol, jsol):
     for f in ("latitude", "longitude", "el", "az", "dop", "vx", "vy", "vz", "clock_drift"):
         np.testing.assert_allclose(t[f], j[f], rtol=0, atol=1e-6, err_msg=f)
     np.testing.assert_allclose(t["height"], j["height"], rtol=0, atol=1e-3)
+    assert t["nav_filter"] == j["nav_filter"]
+    for f in ("lsq_x", "lsq_y", "lsq_z", "lsq_dt", "ekf_used"):
+        assert (t[f] is None) == (j[f] is None), f
+        if t[f] is not None:
+            np.testing.assert_allclose(t[f], j[f], rtol=0, atol=1e-3, err_msg=f)
 
 
 @pytest.mark.parametrize("case", ["cold", "raim_fault"])
@@ -309,5 +319,98 @@ def test_nav_solutions_round_trip(nav_case):
     short.i_p = track.i_p[:, :10000]
     short.absolute_sample = track.absolute_sample[:, :10000]
     assert tsolve.post_navigate(tcfg, short)[0] is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsolve.post_navigate(tcfg.with_options(nav_filter="ekf"), track)
+    # the EKF's columns round-trip too
+    sol_k, _ = tsolve.post_navigate(tcfg.with_options(nav_filter="ekf"), track)
+    d_k = convert.nav_solutions_to_numpy(sol_k)
+    assert d_k["nav_filter"] == "ekf" and d_k["ekf_used"].dtype == np.int64
+    back_k = convert.nav_solutions_to_numpy(convert.nav_solutions_from_numpy(d_k))
+    for f in ("x", "lsq_x", "lsq_dt", "ekf_used"):
+        np.testing.assert_array_equal(back_k[f], d_k[f], err_msg=f)
+
+
+@pytest.mark.parametrize("case", ["all", "inactive_channel", "outage"])
+def test_post_navigate_ekf_matches(nav_case, case):
+    """nav_filter='ekf' against the JAX package: every channel; channel 4
+    inactive (its infinite travel time must not poison the state, 4
+    satellites left); channels 3 and 4 lose lock at 20 s (3 satellites:
+    least squares stops, the EKF bridges), the cases of tests/test_ekf.py."""
+    jcfg, rx, ephs, track = nav_case
+    jcfg = jcfg.with_options(nav_filter="ekf")
+    t2 = FakeTrack()
+    t2.__dict__.update(track.__dict__)
+    if case == "inactive_channel":
+        t2.status = list(track.status)
+        t2.status[4] = "-"
+    elif case == "outage":
+        loss = np.full(len(track.prn), np.inf)
+        loss[3] = loss[4] = 20000.0
+        t2.lock_loss_ms = loss
+    tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    jsol, _ = jsolve.post_navigate(jcfg, t2)
+    tsol, _ = tsolve.post_navigate(tcfg, t2)
+    _compare(tsol, jsol)
+    assert tsol.nav_filter == "ekf" and tsol.lsq_x is not None
+    err = np.sqrt((tsol.x - rx[0]) ** 2 + (tsol.y - rx[1]) ** 2 + (tsol.z - rx[2]) ** 2)
+    assert np.isfinite(tsol.x).sum() >= 0.9 * tsol.n_epochs
+    if case == "outage":
+        epoch_ms = tsol.first_epoch_ms + tsol._period_ms * np.arange(tsol.n_epochs)
+        out = epoch_ms > 20000.0 + tsol._period_ms
+        assert out.sum() >= 10 and not np.isfinite(tsol.lsq_x[out]).any()
+        assert np.isfinite(tsol.x[out]).all() and (tsol.ekf_used[out] <= 3).all()
+        assert np.nanmax(err[out]) < 100.0
+        # the summary's EKF tag counts the bridged epochs, as the JAX one does
+        from softgnss_tpu import pipeline as jpipe
+        from softgnss_tpu_torch import pipeline as tpipe
+
+        line = tpipe.ReceiverResults(config=tcfg, solutions=tsol).summary().splitlines()[0]
+        assert line.startswith("PVT (EKF), ") and "epochs bridged" in line
+        assert line == jpipe.ReceiverResults(config=jcfg, solutions=jsol).summary().splitlines()[0]
+    else:
+        assert np.nanmedian(err) < 10.0
+
+
+def _ekf_inputs(seed: int, n_sats: int = 6):
+    """One epoch's satellites above a receiver at 47 N 8.5 E, pseudoranges
+    and range rates with noise, one masked satellite and one infinite
+    pseudorange (an inactive channel)."""
+    from tests.test_geodesy_pvt import make_constellation
+
+    rng = np.random.default_rng(seed)
+    rx = np.asarray(jgeo.geo2cart(np.array([47.0, 0, 0]), np.array([8.5, 0, 0]), 500.0, 4))
+    sat_pos = make_constellation(rx, n_sats=n_sats)
+    sat_vel = rng.normal(0, 3000.0, (n_sats, 3))
+    pr = np.linalg.norm(sat_pos - rx, axis=1) + 1500.0 + rng.normal(0, 3.0, n_sats)
+    pr[-1] = np.inf
+    rr = rng.normal(0, 500.0, n_sats)
+    mask = np.ones(n_sats, bool)
+    mask[1] = False
+    ls = np.concatenate([rx + rng.normal(0, 20.0, 3), [1500.0]])
+    vel = rng.normal(0, 0.5, 4)
+    return sat_pos, sat_vel, pr, rr, mask, ls, vel
+
+
+@pytest.mark.parametrize("use_trop", [True, False])
+def test_ekf_epoch_matches(use_trop):
+    """ekf_epoch alone, three epochs (init, then two predict + update) with
+    an iono model on the last, against the JAX function: 1e-9 relative."""
+    kw = dict(t_step=0.5, q_accel=2.0, q_clock=1.0, q_bias=0.1, r_pr=5.0, r_rr=0.15, gate=6.0)
+    jst, tst = jekf.initial_ekf_state(), tekf.initial_ekf_state()
+    for ep in range(3):
+        sat_pos, sat_vel, pr, rr, mask, ls, vel = _ekf_inputs(10 + ep)
+        iono = None if ep < 2 else (IONO, 417800.0)
+        jst, jout = jekf.ekf_epoch(jst, sat_pos, sat_vel, pr, rr, mask, use_trop, iono,
+                                   ls_pos=ls, ls_ok=True, ls_vel=vel, **kw)
+        tst, tout = tekf.ekf_epoch(tst, sat_pos, sat_vel, pr, rr, mask, use_trop,
+                                   None if iono is None else (torch.from_numpy(IONO), iono[1]),
+                                   ls_pos=torch.from_numpy(ls), ls_ok=True,
+                                   ls_vel=torch.from_numpy(vel), **kw)
+        assert tst.init and bool(jst.init)
+        np.testing.assert_allclose(tst.x.numpy(), np.asarray(jst.x), rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(tst.p.numpy(), np.asarray(jst.p), rtol=1e-9, atol=1e-9)
+        for a, b in zip(tout[:4], jout[:4]):
+            np.testing.assert_allclose(np.asarray(a, np.float64), np.asarray(b), rtol=1e-9)
+        assert tout[4] == int(jout[4]) and tout[4] >= 1
+    # before any valid least-squares fix the filter stays uninitialized
+    st, out = tekf.ekf_epoch(tekf.initial_ekf_state(), sat_pos, sat_vel, pr, rr, mask, True,
+                             ls_pos=torch.from_numpy(ls), ls_ok=False, **kw)
+    assert not st.init and np.isnan(out[0].numpy()).all() and out[4] == 0

@@ -93,7 +93,10 @@ def test_checkpoints_cross_packages(runs, tmp_path):
 
 def test_port_imports_no_jax():
     code = ("import sys; import softgnss_tpu_torch.pipeline, softgnss_tpu_torch.convert, "
-            "softgnss_tpu_torch.track.megakernel, softgnss_tpu_torch.signals.synth; "
+            "softgnss_tpu_torch.track.megakernel, softgnss_tpu_torch.signals.synth, "
+            "softgnss_tpu_torch.cli, softgnss_tpu_torch.plots, softgnss_tpu_torch.native, "
+            "softgnss_tpu_torch.parallel.stream, softgnss_tpu_torch.nav.ekf, "
+            "softgnss_tpu_torch.scripts.pallas_probe; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', "
             "'softgnss_tpu.')) or m == 'softgnss_tpu']; assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True,
@@ -103,16 +106,16 @@ def test_port_imports_no_jax():
 
 def test_no_silent_fallback(runs):
     """navigate=True runs navigation (on too short a capture it finds no
-    fix, as the JAX package does); the unported EKF raises; a missing card
+    fix, as the JAX package does), with either filter; a missing card
     raises."""
     sig, _, _ = runs
     cfg = sgt.fast_config(**_OPTS)
-    res = tpipe.run_receiver(cfg, signal=sig, device="cpu")
-    assert res.solutions is None and not res.has_fix
-    assert res.ephemerides == [None] * 32 and "navigate" in res.timings_s
-    assert "PVT: navigation solution not computed" in res.summary()
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tpipe.run_receiver(cfg.with_options(nav_filter="ekf"), signal=sig, device="cpu")
+    for nav_filter in ("lsq", "ekf"):
+        res = tpipe.run_receiver(cfg.with_options(nav_filter=nav_filter), signal=sig,
+                                 device="cpu")
+        assert res.solutions is None and not res.has_fix
+        assert res.ephemerides == [None] * 32 and "navigate" in res.timings_s
+        assert "PVT: navigation solution not computed" in res.summary()
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: device='cuda' is valid here")
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -58,7 +58,7 @@ def test_synthesize_scenario_noise_free_matches(which):
     if which == "kinematic_iono":
         j.iono = t.iono = IONO
     want = jsc.synthesize_scenario(j, 60)
-    got = tsc.synthesize_scenario(t, 60)
+    got = tsc.synthesize_scenario(t, 60, device="cpu")
     assert got.dtype == torch.int8 and got.shape == want.shape
     np.testing.assert_array_equal(t.delays, j.delays)
     np.testing.assert_array_equal(t.dopplers, j.dopplers)
@@ -85,13 +85,15 @@ def test_synthesize_dynamic_envelope_and_noise():
     env[1, 25:] = 0.0
     args = ([3, 17], delays, bits, 0.013, n)
     want = jsynth.synthesize_dynamic(cfg_j, *args, amplitudes=env, phase0=[0.3, 1.1])
-    got = tsynth.synthesize_dynamic(cfg_t, *args, amplitudes=env, phase0=[0.3, 1.1])
+    got = tsynth.synthesize_dynamic(cfg_t, *args, amplitudes=env, phase0=[0.3, 1.1],
+                                   device="cpu")
     d = got.numpy().astype(np.int16) - want
     assert np.abs(d).max() <= 1 and np.mean(d != 0) <= 1e-4
     with pytest.raises(ValueError, match="delays_s"):
-        tsynth.synthesize_dynamic(cfg_t, [3], delays, bits, 0.0, n)
-    noisy = tsynth.synthesize_dynamic(cfg_t, *args, noise_std=4.0, seed=2).numpy()
+        tsynth.synthesize_dynamic(cfg_t, [3], delays, bits, 0.0, n, device="cpu")
+    noisy = tsynth.synthesize_dynamic(cfg_t, *args, noise_std=4.0, seed=2,
+                                     device="cpu").numpy()
     jn = jsynth.synthesize_dynamic(cfg_j, *args, noise_std=4.0, seed=2)
-    clean = tsynth.synthesize_dynamic(cfg_t, *args).numpy().astype(np.float64)
+    clean = tsynth.synthesize_dynamic(cfg_t, *args, device="cpu").numpy().astype(np.float64)
     assert abs(np.std(noisy - clean) / np.std(jn - clean) - 1) < 0.03
     assert dataclasses.is_dataclass(tsc.Scenario)

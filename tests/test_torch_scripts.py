@@ -1,16 +1,20 @@
-"""The port's measurement probes (softgnss_tpu_torch.scripts, S1-S4).
+"""The port's measurement probes (softgnss_tpu_torch.scripts, S1-S5).
 
 On the CPU each stage's and variant's plain version is held against the
 JAX package's own building blocks on the same samples (the NCOs of
 softgnss_tpu.signals.nco, megakernel.build_frames in interpret mode) or
 against numpy, at ``fast_config()``; the ``full`` stages are the receiver's
-plain versions themselves.  The ``gpu`` tests hold every stage, variant
-and load pattern kernel bit-equal to its plain version on a card; they
-import no JAX, so they also run on the card's machine:
+plain versions themselves.  S5's plain versions are held against the TPU
+script's own kernel bodies (scripts/pallas_probe.py) run by
+``pl.pallas_call(..., interpret=True)`` with the script's BlockSpecs.  The
+``gpu`` tests hold every stage, variant, load pattern and construct
+kernel against its plain version on a card; they import no JAX, so they
+also run on the card's machine:
 
     python -m pytest --noconftest -m gpu tests/test_torch_scripts.py
 """
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -25,6 +29,7 @@ from softgnss_tpu_torch.scripts import builder_time as s3
 from softgnss_tpu_torch.scripts import dma_probe as s4
 from softgnss_tpu_torch.scripts import mega_vmem_bisect as s2
 from softgnss_tpu_torch.scripts import pallas_ablate as s1
+from softgnss_tpu_torch.scripts import pallas_probe as s5
 from softgnss_tpu_torch.scripts import timing
 from softgnss_tpu_torch.track import megakernel as mk
 from softgnss_tpu_torch.track import pallas_kernel as pk
@@ -209,11 +214,135 @@ def test_dma_probe_plain_against_numpy(c, r):
     np.testing.assert_array_equal(got, want)
 
 
+# --- S5: the construct probes ------------------------------------------------
+
+
+def _tpu_probe_module():
+    """scripts/pallas_probe.py (the TPU script) as a module: its kernel
+    bodies, without running its probes."""
+    spec = importlib.util.spec_from_file_location("tpu_pallas_probe",
+                                                  REPO / "scripts" / "pallas_probe.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _jax_probe(name, args):
+    """The TPU script's kernel ``name`` on ``args`` (torch CPU tensors),
+    through pl.pallas_call in interpret mode with the script's grid,
+    BlockSpecs and output shapes."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    m = _tpu_probe_module()
+    a = [jnp.asarray(t.numpy()) for t in args]
+    f32 = lambda *s: jax.ShapeDtypeStruct(s, jnp.float32)    # noqa: E731
+    block = pl.BlockSpec((8, 128), lambda i: (i, 0))
+    calls = {
+        "grid": lambda: pl.pallas_call(m._k_grid, grid=(8,), in_specs=[block], out_specs=block,
+                                       out_shape=f32(64, 128), interpret=True),
+        "acc": lambda: pl.pallas_call(m._k_acc, grid=(8,), in_specs=[block],
+                                      out_specs=pl.BlockSpec((8, 1), lambda i: (0, 0)),
+                                      out_shape=f32(8, 1), interpret=True),
+        "conv": lambda: pl.pallas_call(m._k_conv, out_shape=f32(8, 128), interpret=True),
+        "onehot": lambda: pl.pallas_call(m._k_3d, out_shape=f32(8, 32), interpret=True),
+        "bdot": lambda: pl.pallas_call(m._k_bdot, out_shape=f32(4, 8, 8), interpret=True),
+        "dot": lambda: pl.pallas_call(m._k_dot, out_shape=f32(32, 128), interpret=True),
+    }
+    return np.asarray(calls[name]()(*a))
+
+
+def _sum_abs_terms(name, args) -> np.ndarray:
+    """sum |terms| of each output: the scale of the float32 sum-order
+    tolerance against JAX."""
+    a = [t.numpy().astype(np.float64) for t in args]
+    if name == "acc":
+        return np.abs(a[0]).reshape(8, 8, 128).sum((0, 2))[:, None]
+    if name == "onehot":
+        h, b = a
+        return np.stack([np.where(h == k, np.abs(b), 0.0).sum(1) for k in range(32)], 1)
+    if name == "bdot":
+        return np.abs(a[0]) @ np.abs(a[1])
+    if name == "dot":
+        return s5.DOT_STEPS * (np.abs(a[0]) @ np.abs(a[1]))
+    return np.zeros(1)
+
+
+@pytest.mark.parametrize("inputs", ["script", "seeded"])
+@pytest.mark.parametrize("name", s5.PROBES)
+def test_s5_plain_against_jax_interpret(name, inputs):
+    """Each S5 plain version against the TPU kernel it replaces: bit-equal
+    on the script's own inputs (and for grid and conv, full-range int32
+    included, on every input); on seeded inputs within 1e-5 * sum |terms|,
+    JAX's float32 sum order against the port's float64 sums."""
+    args = (s5.script_inputs("cpu") if inputs == "script" else s5.seeded_inputs("cpu"))[name]
+    got = s5.PLAINS[name](*args).numpy()
+    want = _jax_probe(name, args)
+    assert got.dtype == want.dtype == np.float32 and got.shape == want.shape
+    if inputs == "script" or name in ("grid", "conv"):
+        np.testing.assert_array_equal(got, want)
+    else:
+        err = np.abs(got.astype(np.float64) - want)
+        assert (err <= 1e-5 * _sum_abs_terms(name, args)).all(), err.max()
+        # the kernel's own tolerance (TF32) bounds the plain version's too
+        tol = s5.tf32_tolerance(name, args)
+        if tol is not None:
+            assert (err <= tol.numpy()).all()
+
+
+def test_s5_acc_plain_is_the_row_sums():
+    """The kernel-order sum (lanes, shuffle tree, ranks) of the acc probe
+    is within one rounding of the float64 row sums, and exact on integers."""
+    x = s5.seeded_inputs("cpu")["acc"][0]
+    want = x.double().view(8, 8, 128).sum((0, 2))
+    got = s5.probe_acc_plain(x)[:, 0].double()
+    assert torch.allclose(got, want, rtol=2**-23, atol=0)
+    ints = torch.from_numpy(np.random.default_rng(1).integers(-1000, 1000, (64, 128))
+                            .astype(np.float32))
+    assert torch.equal(s5.probe_acc_plain(ints)[:, 0],
+                       ints.double().view(8, 8, 128).sum((0, 2)).float())
+
+
+def test_s5_compare_and_bounds():
+    """The TF32 check accepts a product rounded to TF32 and refuses a
+    wrong one; each probe's bound is set by its bytes (launch-scale work)."""
+    a, b = s5.seeded_inputs("cpu")["dot"]
+    tf32 = lambda t: (t.view(torch.int32) & ~0x1FFF).view(torch.float32)   # noqa: E731
+    rounded = s5.probe_dot_plain(tf32(a), tf32(b))
+    assert s5.compare("dot", rounded, s5.probe_dot_plain(a, b), (a, b), exact=False) > 0
+    with pytest.raises(AssertionError, match="TF32 bound"):
+        s5.compare("dot", rounded + 1.0, s5.probe_dot_plain(a, b), (a, b), exact=False)
+    with pytest.raises(AssertionError, match="differs"):
+        s5.compare("dot", rounded, s5.probe_dot_plain(a, b), (a, b), exact=True)
+    inputs = s5.script_inputs("cpu")
+    for name in s5.PROBES:
+        ms, by = s5.bound(name, inputs[name])
+        assert by == "bytes" and 0 < ms < 1e-3, (name, ms, by)
+    # dot: 64 KB + 256 KB read, 16 KB written at 3.35 TB/s
+    assert s5.bound("dot", inputs["dot"])[0] == pytest.approx(
+        (32 * 512 + 512 * 128 + 32 * 128) * 4 / 3.35e12 * 1e3)
+
+
+def test_ptxas_resources_parsed():
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116probe_acc_kernelEPKfPfi'"
+           " for 'sm_90a'\nptxas info    : Function properties for _ZN12_GLOBAL__N_116probe_acc"
+           "_kernelEPKfPfi\n    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+           "ptxas info    : Used 30 registers, used 1 barriers, 64 bytes smem, 380 bytes cmem[0]\n"
+           "ptxas info    : Compiling entry function '_Z17probe_grid_kernelPKfPf' for 'sm_90a'\n"
+           "ptxas info    : Used 10 registers, 380 bytes cmem[0]\n")
+    res = s5.resources(log)
+    assert res["_ZN12_GLOBAL__N_116probe_acc_kernelEPKfPfi"] == {
+        "registers": 30, "smem": 64, "stack": 8, "spill_stores": 4, "spill_loads": 4}
+    assert res["_Z17probe_grid_kernelPKfPf"]["registers"] == 10
+    assert res["_Z17probe_grid_kernelPKfPf"]["smem"] == 0
+
+
 # --- entry points and counters ----------------------------------------------
 
 
 @pytest.mark.parametrize("name", ["pallas_ablate", "mega_vmem_bisect", "builder_time",
-                                  "dma_probe"])
+                                  "dma_probe", "pallas_probe"])
 def test_probe_exits_nonzero_without_cuda(name):
     """No fallback: without a CUDA card each probe raises before it
     measures anything."""
@@ -224,6 +353,7 @@ def test_probe_exits_nonzero_without_cuda(name):
     assert proc.returncode != 0
     assert "torch.cuda.is_available() is false" in proc.stderr
     assert "us/ms" not in proc.stdout and "us/launch" not in proc.stdout
+    assert "[ok]" not in proc.stdout and " us" not in proc.stdout
 
 
 def test_timers_require_cuda():
@@ -233,13 +363,16 @@ def test_timers_require_cuda():
 
 def test_plain_probes_count_no_launches():
     wrappers = (s1.correlate_ms_stage, s2.track_block_stage, s3.build_frames_vec4,
-                s4.dma_probe)
+                s4.dma_probe, *s5.KERNELS.values())
     before = [f.launches for f in wrappers]
     cfg = _cfg()
     s1.correlate_ms_stage("carrier", *s1.ms_args(cfg, "cpu"))
     s2.track_block_stage("load", *s2.block_args(cfg, 2, "cpu"))
     s3.build_frames_vec4(*s3.frame_args(2, 2, "cpu"))
     s4.dma_probe("bulk", 4, *s4.probe_args(2, 2, "cpu"))
+    inputs = s5.seeded_inputs("cpu")
+    for name, kernel in s5.KERNELS.items():
+        assert torch.equal(kernel(*inputs[name]), s5.PLAINS[name](*inputs[name]))
     assert [f.launches for f in wrappers] == before
 
 
@@ -287,4 +420,22 @@ def test_b2_variant_kernel_matches_plain_on_card(cuda_device, name, edges):
 def test_dma_probe_kernel_matches_plain_on_card(cuda_device, pattern, depth):
     args = s4.probe_args(3, 6, cuda_device)
     assert torch.equal(s4.dma_probe(pattern, depth, *args), s4.dma_probe_plain(*args))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["script", "seeded"])
+@pytest.mark.parametrize("name", s5.PROBES)
+def test_s5_kernel_matches_plain_on_card(cuda_device, name, inputs):
+    args = (s5.script_inputs(cuda_device) if inputs == "script"
+            else s5.seeded_inputs(cuda_device))[name]
+    s5.compare(name, s5.KERNELS[name](*args), s5.PLAINS[name](*args), args,
+               exact=inputs == "script")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_s5_acc_reps_rewrite_the_same_sum_on_card(cuda_device):
+    x = s5.seeded_inputs(cuda_device)["acc"][0]
+    assert torch.equal(s5.probe_acc(x, 1), s5.probe_acc(x, s5.ACC_REPS))
     torch.cuda.synchronize()

@@ -133,7 +133,8 @@ def test_synth_noise_free_matches(which, n_ms):
     jc = getattr(sg, f"{which}_config")()
     tc = getattr(sgt, f"{which}_config")()
     want = jsynth.synthesize_signal(jc, _sats(jsynth, np.random.default_rng(3)), n_ms)
-    got = tsynth.synthesize_signal(tc, _sats(tsynth, np.random.default_rng(3)), n_ms)
+    got = tsynth.synthesize_signal(tc, _sats(tsynth, np.random.default_rng(3)), n_ms,
+                                  device="cpu")
     assert got.dtype == torch.int8 and got.shape == want.shape
     d = got.numpy().astype(np.int16) - want
     assert np.abs(d).max() <= 1
@@ -144,15 +145,18 @@ def test_synth_noise_std_and_amplitude():
     jc, tc = sg.fast_config(), sgt.fast_config()
     assert tsynth.amplitude_for_cn0(tc, 45.0, 8.0) == jsynth.amplitude_for_cn0(jc, 45.0, 8.0)
     sats = _sats(tsynth, np.random.default_rng(5))
-    clean = tsynth.synthesize_signal(tc, sats, 40).numpy().astype(np.float64)
-    noisy = tsynth.synthesize_signal(tc, sats, 40, noise_std=8.0, seed=1).numpy()
+    clean = tsynth.synthesize_signal(tc, sats, 40, device="cpu").numpy().astype(np.float64)
+    noisy = tsynth.synthesize_signal(tc, sats, 40, noise_std=8.0, seed=1,
+                                     device="cpu").numpy()
     jn = jsynth.synthesize_signal(jc, _sats(jsynth, np.random.default_rng(5)), 40,
                                   noise_std=8.0, seed=1).astype(np.float64)
     std_t = np.std(noisy - clean)
     std_j = np.std(jn - clean)
     assert abs(std_t / std_j - 1) < 0.02
     # a seed fixes the draw; another seed gives another draw
-    again = tsynth.synthesize_signal(tc, sats, 40, noise_std=8.0, seed=1).numpy()
-    other = tsynth.synthesize_signal(tc, sats, 40, noise_std=8.0, seed=2).numpy()
+    again = tsynth.synthesize_signal(tc, sats, 40, noise_std=8.0, seed=1,
+                                     device="cpu").numpy()
+    other = tsynth.synthesize_signal(tc, sats, 40, noise_std=8.0, seed=2,
+                                     device="cpu").numpy()
     np.testing.assert_array_equal(noisy, again)
     assert np.mean(noisy != other) > 0.5
