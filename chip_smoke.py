@@ -22,7 +22,13 @@ script exits non-zero:
                 their plain versions over 256 ms of that capture, with a
                 resume (lead segment) and an idle channel, at default and
                 in a variant config (pdi_ms=4, FLL, carrier-aided DLL,
-                spacing 0.25); each kernel's time per launch
+                spacing 0.25); B1 and B3 at every cluster size whose 8
+                clusters fit on the card at once, and at 3, 5, 8 and 12
+                channels at the chosen size; B3 bit-equal to B2 + B1 at the
+                capture edges; ptxas's registers, shared memory and spills
+                of every B1/B3 instantiation; each cluster size, and 128,
+                256 and 512 threads per CTA at the chosen size, timed in
+                turns; B4's time per launch
 6b. probes    — the measurement probes softgnss_tpu_torch.scripts (S1
                 pallas_ablate, S2 mega_vmem_bisect, S3 builder_time, S4
                 dma_probe, S5 pallas_probe): every stage, variant, load
@@ -37,6 +43,9 @@ script exits non-zero:
                 ephemerides decoded equal to truth, TOW equal, >= 90 % of
                 epochs fixed, 3D error median < 30 m and mean < 40 m,
                 static |v| median < 0.3 m/s
+7b. profile   — one torch.profiler window over the main path's track
+                stage: the card's idle share, B1's and B2's share of device
+                time
 8. fused      — the same channels with mega_fused_frames=True (B3):
                 every tracking output bit-equal to the main path's
 9. per-ms     — the same channels with correlator_impl='pallas' (B4,
@@ -58,7 +67,8 @@ script exits non-zero:
                 exit 0, a 3D-error mean < 30 m, B2 and B1 launched
 
 Each tracking phase zeroes every kernel's launch count just before it and
-checks the counts just after.  Each kernel's record carries its time, its
+checks the counts just after, and that B1 (or B3) ran as a cluster of
+more than one CTA per channel (the size is printed with the counts).  Each kernel's record carries its time, its
 plain version's, one PyTorch call's that computes the same function where
 there is one, and its bound: the least time an H100 could take for the
 same work on this run's inputs (bytes over 3.35 TB/s, operations over 67
@@ -149,15 +159,18 @@ def make_scenario(cfg):
 
 
 def truth_channels(sc, status):
-    """Tracking channels at the scenario's truth (acquisition's values)."""
+    """Tracking channels at the scenario's truth (acquisition's values):
+    channel i tracks satellite i % n_sats, one channel per entry of
+    ``status``."""
     from softgnss_tpu_torch.acquire.search import Channels
 
     spc = sc.config.samples_per_code
+    sats = [i % len(sc.prns) for i in range(len(status))]
     return Channels(
-        prn=np.asarray(sc.prns, np.int64),
-        acquired_freq=np.asarray([sc.expected_carrier_freq(i) for i in range(len(sc.prns))]),
-        code_phase=np.asarray([int(round(sc.expected_code_phase(i))) % spc
-                               for i in range(len(sc.prns))], np.int64),
+        prn=np.asarray([sc.prns[i] for i in sats], np.int64),
+        acquired_freq=np.asarray([sc.expected_carrier_freq(i) for i in sats]),
+        code_phase=np.asarray([int(round(sc.expected_code_phase(i))) % spc for i in sats],
+                              np.int64),
         status=list(status))
 
 
@@ -205,10 +218,22 @@ def reset_launches():
     for fns in _kernel_wrappers():
         for fn in fns:
             fn.launches = 0
+            if hasattr(fn, "ctas_per_channel"):
+                fn.ctas_per_channel = None
 
 
 def read_launches(probes: bool = False) -> dict:
     return {fn.__name__: fn.launches for fn in _kernel_wrappers()[probes]}
+
+
+def cluster_size(label: str, wrapper: str) -> int:
+    """The CTAs per channel the block-tracker wrapper ``wrapper`` last
+    launched at in this phase: a cluster, never one CTA per channel."""
+    from softgnss_tpu_torch.track import megakernel as mk
+
+    kn = getattr(mk, wrapper).ctas_per_channel
+    check(kn is not None and kn > 1, f"{label}: {wrapper} launched at {kn} CTAs per channel")
+    return kn
 
 
 def phase_nco(dev) -> None:
@@ -328,18 +353,22 @@ VARIANT = dict(pdi_ms=4, fll_bandwidth_hz=10.0, carrier_aided_dll=True,
                dll_correlator_spacing=0.25)
 
 
-def hold_against_plain(name, cfg, sig, channels, kernel, plain) -> float:
+def hold_against_plain(name, cfg, sig, channels, kernel, plain, plains=None) -> float:
     """Run ``kernel`` and ``plain`` ((build, block) pairs for run_split)
     over the PARITY_MS split at default and VARIANT configs; check the
-    tolerances, the idle channel and finiteness.  Returns the worst
-    absolute correlator difference at the default config."""
+    tolerances, the idle channel and finiteness.  ``plains``: a dict that
+    keeps the plain runs of these channels for the next call.  Returns the
+    worst absolute correlator difference at the default config."""
     import torch
 
     act = np.asarray([s == "T" for s in channels.status])
+    plains = {} if plains is None else plains
     worst = 0.0
     for label, c in (("default", cfg), ("variant", cfg.with_options(**VARIANT))):
         st0, stk, yk = run_split(c, sig, channels, *kernel)
-        _, stp, yp = run_split(c, sig, channels, *plain)
+        if (label, plain) not in plains:
+            plains[(label, plain)] = run_split(c, sig, channels, *plain)
+        _, stp, yp = plains[(label, plain)]
         check(np.array_equal(yk.absolute_sample, yp.absolute_sample),
               f"{name} {label}: absolute_sample differs")
         errs = {}
@@ -363,35 +392,113 @@ def hold_against_plain(name, cfg, sig, channels, kernel, plain) -> float:
             check(torch.equal(v0[idle], v[idle]), f"{name} {label}: idle channel state {f} moved")
         check(all(np.isfinite(getattr(yk, f)).all() for f in yk._fields),
               f"{name} {label}: non-finite outputs")
-        print(f"  {label}: {sum(PARITY_MS)} ms x {len(act)} ch, absolute_sample equal, "
+        print(f"  {name} {label}: {sum(PARITY_MS)} ms x {len(act)} ch, absolute_sample equal, "
               f"{n_diff} (ms, output) rows not bit-equal; "
               + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
     return worst
 
 
-def phase_block_kernels(cfg, sig, sc, dev) -> tuple[dict, dict]:
-    """B1 and B3 against their plain versions; one full block timed."""
+#: channel counts B1 and B3 are held at, at the chosen cluster size
+#: (ROADMAP section B's acceptance for B1, the set of the JAX package's
+#: scripts/parity_check.py)
+PARITY_CHANNELS = (3, 5, 8, 12)
+#: threads per CTA timed at every cluster size
+THREAD_SWEEP = (128, 256, 512)
+
+
+def fitting_sizes(dev, fused: bool, n_ch: int, win: int, threads: int | None = None) -> list[int]:
+    """The cluster sizes at which all ``n_ch`` clusters of ``threads``
+    (default THREADS_PER_CTA) threads per CTA are resident at once (and 1,
+    one CTA per channel)."""
+    from softgnss_tpu_torch.track import megakernel as mk
+
+    return [kn for kn in mk.CLUSTER_SIZES if kn == 1 or mk.max_active_clusters(
+        dev.index or 0, fused, kn, threads or mk.THREADS_PER_CTA, mk.rank_chunk(win, kn)) >= n_ch]
+
+
+def in_turns(fn, keys, n: int = 20) -> dict:
+    """Device ms per call of ``fn(key)`` for each key, timed in turns
+    (keys, then reversed): {key: [first, second]}."""
+    out = {k: [] for k in keys}
+    for k in [*keys, *reversed(keys)]:
+        out[k].append(cuda_ms(lambda: fn(k), n, busy=True))
+    return out
+
+
+def block_resources(log: str) -> dict:
+    """{(fused, stage, kN): ptxas resources} of every track_block_kernel
+    instantiation in the build log."""
+    from softgnss_tpu_torch.scripts.pallas_probe import resources
+
+    out = {}
+    for name, res in resources(log).items():
+        m = re.search(r"track_block_kernelILb([01])ELi(\d+)ELi(\d+)E", name)
+        if m:
+            out[(bool(int(m.group(1))), int(m.group(2)), int(m.group(3)))] = res
+    return out
+
+
+def phase_block_kernels(cfg, sig, sc, dev, log: str) -> tuple[dict, dict]:
+    """B1 and B3 against their plain versions at every cluster size that
+    fits and at PARITY_CHANNELS channels; the capture edges; each size
+    and thread count timed in turns at the main path's shapes."""
+    import functools
+
     import torch
 
+    from softgnss_tpu_torch.scripts import mega_vmem_bisect as s2
     from softgnss_tpu_torch.track import megakernel as mk
     from softgnss_tpu_torch.track.scan import capture_words, initial_state
     from softgnss_tpu_torch.track.tables import build_tables
 
     spc = cfg.samples_per_code
+    win = cfg.track_window
     channels = truth_channels(sc, ["T"] * (N_SATS - 1) + ["-"])
-    worst_b1 = hold_against_plain("B1", cfg, sig, channels,
-                                  (mk.build_frames, mk.track_block),
-                                  (mk.build_frames_plain, mk.track_block_plain))
-    worst_b3 = hold_against_plain("B3", cfg, sig, channels,
-                                  (None, mk.track_block_fused),
-                                  (None, mk.track_block_fused_plain))
+    sizes = fitting_sizes(dev, False, N_SATS, win)
+    check(sizes == fitting_sizes(dev, True, N_SATS, win), "B1 and B3 fit different sizes")
+    chosen, threads = mk.launch_size(dev, False, N_SATS, win)
+    check(chosen > 1 and chosen in sizes, f"chosen cluster size {chosen}, fitting {sizes}")
+    print(f"  cluster sizes whose {N_SATS} clusters fit at once: {sizes}; chosen {chosen} CTAs "
+          f"per channel, {threads} threads each (default {mk.CTAS_PER_CHANNEL})")
+    res = block_resources(log)
+    for (fused, stage, kn), r in sorted(res.items()):
+        print(f"  ptxas track_block_kernel<{str(fused).lower()}, {stage}, {kn}>: "
+              f"{r['registers']} registers, {r['smem']} B shared, spills {r['spill_stores']} B "
+              f"stored / {r['spill_loads']} B loaded")
+    check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in res.values()),
+          "a track_block_kernel instantiation spills")
 
-    # one full block at the main path's shapes
+    b1_plain, b3_plain = (mk.build_frames_plain, mk.track_block_plain), \
+        (None, mk.track_block_fused_plain)
+    plains = {}
+    worst_b1 = worst_b3 = 0.0
+    for kn in sizes:
+        b1 = functools.partial(mk.track_block, ctas_per_channel=kn)
+        b3 = functools.partial(mk.track_block_fused, ctas_per_channel=kn)
+        w1 = hold_against_plain(f"B1 kN={kn}", cfg, sig, channels, (mk.build_frames, b1),
+                                b1_plain, plains)
+        w3 = hold_against_plain(f"B3 kN={kn}", cfg, sig, channels, (None, b3), b3_plain, plains)
+        if kn == chosen:
+            worst_b1, worst_b3 = w1, w3
+    b1 = functools.partial(mk.track_block, ctas_per_channel=chosen)
+    b3 = functools.partial(mk.track_block_fused, ctas_per_channel=chosen)
+    for n in PARITY_CHANNELS:
+        if n == N_SATS:
+            continue                                    # held above
+        chans = truth_channels(sc, ["T"] * (n - 1) + ["-"])
+        c_plains = {}
+        hold_against_plain(f"B1 kN={chosen} C={n}", cfg, sig, chans, (mk.build_frames, b1),
+                           b1_plain, c_plains)
+        hold_against_plain(f"B3 kN={chosen} C={n}", cfg, sig, chans, (None, b3), b3_plain,
+                           c_plains)
+
+    # one full block at the main path's shapes: every channel active
+    busy = truth_channels(sc, ["T"] * N_SATS)
     words = capture_words(sig)
-    pads = build_tables(channels.prn, dev)
-    active = torch.tensor([s == "T" for s in channels.status], device=dev)
-    cb = torch.as_tensor(channels.acquired_freq).to(dev)
-    st = initial_state(cfg, channels, dev)
+    pads = build_tables(busy.prn, dev)
+    active = torch.tensor([s == "T" for s in busy.status], device=dev)
+    cb = torch.as_tensor(busy.acquired_freq).to(dev)
+    st = initial_state(cfg, busy, dev)
     r = cfg.track_block_ms
     start_w = torch.div(st.ptr - cfg.track_frame_pre, 4, rounding_mode="floor")
     frames = mk.build_frames(words, start_w, r, cfg.track_window // 4, spc // 4)
@@ -405,17 +512,40 @@ def phase_block_kernels(cfg, sig, sc, dev) -> tuple[dict, dict]:
     st_e = st._replace(ptr=4 * edge_w + cfg.track_frame_pre)
     e_frames = mk.build_frames(words, edge_w, 4, cfg.track_window // 4, spc // 4)
     e_args = (st_e, pads, cb, active, cfg, 4)
-    outs = [mk.track_block_fused(words, edge_w, *e_args),
-            mk.track_block(e_frames, 4 * edge_w, *e_args),
-            mk.track_block_fused_plain(words, edge_w, *e_args)]
-    for got in outs[1:]:
-        for x, y in zip(outs[0][1], got[1]):
-            check(torch.equal(x, y), "B3 at the capture edges differs from B2 + B1")
-    print("  capture edges: B3 bit-equal to B2 + B1 (kernels and plain)")
-    b1_ms = cuda_ms(lambda: mk.track_block(*args), 20, busy=True)
-    b1_plain = cuda_ms(lambda: mk.track_block_plain(*args), 3)
-    b3_ms = cuda_ms(lambda: mk.track_block_fused(*fargs), 20, busy=True)
-    b3_plain = cuda_ms(lambda: mk.track_block_fused_plain(*fargs), 3)
+    want = mk.track_block_fused_plain(words, edge_w, *e_args)
+    for kn in sizes:
+        outs = [mk.track_block_fused(words, edge_w, *e_args, ctas_per_channel=kn),
+                mk.track_block(e_frames, 4 * edge_w, *e_args, ctas_per_channel=kn), want]
+        for got in outs[1:]:
+            for x, y in zip(outs[0][1], got[1]):
+                check(torch.equal(x, y), f"B3 kN={kn} at the capture edges differs from B2 + B1")
+    print(f"  capture edges: B3 bit-equal to B2 + B1 (kernels and plain) at kN in {sizes}")
+
+    # each size at the default threads per CTA, one CTA per channel at its own width
+    pairs = [(kn, s2.ONE_CTA_THREADS if kn == 1 else threads) for kn in sizes]
+    t_b1 = in_turns(lambda kt: mk.track_block(*args, ctas_per_channel=kt[0],
+                                              threads_per_cta=kt[1]), pairs)
+    t_b3 = in_turns(lambda kt: mk.track_block_fused(*fargs, ctas_per_channel=kt[0],
+                                                    threads_per_cta=kt[1]), pairs)
+    # every (cluster size, threads per CTA) whose clusters all fit at once
+    grid = [(kn, t) for t in THREAD_SWEEP for kn in fitting_sizes(dev, False, N_SATS, win, t)]
+    t_thr = in_turns(lambda kt: mk.track_block(*args, ctas_per_channel=kt[0],
+                                               threads_per_cta=kt[1]), grid)
+    us = lambda ts: [round(t * 1e3 / r, 4) for t in ts]   # noqa: E731
+    for kt in pairs:
+        print(f"  [{smi_line()}] kN={kt[0]:2d} x {kt[1]} threads: B1 {us(t_b1[kt])} us per ms, "
+              f"B3 {us(t_b3[kt])} us per ms (in turns: {pairs} then reversed; {r}-ms block, "
+              f"{N_SATS} ch)")
+    for kn, t in grid:
+        print(f"  [{smi_line()}] kN={kn:2d}, {t:3d} threads per CTA: B1 {us(t_thr[(kn, t)])} us "
+              "per ms")
+    best = min(grid, key=lambda kt: np.mean(t_thr[kt]))
+    print(f"  fastest B1 launch: {best[0]} CTAs per channel of {best[1]} threads; the default "
+          f"is {chosen} of {threads}")
+    one = (1, s2.ONE_CTA_THREADS)
+    b1_ms, b3_ms = float(np.mean(t_b1[(chosen, threads)])), float(np.mean(t_b3[(chosen, threads)]))
+    b1_plain_ms = cuda_ms(lambda: mk.track_block_plain(*args), 3)
+    b3_plain_ms = cuda_ms(lambda: mk.track_block_fused_plain(*fargs), 3)
     # the bounds: the samples this block correlates (active channels), the
     # frames (B1) or the capture span (B3) read once, tables and outputs
     samples = int((mk.track_block(*args)[0].ptr - st.ptr)[active].sum())
@@ -424,14 +554,24 @@ def phase_block_kernels(cfg, sig, sc, dev) -> tuple[dict, dict]:
     b1_bound = block_bound(samples, r * n_act * cfg.track_window + side)
     span_w = (r - 1) * (spc // 4) + cfg.track_window // 4
     b3_bound = block_bound(samples, 4 * union_len(start_w[active].tolist(), span_w, n_words) + side)
-    print(f"  block r={r} x {N_SATS} ch: B1 {b1_ms:.3f} ms (plain {b1_plain:.3f} ms, bound "
-          f"{b1_bound[0]:.4f} ms by {b1_bound[1]}), B3 {b3_ms:.3f} ms (plain: build + track "
-          f"{b3_plain:.3f} ms, bound {b3_bound[0]:.4f} ms by {b3_bound[1]}); {samples} samples")
-    rec_b1 = record("B1", "track_block", "track_block.cu", "softgnss_tpu/track/megakernel.py:254",
-                    worst_b1, b1_ms, b1_plain, b1_bound, None)
-    rec_b3 = record("B3", "track_block_fused", "track_block.cu",
-                    "softgnss_tpu/track/megakernel.py:749", worst_b3, b3_ms, b3_plain, b3_bound,
-                    None)
+    print(f"  block r={r} x {N_SATS} ch at kN={chosen}: B1 {b1_ms:.4f} ms (kN=1 "
+          f"{np.mean(t_b1[one]):.4f} ms; plain {b1_plain_ms:.3f} ms, bound {b1_bound[0]:.4f} ms "
+          f"by {b1_bound[1]}), B3 {b3_ms:.4f} ms (kN=1 {np.mean(t_b3[one]):.4f} ms; plain: build "
+          f"+ track {b3_plain_ms:.3f} ms, bound {b3_bound[0]:.4f} ms by {b3_bound[1]}); "
+          f"{samples} samples")
+    sweep = {"us_per_ms_by_kn": {f"{k}x{t}": us(v) for (k, t), v in t_b1.items()},
+             "us_per_ms_by_kn_threads": {f"{k}x{t}": us(v) for (k, t), v in t_thr.items()}}
+    rec_b1 = {**record("B1", "track_block", "track_block.cu",
+                       "softgnss_tpu/track/megakernel.py:254", worst_b1, b1_ms, b1_plain_ms,
+                       b1_bound, None),
+              "ctas_per_channel": chosen, "threads_per_cta": threads,
+              "ms_kn1": float(np.mean(t_b1[one])), **sweep}
+    rec_b3 = {**record("B3", "track_block_fused", "track_block.cu",
+                       "softgnss_tpu/track/megakernel.py:749", worst_b3, b3_ms, b3_plain_ms,
+                       b3_bound, None),
+              "ctas_per_channel": chosen, "threads_per_cta": threads,
+              "ms_kn1": float(np.mean(t_b3[one])),
+              "us_per_ms_by_kn": {f"{k}x{t}": us(v) for (k, t), v in t_b3.items()}}
     return rec_b1, rec_b3
 
 
@@ -526,7 +666,8 @@ def phase_probes(dev) -> list[dict]:
     extra = [
         {"us_per_launch": {n: {s: {k: us(v) for k, v in r1[n][s].items()} for s in s1.STAGES}
                            for n in r1}},
-        {"us_per_ms": {n: {s: us(r2[n][s], s2.R) for s in s2.STAGES} for n in r2}},
+        {"us_per_ms": {f"C={n}/kN={k[0]}x{k[1]}": {s: us(r2[n][k][s], s2.R) for s in s2.STAGES}
+                       for n in r2 for k in r2[n] if k != "plain"}},
         {"us_per_ms": {n: {v: {k: us(t, s3.R) for k, t in r3[n][v].items()} for v in s3.VARIANTS}
                        for n in r3}},
         {"us_per_ms": {f"{p}/{d}": {k: us(t, s4.R) for k, t in r4[(p, d)].items()}
@@ -536,7 +677,7 @@ def phase_probes(dev) -> list[dict]:
         ("S1", "correlate_ms_stage", "correlate_ms.cu", "scripts/pallas_ablate.py:49",
          r1[c]["full"]["device"], r1[c]["plain"], b_s1, None),
         ("S2", "track_block_stage", "track_block.cu", "scripts/mega_vmem_bisect.py:45",
-         r2[c]["full"], r2[c]["plain"], b_s2, None),
+         r2[c][s2.launch_sizes(dev, c)[1]]["full"], r2[c]["plain"], b_s2, None),
         ("S3", "build_frames_vec4", "build_frames.cu", "scripts/builder_time.py:60",
          r3[c]["vec4"]["warm"], r3[c]["plain"], b_s3, lib_s3),
         ("S4", "dma_probe", "dma_probe.cu", "scripts/dma_probe.py:34",
@@ -619,6 +760,7 @@ def phase_main(cfg, sig, sc, card: str):
     reset_launches()
     res = run_receiver(cfg, signal=sig, n_ms=MAIN_MS, navigate=True, device=sig.device)
     launches = read_launches()
+    launches["ctas_per_channel"] = cluster_size("main path", "track_block")
     res.peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(res.summary())
 
@@ -641,11 +783,69 @@ def phase_main(cfg, sig, sc, card: str):
     check_locked("main path", tr, 2000)
     fix = check_fix("main path", res, sc)
     want = {"build_frames": n_segments, "track_block": n_segments,
-            "track_block_fused": 0, "correlate_ms": 0}
+            "track_block_fused": 0, "correlate_ms": 0,
+            "ctas_per_channel": launches["ctas_per_channel"]}
     check(launches == want, f"kernel launches {launches}, expected {want}")
     print(f"  launches {launches} ({n_segments} segments)")
     report_times("main path (block tracker)", res, card)
     return res, launches, fix
+
+
+def device_spans(prof) -> list[tuple[float, float, str]]:
+    """(start us, end us, name) of every device event of a profile."""
+    return [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+            if str(e.device_type).endswith("CUDA")]
+
+
+def busy_us(spans) -> float:
+    """Device-busy microseconds: the union of the spans."""
+    total, end = 0.0, float("-inf")
+    for a, b, _ in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def phase_profile(cfg, sig, main, card: str) -> dict:
+    """One torch.profiler window over the main path's track stage
+    (scan.track over MAIN_MS ms of its channels, as pipeline.run_receiver
+    calls it): the card's idle share and each kernel's share of device
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from softgnss_tpu_torch.track.scan import track
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        track(cfg, sig, main.channels, n_ms=MAIN_MS)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = device_spans(prof)
+    if not spans:
+        print(f"  [{card}] the profiler recorded no device time: idle share not measured")
+        return {}
+    busy = busy_us(spans)
+    share = lambda key: sum(b - a for a, b, n in spans if key in n) / busy   # noqa: E731
+    out = {"wall_s": wall_us / 1e6, "busy_s": busy / 1e6, "idle_share": 1.0 - busy / wall_us,
+           "b1_share": share("track_block_kernel"), "b2_share": share("build_frames_kernel"),
+           "device_events": len(spans)}
+    out["idle_share_unprofiled"] = 1.0 - out["busy_s"] / main.timings_s["track"]
+    # inside the block loop: from the first B1 launch's start to the last one's end
+    b1 = [(a, b) for a, b, n in spans if "track_block_kernel" in n]
+    lo, hi = min(a for a, _ in b1), max(b for _, b in b1)
+    loop = [(max(a, lo), min(b, hi), n) for a, b, n in spans if b > lo and a < hi]
+    out["loop_s"] = (hi - lo) / 1e6
+    out["loop_idle_share"] = 1.0 - busy_us(loop) / (hi - lo)
+    print(f"  [{card}] track stage under the profiler: {out['wall_s']:.3f} s, device busy "
+          f"{out['busy_s']:.3f} s, idle share {out['idle_share']:.4f} (against the main path's "
+          f"unprofiled {main.timings_s['track']:.3f} s: {out['idle_share_unprofiled']:.4f}); of "
+          f"device time B1 {out['b1_share']:.4f}, B2 {out['b2_share']:.4f} ({len(spans)} device "
+          f"events); from the first B1 launch to the last: {out['loop_s']:.3f} s, idle share "
+          f"{out['loop_idle_share']:.4f}")
+    return out
 
 
 def phase_fused(cfg, sig, main, card: str) -> dict:
@@ -660,8 +860,9 @@ def phase_fused(cfg, sig, main, card: str) -> dict:
     res = run_receiver(cfg.with_options(mega_fused_frames=True), signal=sig, n_ms=MAIN_MS,
                        navigate=False, channels=main.channels, device=sig.device)
     launches = read_launches()
+    launches["ctas_per_channel"] = cluster_size("fused", "track_block_fused")
     want = {"build_frames": 0, "track_block": 0, "track_block_fused": n_segments,
-            "correlate_ms": 0}
+            "correlate_ms": 0, "ctas_per_channel": launches["ctas_per_channel"]}
     check(launches == want, f"fused: kernel launches {launches}, expected {want}")
     a, b = res.tracking, main.tracking
     for f in ("absolute_sample", "sample_frac", "code_freq", "carr_freq", "i_p", "i_e", "i_l",
@@ -730,9 +931,10 @@ def phase_stream(cfg, host, main, dev, card: str) -> dict:
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
     launches = read_launches()
+    launches["ctas_per_channel"] = cluster_size("stream", "track_block")
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     want = {"build_frames": n_segments, "track_block": n_segments, "track_block_fused": 0,
-            "correlate_ms": 0}
+            "correlate_ms": 0, "ctas_per_channel": launches["ctas_per_channel"]}
     check(launches == want, f"stream: kernel launches {launches}, expected {want}")
     ref = main.tracking
     for f in ("absolute_sample", "sample_frac", "code_freq", "carr_freq", "i_p", "i_e", "i_l",
@@ -796,6 +998,7 @@ def phase_cli(card: str) -> dict:
         rc = cli.main(argv)
     wall_s = time.perf_counter() - t0
     launches = read_launches()
+    launches["ctas_per_channel"] = cluster_size("cli", "track_block")
     out = buf.getvalue()
     print("\n".join("  | " + ln for ln in out.splitlines() if ln.strip()))
     m = re.search(r"3D error vs injected truth: mean ([0-9.]+) m", out)
@@ -872,16 +1075,12 @@ def main(argv=None) -> int:
         print(card)
     with phase("build"):
         from softgnss_tpu_torch import native
-        from softgnss_tpu_torch.scripts.pallas_probe import resources
 
         lib = mk.load_library()
         print(f"  nvcc build {lib.build_s:.2f} s -> {lib.path}")
         for line in lib.log.splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  " + line.strip())
-        b1 = next(v for k, v in resources(lib.log).items() if "track_block_kernelILb0ELi3E" in k)
-        print(f"  B1 track_block_kernel<false, 3>: {b1['registers']} registers, {b1['smem']} B "
-              f"shared, {b1['spill_stores']} B spilled")
         print(f"  native IO library (packed formats, probe statistics): "
               f"{'used' if native.used() else 'not built: io takes its NumPy versions'}")
     with phase("nco"):
@@ -897,13 +1096,15 @@ def main(argv=None) -> int:
         print(f"  {CAPTURE_MS} ms, {sig.numel() / 1e9:.3f} GB int8 on {name}; PRNs "
               f"{sc.prns}, C/N0 {SCENARIO_CN0_DBHZ} dB-Hz")
     with phase("B1 and B3 vs plain"):
-        rec_b1, rec_b3 = phase_block_kernels(cfg, sig, sc, dev)
+        rec_b1, rec_b3 = phase_block_kernels(cfg, sig, sc, dev, lib.log)
     with phase("B4 vs plain"):
         rec_b4 = phase_b4(cfg, sig, sc, dev)
     with phase("probes"):
         rec_probes = phase_probes(dev)
     with phase("main path"):
         main_res, launches, _ = phase_main(cfg, sig, sc, card)
+    with phase("profile"):
+        phase_profile(cfg, sig, main_res, card)
     with phase("fused"):
         fused_launches = phase_fused(cfg, sig, main_res, card)
     with phase("per-ms"):

@@ -215,7 +215,7 @@ int launch(const void* cap, long long n_cap, const void* ptr, const void* carr_p
 
 // cap: (n_cap,) int8 capture; ptr, rem, step, blk: (n_ch,) int64;
 // carr_phase, carr_w: (n_ch,) int32; code_pads: (n_ch, 1025) float32;
-// active: (n_ch,) uint8; partial: (n_ch, n_cta, 6) float64 scratch;
+// active: (n_ch,) bool, one byte of 0 or 1; partial: (n_ch, n_cta, 6) float64 scratch;
 // out: (n_ch, 6) float32.  Two launches on ``stream``.
 extern "C" int sg_correlate_ms(const void* cap, long long n_cap, const void* ptr,
                                const void* carr_phase, const void* carr_w,

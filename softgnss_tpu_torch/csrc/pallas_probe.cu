@@ -1,5 +1,6 @@
 // S5, the construct probes: six small kernels, each a Hopper construct that
-// the receiver's kernels use or that the cluster-per-channel B1 would use.
+// the receiver's kernels use or could use (B1 and B3 run each channel on a
+// thread-block cluster, as ``acc`` does).
 //
 // Replaces scripts/pallas_probe.py, which checked that Mosaic lowers six
 // constructs on the TPU: a gridded kernel (_k_grid via gridded), a sum
@@ -18,8 +19,8 @@
 //            partials through distributed shared memory (DSMEM) in rank
 //            order and writes o, and a second cluster.sync() keeps the
 //            peers resident while it reads.  ``reps`` repeats that step:
-//            its cost per rep is what the cluster-per-channel B1 pays per
-//            ms for its reduce and barrier;
+//            its cost per rep bounds what B1's cluster pays per ms for
+//            its reduce and barrier (B1 needs one barrier, not two);
 //   conv   — __int2float_rn, elementwise;
 //   onehot — o[c, k] = sum_w [h[c, w] == k] * b[c, w], one CTA per row c:
 //            h and b copied to shared memory, thread k owns bin k and walks

@@ -1,5 +1,6 @@
 // B1, the block tracker: r milliseconds of DLL/PLL tracking for all
-// channels in one launch, the loop state carried inside the kernel.
+// channels in one launch, the loop state carried inside the kernel, one
+// thread-block cluster of kN CTAs per channel.
 //
 // Replaces: softgnss_tpu/track/megakernel.py::_kernel (fused=False,
 // launched by megakernel._mega_call) together with mega_track_segment and
@@ -17,45 +18,68 @@
 // atan, row packing and lane tables are Mosaic workarounds: CUDA has
 // native int64 and float64, and a shared-memory gather is cheap here.
 //
-// What bounds it on the H100: the millisecond recurrence is sequential,
-// and one ms of one channel is only ~38k samples (~60 integer/float ops
-// each, int64 multiply included).  With one CTA per channel the kernel is
-// latency-bound: C = 8 CTAs use 8 of 132 SMs, and each ms ends in a CTA
-// reduction and a single-thread float64 filter step (atan, sqrt, divides).
+// What bounds it on the H100: the serial per-ms step.  The millisecond
+// recurrence is sequential (each ms's NCO rates come from the last ms's
+// filters), and one ms of one channel is only ~38k samples (~90 ops
+// each).  Spread over a cluster the sample loop shrinks as 1/kN; what
+// stays is the step every ms pays in series: the CTA reduction, one
+// cluster barrier, the DSMEM read of the partials and the single-thread
+// float64 filters (atan, sqrt, divides).
 //
-// Design (simple and right first): one CTA of 512 threads per channel
-// loops over the block's ms; the 1025-entry code table lives in shared
-// memory; samples are thread-strided (coalesced byte loads); the six sums
-// accumulate in float64 and reduce by warp shuffles and a shared-memory
-// pass, then round once to float32;
-// thread 0 keeps the loop state in registers and runs the float64
-// filters.  Two barriers per ms.  Spreading one channel over a
-// thread-block cluster is later work (ROADMAP).
+// Design.  Channel c is the cluster of CTAs c*kN .. c*kN + kN-1 (a 1-D
+// grid of C*kN CTAs, cluster dimension kN, launched by cudaLaunchKernelEx);
+// the cluster stays resident for the whole block of ms.
+//   * Work split by window index: rank q owns the window bytes
+//     [q*chunk, (q+1)*chunk) clipped to [0, win) (``chunk`` = win/kN rounded
+//     up to 16 bytes, megakernel.rank_chunk), masked to the ms's true span
+//     [o, o+blk) and, for B3, to the capture.  Sample idx of the window is
+//     k = idx - o of the ms, so the NCO counts are those of the one-CTA loop.
+//   * A rank's bytes do not depend on o or blk, so it stages them ahead: one
+//     TMA bulk copy (cp.async.bulk, completion on an mbarrier) per ms into a
+//     double buffer in shared memory, ms j+2 issued while ms j+1 is in flight
+//     and ms j is summed.
+//   * Reduction in a fixed order: float64 per thread, warp shuffles, then
+//     lane f < 6 of warp 0 sums f over the CTA's warps in order into this
+//     rank's 6-double partial, kept in the slot of the ms's parity; ONE
+//     cluster barrier per ms; then lane f reads the kN partials through DSMEM
+//     (map_shared_rank) in rank order 0..kN-1, and each sum is rounded once
+//     to float32.
+//   * Every rank's thread 0 runs the float64 filters itself: the ranks have
+//     the same inputs and code (built with -fmad=false), so they carry the
+//     same loop state and nothing is broadcast.  The parity slots keep a
+//     fast rank from overwriting partials a slow rank still reads: no rank
+//     passes ms j+1's barrier before every rank has read ms j's partials.
+//     Only rank 0 writes the per-ms outputs and the final state; one last
+//     cluster barrier keeps shared memory alive while peers read it.
+//   * Inactive channels: the whole cluster takes the early exit (rank 0
+//     writes the frozen state and the zeros); no rank waits at a barrier
+//     the others skipped.
+// kN = 1 is the one-CTA design of the first port: no cluster, each thread
+// loads its bytes straight from global memory (B3 prefetching the next
+// window into L2), two CTA barriers per ms.  Threads per CTA are a launch
+// argument (up to 512); the code table lives in shared memory.
 //
 // B3, the fused block tracker, is the same kernel reading each ms window
-// straight from the capture (track_block_kernel<true>): it replaces
+// straight from the capture (track_block_kernel<true, ...>): it replaces
 // megakernel.py::_kernel(fused=True) (launched by _mega_call_fused), which
 // runs B2's slab-DMA prologue inside B1 so that no HBM frames array exists.
 // Here frame (j, c) is simply the capture's int32 words from
 // starts_w[c] + j*spc/4 on, zero outside the capture as build_frames.cu
-// fills them, so B3 is bit-equal to B2 followed by B1 and saves the frames
-// array's write and read (~39 MB per 64-ms block at the reference front
-// end).  Global loads are byte-addressable, so no slab or roll is needed;
-// each ms prefetches the next ms's window into L2, the staging that B2's
-// frames array gives B1.
+// fills them, so B3 is bit-equal to B2 followed by B1 at the same kN (same
+// loop order, the same zeros) and saves the frames array's write and read
+// (~39 MB per 64-ms block at the reference front end).
 //
 // Stage ablation (the counterpart of scripts/mega_vmem_bisect.py's
 // ``kern``, which built B1 stage by stage on the TPU): ``kStage`` strips
 // the sample loop at compile time.  kFilters runs no sample loop (the
-// per-ms blk/o step, both barriers, the thread-0 filter step and the
-// output writes); kLoad adds the sample loads, summed into i_p; kCarrier
-// adds the carrier NCO and both sin_turns, I/Q sums into i_p and q_p;
-// kFull is B1.  Every stage writes what it computed, and every stage but
-// kFull runs open loop: the filters run and are written out, but the
-// state keeps its block-input carr_freq and code_freq, so each stage
-// reads the windows kFull reads and garbage sums steer nothing.  The main
-// path launches the kFull instantiation itself (sg_track_block), and
-// sg_track_block_stage(kFull) launches that same instantiation.
+// per-ms blk/o step, the barriers, the filter step and the output
+// writes); kLoad adds the staging and the sample loads, summed into i_p;
+// kCarrier adds the carrier NCO and both sin_turns, I/Q sums into i_p and
+// q_p; kFull is B1.  Every stage but kFull runs open loop: the filters run
+// and are written out, but the state keeps its block-input carr_freq and
+// code_freq, so each stage reads the windows kFull reads and garbage sums
+// steer nothing.  sg_track_block_stage(kFull, kN) launches the very
+// instantiation sg_track_block(kN) launches.
 //
 // Numerics: build with -fmad=false so every float operation rounds as the
 // plain PyTorch version's does (no contraction); the sine coefficients are
@@ -65,14 +89,17 @@
 // last bit except where a float64 sum lies within ~1e-16 of a float32
 // rounding boundary (scan._correlate_gather).
 
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+constexpr int kMaxThreads = 512;
+constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kPad = 1025;
 constexpr long long kCodeOne = 1LL << 40;
 constexpr double kTwoPi = 6.283185307179586;
@@ -103,6 +130,8 @@ struct Params {
   int win;           // samples per frame (4 * words)
   int r;
   int n_ch;
+  int chunk;         // window bytes per rank, a multiple of 16
+  int slot;          // bytes of one staging buffer: chunk + 16
 };
 
 __device__ __forceinline__ float sin_turns(float x) {
@@ -128,6 +157,65 @@ __device__ __forceinline__ long long floor_div(long long a, long long b) {
   return q;
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void wait_bar(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// One rank's bytes of one ms window: the window samples [lo, hi) that lie
+// in the source (the rank's slice, clipped for B3 to the capture), read as
+// the 16-byte aligned span [base, base + bytes) of global memory.  Every
+// 16-byte line of the span holds a source byte, so the span stays inside
+// the source's allocation.  Sample idx sits at staged byte idx + off.
+struct Span {
+  const int8_t* base;
+  int bytes;
+  int off;
+};
+
+__device__ __forceinline__ Span span_of(const int8_t* win8, int lo, int hi) {
+  Span s;
+  if (hi <= lo) {
+    s.base = win8;
+    s.bytes = 0;
+    s.off = 0;
+    return s;
+  }
+  const uintptr_t a = reinterpret_cast<uintptr_t>(win8 + lo);
+  const uintptr_t b = (a & ~static_cast<uintptr_t>(15));
+  const uintptr_t e = (reinterpret_cast<uintptr_t>(win8 + hi) + 15) & ~static_cast<uintptr_t>(15);
+  s.base = reinterpret_cast<const int8_t*>(b);
+  s.bytes = static_cast<int>(e - b);
+  s.off = static_cast<int>(a - b) - lo;
+  return s;
+}
+
+// thread 0: stage ``s`` into ``buf``, completion counted on ``bar`` (an
+// empty span only arrives, so the phase still completes)
+__device__ __forceinline__ void start_bulk(const Span& s, unsigned char* buf, uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // after the reads of the last use
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(s.bytes)
+               : "memory");
+  if (s.bytes > 0)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];"
+        ::"r"(smem_addr(buf)), "l"(s.base), "r"(s.bytes), "r"(smem_addr(bar))
+        : "memory");
+}
+
 // State layouts (stride n_ch):
 //   si  int64 [4]: ptr, code_rem_q, ms, carr_phase (int32 value)
 //   sf  f64   [6]: carr_freq, code_freq, carr_nco, carr_err, code_nco, code_err
@@ -138,8 +226,9 @@ __device__ __forceinline__ long long floor_div(long long a, long long b) {
 // kFused = false: ``src`` is the (r, n_ch, win/4) frames array of
 // build_frames.cu.  kFused = true: ``src`` is the capture's (n_words,) int32
 // word view and frame (j, c) starts at word starts_w[c] + j*spc/4.
-template <bool kFused, int kStage>
-__global__ void __launch_bounds__(kThreads)
+// ``active`` is a (n_ch,) bool tensor: one byte of 0 or 1 per channel.
+template <bool kFused, int kStage, int kN>
+__global__ void __launch_bounds__(kMaxThreads)
 track_block_kernel(const int32_t* __restrict__ src, long long n_words,
                    const long long* __restrict__ starts_w,
                    const long long* __restrict__ fb0,
@@ -155,19 +244,23 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
                    long long* __restrict__ abs_sample,
                    double* __restrict__ of64, float* __restrict__ of32,
                    long long* __restrict__ ovf, const Params p) {
-  const int c = blockIdx.x;
+  constexpr bool kStaged = kN > 1 && kStage >= kLoad;
+  const int c = blockIdx.x / kN;
+  const int rank = static_cast<int>(blockIdx.x % kN);  // the 1-D cluster's block rank
   const int n_ch = p.n_ch;
   const int tid = threadIdx.x;
+  const int n_thr = blockDim.x;
   const long long plane = static_cast<long long>(p.r) * n_ch;
 
-  if (!active[c]) {  // frozen state, zero outputs, frames never read
+  if (!active[c]) {  // the whole cluster: frozen state, zero outputs, frames never read
+    if (rank != 0) return;
     if (tid == 0) {
       for (int f = 0; f < 4; ++f) si_out[f * n_ch + c] = si_in[f * n_ch + c];
       for (int f = 0; f < 6; ++f) sf_out[f * n_ch + c] = sf_in[f * n_ch + c];
       for (int f = 0; f < 8; ++f) sa_out[f * n_ch + c] = sa_in[f * n_ch + c];
       ovf[c] = 0;
     }
-    for (int j = tid; j < p.r; j += kThreads) {
+    for (int j = tid; j < p.r; j += n_thr) {
       const long long o = static_cast<long long>(j) * n_ch + c;
       abs_sample[o] = 0;
       for (int f = 0; f < 7; ++f) of64[f * plane + o] = 0.0;
@@ -176,13 +269,52 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
     return;
   }
 
+  extern __shared__ __align__(128) unsigned char stage[];  // kStaged: two slots of p.slot bytes
   __shared__ float pad[kPad];
-  __shared__ double red[6][kWarps];
+  __shared__ double red[6][kMaxWarps];
+  __shared__ double part[2][6];  // this rank's partial of ms j, in slot j & 1
+  __shared__ double tot[6];      // the six sums of ms j, before rounding
+  __shared__ __align__(8) uint64_t bars[2];
   __shared__ long long s_rem, s_step;
   __shared__ unsigned int s_cp, s_w;
   __shared__ int s_o, s_blk;
 
-  for (int i = tid; i < kPad; i += kThreads) pad[i] = code_pads[c * kPad + i];
+  for (int i = tid; i < kPad; i += n_thr) pad[i] = code_pads[c * kPad + i];
+
+  const int win_w = p.win / 4;
+  const int8_t* src8 = reinterpret_cast<const int8_t*>(src);
+  // first word of window j, and its samples [lo, hi) that lie inside the
+  // source: all of it for B1; for B3 the part inside the capture (the rest
+  // reads as zero, as build_frames.cu fills it)
+  auto window_word = [&](int j) -> long long {
+    return kFused ? starts_w[c] + static_cast<long long>(j) * (p.spc / 4)
+                  : (static_cast<long long>(j) * n_ch + c) * win_w;
+  };
+  auto src_lo = [&](long long w0) -> int {
+    return kFused ? static_cast<int>(min(max(-4 * w0, 0LL), static_cast<long long>(p.win))) : 0;
+  };
+  auto src_hi = [&](long long w0, int lo) -> int {
+    return kFused ? static_cast<int>(max(min(4 * (n_words - w0), static_cast<long long>(p.win)),
+                                         static_cast<long long>(lo)))
+                  : p.win;
+  };
+  // this rank's slice of every window
+  const int lo_r = min(rank * p.chunk, p.win);
+  const int hi_r = min(lo_r + p.chunk, p.win);
+  auto span_at = [&](int j) -> Span {
+    const long long w0 = window_word(j);
+    const int lo = src_lo(w0);
+    return span_of(src8 + 4 * w0, max(lo_r, lo), min(hi_r, src_hi(w0, lo)));
+  };
+
+  if constexpr (kStaged) {
+    if (tid == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bars)) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bars + 1)) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      for (int j = 0; j < 2 && j < p.r; ++j) start_bulk(span_at(j), stage + j * p.slot, bars + j);
+    }
+  }
 
   // loop state, live in thread 0 only
   long long ptr = 0, rem = 0, ms = 0, bad_max = 0;
@@ -207,9 +339,9 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
     fll_qp = sa_in[7 * n_ch + c];
   }
 
-  const int win_w = p.win / 4;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  const int n_warps = n_thr >> 5;
   for (int j = 0; j < p.r; ++j) {
     if (tid == 0) {
       const long long step = __double2ll_rn(code_freq / p.fs * 1099511627776.0);
@@ -229,34 +361,38 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
     const long long rem_j = s_rem, step = s_step;
     const unsigned int cp_j = s_cp, w = s_w;
     const int o = s_o, blk = s_blk;
-    const long long w0 = kFused ? starts_w[c] + static_cast<long long>(j) * (p.spc / 4)
-                                : (static_cast<long long>(j) * n_ch + c) * win_w;
-    const int8_t* src8 = reinterpret_cast<const int8_t*>(src);
-    if (kFused && j + 1 < p.r) {
+    const long long w0 = window_word(j);
+    if (kFused && kN == 1 && j + 1 < p.r) {
       // bring the next ms's window into L2 while this one is summed: its
-      // ~300 lines of 128 B, one per thread (B1 reads frames that B2 has
-      // just written, so its windows are in L2 already)
-      const long long line = 4 * (w0 + p.spc / 4) + 128LL * tid;
-      if (128 * tid < p.win && line >= 0 && line < 4 * n_words)
-        asm volatile("prefetch.global.L2 [%0];" ::"l"(src8 + line));
+      // ~300 lines of 128 B, strided over the threads (B1 reads frames
+      // that B2 has just written, so its windows are in L2 already)
+      for (int t = tid; 128 * t < p.win; t += n_thr) {
+        const long long line = 4 * (w0 + p.spc / 4) + 128LL * t;
+        if (line >= 0 && line < 4 * n_words)
+          asm volatile("prefetch.global.L2 [%0];" ::"l"(src8 + line));
+      }
     }
-    // frame samples [lo, hi) lie inside the source: all of the frame for
-    // B1; for B3 the part inside the capture (the rest reads as zero, as
-    // build_frames.cu fills it), computed once per ms
-    long long lo = 0, hi = p.win;
-    if (kFused) {
-      lo = min(max(-4 * w0, 0LL), static_cast<long long>(p.win));
-      hi = max(min(4 * (n_words - w0), static_cast<long long>(p.win)), lo);
-    }
-    const int lo_i = static_cast<int>(lo), hi_i = static_cast<int>(hi);
+    const int lo_c = src_lo(w0), hi_c = src_hi(w0, lo_c);
 
     double ie = 0.0, ip = 0.0, il = 0.0, qe = 0.0, qp = 0.0, ql = 0.0;
     if constexpr (kStage >= kLoad) {
-      for (int k = tid; k < blk; k += kThreads) {
-        const int idx = o + k;
-        if (idx < 0 || idx >= p.win) continue;  // overflow: flagged, raised by the wrapper
-        const float x = (idx >= lo_i && idx < hi_i)
-                            ? static_cast<float>(src8[4 * w0 + idx]) : 0.0f;
+      // this rank's samples of the ms: window indices [beg, end); outside
+      // [0, win) is an overflow, flagged and raised by the wrapper
+      const int beg = max(lo_r, o);
+      const int end = min(hi_r, o + blk);
+      // window sample idx is from[idx + shift]: the source itself, or this
+      // rank's staged copy once its copy has landed
+      const int8_t* from = src8;
+      long long shift = 4 * w0;
+      if constexpr (kStaged) {
+        wait_bar(bars + (j & 1), static_cast<uint32_t>((j >> 1) & 1));
+        from = reinterpret_cast<const int8_t*>(stage + (j & 1) * p.slot);
+        shift = span_at(j).off;
+      }
+      for (int idx = beg + tid; idx < end; idx += n_thr) {
+        const int k = idx - o;
+        const float x =
+            (idx >= lo_c && idx < hi_c) ? static_cast<float>(from[idx + shift]) : 0.0f;
         if constexpr (kStage == kLoad) {
           ip += static_cast<double>(x);
         } else {
@@ -302,13 +438,35 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
     }
     __syncthreads();
 
+    // lane f < 6 of warp 0: sum f of this CTA's warps in order; in a
+    // cluster that is this rank's partial, and after the barrier lane f
+    // sums the kN ranks' partials in rank order
+    if (tid < 6) {
+      double v = 0.0;
+#pragma unroll
+      for (int i = 0; i < kMaxWarps; ++i)
+        if (i < n_warps) v += red[tid][i];
+      if constexpr (kN > 1) part[j & 1][tid] = v;
+      else tot[tid] = v;
+    }
+    if constexpr (kStaged) {  // every thread has read slot j & 1: refill it with ms j + 2
+      if (tid == 0 && j + 2 < p.r) start_bulk(span_at(j + 2), stage + (j & 1) * p.slot, bars + (j & 1));
+    }
+    if constexpr (kN > 1) {
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();  // every rank's partial of ms j is written
+      if (tid < 6) {
+        double v = 0.0;
+#pragma unroll
+        for (int q = 0; q < kN; ++q) v += *cluster.map_shared_rank(&part[j & 1][tid], q);
+        tot[tid] = v;
+      }
+    }
+    __syncwarp();
+
     if (tid == 0) {
       float s[6];
-      for (int f = 0; f < 6; ++f) {
-        double t = 0.0;
-        for (int i = 0; i < kWarps; ++i) t += red[f][i];
-        s[f] = static_cast<float>(t);
-      }
+      for (int f = 0; f < 6; ++f) s[f] = static_cast<float>(tot[f]);
       // s = (i_e, i_p, i_l, q_e, q_p, q_l)
       float a[6];
       bool upd = true;
@@ -375,25 +533,27 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
       code_nco = dnco;
       code_err = derr;
 
-      const long long o_idx = static_cast<long long>(j) * n_ch + c;
-      abs_sample[o_idx] = ptr;
-      of64[o_idx] = static_cast<double>(rem) / static_cast<double>(step);
-      of64[plane + o_idx] = dfreq;
-      of64[2 * plane + o_idx] = cfreq;
-      of64[3 * plane + o_idx] = derr;
-      of64[4 * plane + o_idx] = dnco;
-      of64[5 * plane + o_idx] = cerr;
-      of64[6 * plane + o_idx] = cnco;
-      of32[o_idx] = s[1];
-      of32[plane + o_idx] = s[0];
-      of32[2 * plane + o_idx] = s[2];
-      of32[3 * plane + o_idx] = s[3];
-      of32[4 * plane + o_idx] = s[4];
-      of32[5 * plane + o_idx] = s[5];
+      if (rank == 0) {
+        const long long o_idx = static_cast<long long>(j) * n_ch + c;
+        abs_sample[o_idx] = ptr;
+        of64[o_idx] = static_cast<double>(rem) / static_cast<double>(step);
+        of64[plane + o_idx] = dfreq;
+        of64[2 * plane + o_idx] = cfreq;
+        of64[3 * plane + o_idx] = derr;
+        of64[4 * plane + o_idx] = dnco;
+        of64[5 * plane + o_idx] = cerr;
+        of64[6 * plane + o_idx] = cnco;
+        of32[o_idx] = s[1];
+        of32[plane + o_idx] = s[0];
+        of32[2 * plane + o_idx] = s[2];
+        of32[3 * plane + o_idx] = s[3];
+        of32[4 * plane + o_idx] = s[4];
+        of32[5 * plane + o_idx] = s[5];
+      }
     }
   }
 
-  if (tid == 0) {
+  if (tid == 0 && rank == 0) {
     si_out[c] = ptr;
     si_out[n_ch + c] = rem;
     si_out[2 * n_ch + c] = ms;
@@ -409,15 +569,13 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
     sa_out[7 * n_ch + c] = fll_qp;
     ovf[c] = bad_max > 0 ? bad_max : 0;
   }
+  if constexpr (kN > 1) cg::this_cluster().sync();  // peers may still read this rank's partials
 }
-
-}  // namespace
-
-namespace {
 
 // hf: fs, code_freq_basis, intermediate_freq, pll_a, pll_b, dll_a, dll_b,
 //     fll_gain, fll_div, aid_ratio (host array)
-// hi: code_len_q, half_q, pdi_ms, fll_on, aided, spc, win, r, n_ch (host array)
+// hi: code_len_q, half_q, pdi_ms, fll_on, aided, spc, win, r, n_ch, chunk
+//     (host array)
 Params make_params(const double* hf, const long long* hi) {
   Params p;
   p.fs = hf[0];
@@ -439,18 +597,59 @@ Params make_params(const double* hf, const long long* hi) {
   p.win = static_cast<int>(hi[6]);
   p.r = static_cast<int>(hi[7]);
   p.n_ch = static_cast<int>(hi[8]);
+  p.chunk = static_cast<int>(hi[9]);
+  p.slot = p.chunk + 16;
   return p;
 }
 
-template <bool kFused, int kStage>
+// The launch configuration of one instantiation: C*kN CTAs of ``threads``,
+// clusters of kN (none for kN = 1), the staging buffers as dynamic shared
+// memory; sets the kernel attributes the configuration needs.
+template <bool kFused, int kStage, int kN>
+cudaError_t configure(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int n_ch, int threads,
+                      int slot, cudaStream_t stream) {
+  auto kernel = track_block_kernel<kFused, kStage, kN>;
+  if (threads < 32 || threads > kMaxThreads || threads % 32) return cudaErrorInvalidValue;
+  const int smem = (kN > 1 && kStage >= kLoad) ? 2 * slot : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  if (kN > 8) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(static_cast<unsigned>(n_ch * kN));
+  cfg->blockDim = dim3(static_cast<unsigned>(threads));
+  cfg->dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kN;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = kN > 1 ? 1 : 0;
+  return cudaSuccess;
+}
+
+template <bool kFused, int kStage, int kN>
 int launch(const void* src, long long n_words, const void* starts_w, const void* fb0,
            const void* code_pads, const void* carr_basis, const void* active,
            const void* si_in, const void* sf_in, const void* sa_in, void* si_out,
            void* sf_out, void* sa_out, void* abs_sample, void* of64, void* of32,
-           void* ovf, const double* hf, const long long* hi, void* stream) {
+           void* ovf, int threads, const double* hf, const long long* hi, void* stream) {
   const Params p = make_params(hf, hi);
   if (p.r <= 0 || p.n_ch <= 0) return 0;
-  track_block_kernel<kFused, kStage><<<p.n_ch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure<kFused, kStage, kN>(&cfg, &attr, p.n_ch, threads, p.slot,
+                                                  static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaLaunchKernelEx(
+      &cfg, track_block_kernel<kFused, kStage, kN>,
       static_cast<const int32_t*>(src), n_words, static_cast<const long long*>(starts_w),
       static_cast<const long long*>(fb0), static_cast<const float*>(code_pads),
       static_cast<const double*>(carr_basis), static_cast<const uint8_t*>(active),
@@ -459,23 +658,47 @@ int launch(const void* src, long long n_words, const void* starts_w, const void*
       static_cast<double*>(sf_out), static_cast<float*>(sa_out),
       static_cast<long long*>(abs_sample), static_cast<double*>(of64),
       static_cast<float*>(of32), static_cast<long long*>(ovf), p);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kFused, int kStage, int kN>
+int max_clusters(int n_ch, int threads, int chunk, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = configure<kFused, kStage, kN>(&cfg, &attr, n_ch, threads, chunk + 16, nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cfg.numAttrs = 1;  // kN = 1 counts resident CTAs as clusters of one
+  err = cudaOccupancyMaxActiveClusters(out, track_block_kernel<kFused, kStage, kN>, &cfg);
+  return static_cast<int>(err);
+}
+
+// kN from its runtime value: 1, 2, 4, 8 or 16
+#define SG_BY_KN(KN, CALL)                                   \
+  switch (KN) {                                              \
+    case 1: { constexpr int kN = 1; return CALL; }           \
+    case 2: { constexpr int kN = 2; return CALL; }           \
+    case 4: { constexpr int kN = 4; return CALL; }           \
+    case 8: { constexpr int kN = 8; return CALL; }           \
+    case 16: { constexpr int kN = 16; return CALL; }         \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
 }  // namespace
 
-// B1 over the frames of build_frames.cu
+// B1 over the frames of build_frames.cu, ``kn`` CTAs per channel of
+// ``threads`` threads each
 extern "C" int sg_track_block(const void* frames, const void* fb0,
                               const void* code_pads, const void* carr_basis,
                               const void* active, const void* si_in,
                               const void* sf_in, const void* sa_in,
                               void* si_out, void* sf_out, void* sa_out,
                               void* abs_sample, void* of64, void* of32,
-                              void* ovf, const double* hf, const long long* hi,
-                              void* stream) {
-  return launch<false, kFull>(frames, 0, nullptr, fb0, code_pads, carr_basis, active, si_in,
-                       sf_in, sa_in, si_out, sf_out, sa_out, abs_sample, of64, of32,
-                       ovf, hf, hi, stream);
+                              void* ovf, int kn, int threads, const double* hf,
+                              const long long* hi, void* stream) {
+  SG_BY_KN(kn, (launch<false, kFull, kN>(frames, 0, nullptr, fb0, code_pads, carr_basis, active,
+                                         si_in, sf_in, sa_in, si_out, sf_out, sa_out, abs_sample,
+                                         of64, of32, ovf, threads, hf, hi, stream)))
 }
 
 // B3: B1 reading the capture's (n_words,) int32 word view directly
@@ -486,33 +709,46 @@ extern "C" int sg_track_block_fused(const void* cap_words, long long n_words,
                                     const void* sf_in, const void* sa_in,
                                     void* si_out, void* sf_out, void* sa_out,
                                     void* abs_sample, void* of64, void* of32,
-                                    void* ovf, const double* hf, const long long* hi,
-                                    void* stream) {
-  return launch<true, kFull>(cap_words, n_words, starts_w, fb0, code_pads, carr_basis, active,
-                      si_in, sf_in, sa_in, si_out, sf_out, sa_out, abs_sample, of64,
-                      of32, ovf, hf, hi, stream);
+                                    void* ovf, int kn, int threads, const double* hf,
+                                    const long long* hi, void* stream) {
+  SG_BY_KN(kn, (launch<true, kFull, kN>(cap_words, n_words, starts_w, fb0, code_pads, carr_basis,
+                                        active, si_in, sf_in, sa_in, si_out, sf_out, sa_out,
+                                        abs_sample, of64, of32, ovf, threads, hf, hi, stream)))
 }
 
 // B1 stripped to ``stage`` (0 kFilters, 1 kLoad, 2 kCarrier, 3 kFull: the
-// very instantiation sg_track_block launches); arguments as sg_track_block
+// very instantiation sg_track_block launches at the same kn); arguments as
+// sg_track_block
 extern "C" int sg_track_block_stage(int stage, const void* frames, const void* fb0,
                                     const void* code_pads, const void* carr_basis,
                                     const void* active, const void* si_in,
                                     const void* sf_in, const void* sa_in,
                                     void* si_out, void* sf_out, void* sa_out,
                                     void* abs_sample, void* of64, void* of32,
-                                    void* ovf, const double* hf, const long long* hi,
-                                    void* stream) {
-#define SG_STAGE(S)                                                                   \
-  launch<false, S>(frames, 0, nullptr, fb0, code_pads, carr_basis, active, si_in,    \
-                   sf_in, sa_in, si_out, sf_out, sa_out, abs_sample, of64, of32, ovf, \
-                   hf, hi, stream)
+                                    void* ovf, int kn, int threads, const double* hf,
+                                    const long long* hi, void* stream) {
+#define SG_STAGE(S)                                                                           \
+  SG_BY_KN(kn, (launch<false, S, kN>(frames, 0, nullptr, fb0, code_pads, carr_basis, active, \
+                                     si_in, sf_in, sa_in, si_out, sf_out, sa_out, abs_sample, \
+                                     of64, of32, ovf, threads, hf, hi, stream)))
   switch (stage) {
-    case kFilters: return SG_STAGE(kFilters);
-    case kLoad: return SG_STAGE(kLoad);
-    case kCarrier: return SG_STAGE(kCarrier);
-    case kFull: return SG_STAGE(kFull);
+    case kFilters: SG_STAGE(kFilters)
+    case kLoad: SG_STAGE(kLoad)
+    case kCarrier: SG_STAGE(kCarrier)
+    case kFull: SG_STAGE(kFull)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SG_STAGE
+}
+
+// How many clusters of ``kn`` CTAs of B1 (fused = 0) or B3 (fused = 1) the
+// card can hold at once, into *out (cudaOccupancyMaxActiveClusters; for
+// kn = 1 the resident CTAs): the wrapper launches a size only where all
+// n_ch clusters fit.  ``chunk``: window bytes per rank (sizes the staging).
+extern "C" int sg_track_block_max_clusters(int fused, int kn, int threads, int chunk,
+                                           int n_ch, int* out) {
+  if (fused) {
+    SG_BY_KN(kn, (max_clusters<true, kFull, kN>(n_ch, threads, chunk, out)))
+  }
+  SG_BY_KN(kn, (max_clusters<false, kFull, kN>(n_ch, threads, chunk, out)))
 }

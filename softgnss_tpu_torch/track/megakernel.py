@@ -6,7 +6,12 @@ For each ``track_block_ms`` block, ``scan.track`` gathers every channel's
 per-ms sample windows with :func:`build_frames` and then runs the block's
 milliseconds of DLL/PLL tracking, loop filters included, in one
 :func:`track_block` launch; with ``config.mega_fused_frames`` one
-:func:`track_block_fused` launch does both.  They port
+:func:`track_block_fused` launch does both.  B1 and B3 run one
+thread-block cluster of ``ctas_per_channel`` CTAs per channel, each CTA
+on its slice of every ms window (:func:`rank_slices`); the size is
+:data:`CTAS_PER_CHANNEL` where all the clusters fit on the card at once
+(:func:`choose_ctas_per_channel`), and a ``ctas_per_channel=`` keyword
+forces one.  They port
 softgnss_tpu.track.megakernel's ``_builder_kernel`` and ``_kernel``
 (unfused and fused, with ``mega_track_segment`` / ``mega_finalize``):
 what those compute, not their Mosaic layout.  The CUDA C++ sources are
@@ -35,6 +40,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -87,7 +93,7 @@ class KernelLibrary:
         lib = ctypes.CDLL(str(path))
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         hf, hi = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_longlong)
-        block = [vp] * 15 + [hf, hi, vp]
+        block = [vp] * 15 + [i, i, hf, hi, vp]
         correlate = [vp, ll] + [vp] * 8 + [ll, i, i, vp, vp, vp]
         for name, args in (
                 ("sg_build_frames", [vp, ll, vp, vp, i, i, i, ll, vp]),
@@ -95,6 +101,7 @@ class KernelLibrary:
                 ("sg_track_block", block),
                 ("sg_track_block_stage", [i] + block),
                 ("sg_track_block_fused", [vp, ll] + block),
+                ("sg_track_block_max_clusters", [i, i, i, i, i, ctypes.POINTER(i)]),
                 ("sg_correlate_ms", correlate),
                 ("sg_correlate_ms_stage", [i] + correlate),
                 ("sg_dma_probe", [i, i, vp, vp, vp, i, i, i, i, vp]),
@@ -272,7 +279,90 @@ def track_block_plain(frames, fb0, state: TrackState, code_pads, carr_basis,
     return st, ys, ovf
 
 
-def _kernel_params(config: ReceiverConfig, r: int, c: int, win: int):
+#: CTAs per channel of B1 and B3 (the size of each channel's thread-block
+#: cluster when all C clusters fit on the card at once, see
+#: :func:`choose_ctas_per_channel`) and threads per CTA: the fastest pair of
+#: chip_smoke.py's size-by-threads sweep at the reference front end, 8
+#: active channels, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
+#: 6): 16 x 256 at 6.15 us per ms, against 8 x 512 at 6.30 and one CTA of
+#: 512 at 23.23.  An H100 holds 14 clusters of 16 such CTAs at once, 7 of 512.
+CTAS_PER_CHANNEL = 16
+THREADS_PER_CTA = 256
+#: the cluster sizes the kernels are built for (16 is a non-portable size)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+def rank_chunk(win: int, kn: int) -> int:
+    """Window bytes each of ``kn`` ranks owns: ``win / kn`` rounded up to
+    16 bytes, so that every slice but the last starts and ends on a
+    16-byte edge of the window."""
+    return -(-win // (16 * kn)) * 16
+
+
+def rank_slices(win: int, kn: int) -> list[tuple[int, int]]:
+    """[lo, hi) of the window that each rank 0 .. kn-1 of a channel's
+    cluster sums (csrc/track_block.cu): consecutive, together exactly
+    [0, win); a trailing rank may get an empty slice."""
+    chunk = rank_chunk(win, kn)
+    return [(min(q * chunk, win), min((q + 1) * chunk, win)) for q in range(kn)]
+
+
+def choose_ctas_per_channel(n_ch: int, max_clusters, preferred: int = CTAS_PER_CHANNEL) -> int:
+    """The cluster size for ``n_ch`` channels: ``preferred`` when all
+    ``n_ch`` clusters of it can be resident at once (``max_clusters(kn)``
+    >= ``n_ch``), else the next smaller size that fits, with a warning
+    naming both.  It never steps down to one CTA per channel: when no
+    cluster fits it raises, and ``ctas_per_channel=1`` is the caller's
+    explicit choice."""
+    if preferred not in CLUSTER_SIZES:
+        raise ValueError(f"preferred={preferred}: cluster sizes are {CLUSTER_SIZES}")
+    if preferred == 1:
+        return 1
+    for kn in sorted((k for k in CLUSTER_SIZES if 1 < k <= preferred), reverse=True):
+        if max_clusters(kn) >= n_ch:
+            if kn != preferred:
+                warnings.warn(f"B1/B3: {n_ch} clusters of {preferred} CTAs do not fit on the "
+                              f"card at once; launching {kn} CTAs per channel", stacklevel=3)
+            return kn
+    raise RuntimeError(f"B1/B3: {n_ch} channels do not fit on the card as clusters of 2 or "
+                       "more CTAs; pass ctas_per_channel=1 to run one CTA per channel")
+
+
+@functools.cache
+def max_active_clusters(device_index: int, fused: bool, kn: int, threads: int, chunk: int) -> int:
+    """How many clusters of ``kn`` CTAs of B1 (or B3) the card holds at
+    once (cudaOccupancyMaxActiveClusters), queried once per size."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        rc = load_library().lib.sg_track_block_max_clusters(int(fused), kn, threads, chunk, 1,
+                                                            ctypes.byref(out))
+    _check(rc, "track_block occupancy query")
+    return out.value
+
+
+def _check_launch_size(ctas_per_channel, threads_per_cta) -> None:
+    if ctas_per_channel is not None and ctas_per_channel not in CLUSTER_SIZES:
+        raise ValueError(f"ctas_per_channel={ctas_per_channel}: expected one of {CLUSTER_SIZES}")
+    if threads_per_cta is not None and (threads_per_cta not in range(32, 513, 32)):
+        raise ValueError(f"threads_per_cta={threads_per_cta}: a multiple of 32 up to 512")
+
+
+def launch_size(dev, fused: bool, n_ch: int, win: int, ctas_per_channel=None,
+                threads_per_cta=None) -> tuple[int, int]:
+    """(CTAs per channel, threads per CTA) of a B1 (or B3) launch on
+    ``dev``: the forced values, else :func:`choose_ctas_per_channel` of the
+    card's occupancy and :data:`THREADS_PER_CTA`."""
+    _check_launch_size(ctas_per_channel, threads_per_cta)
+    threads = threads_per_cta or THREADS_PER_CTA
+    if ctas_per_channel is not None:
+        return ctas_per_channel, threads
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    kn = choose_ctas_per_channel(
+        n_ch, lambda k: max_active_clusters(index, fused, k, threads, rank_chunk(win, k)))
+    return kn, threads
+
+
+def _kernel_params(config: ReceiverConfig, r: int, c: int, win: int, kn: int):
     tau1c, tau2c = config.pll_taus
     tau1d, tau2d = config.dll_taus
     pdi = config.pdi_s
@@ -281,10 +371,11 @@ def _kernel_params(config: ReceiverConfig, r: int, c: int, win: int):
         tau2c / tau1c, pdi / tau1c, tau2d / tau1d, pdi / tau1d,
         (4.0 * config.fll_bandwidth_hz) * pdi, 2.0 * math.pi * pdi,
         config.code_freq_basis / config.l1_freq)
-    hi = (ctypes.c_longlong * 9)(
+    hi = (ctypes.c_longlong * 10)(
         config.code_length * CODE_ONE, chips_to_q(config.dll_correlator_spacing),
         config.pdi_ms, int(config.fll_bandwidth_hz > 0),
-        int(config.carrier_aided_dll), config.samples_per_code, win, r, c)
+        int(config.carrier_aided_dll), config.samples_per_code, win, r, c,
+        rank_chunk(win, kn))
     return hf, hi
 
 
@@ -298,10 +389,11 @@ _OUT_F32 = ("i_p", "i_e", "i_l", "q_e", "q_p", "q_l")
 
 
 def _launch_block(name: str, launch, dev, fb0, state: TrackState, code_pads,
-                  carr_basis, active, config: ReceiverConfig, r: int):
+                  carr_basis, active, config: ReceiverConfig, r: int, kn: int, threads: int):
     """Check the common inputs of B1/B3, stack the state, call ``launch``
-    (the C entry point, given the trailing common pointer arguments) and
-    unpack (state, MsOutputs of (r, C) leaves, (C,) overflow)."""
+    (the C entry point, given the trailing common arguments) at ``kn``
+    CTAs per channel of ``threads`` threads and unpack (state, MsOutputs
+    of (r, C) leaves, (C,) overflow)."""
     c = fb0.shape[0]
     _require(fb0, "fb0", torch.int64, (c,), dev)
     _require(code_pads, "code_pads", torch.float32, (c, 1025), dev)
@@ -317,14 +409,14 @@ def _launch_block(name: str, launch, dev, fb0, state: TrackState, code_pads,
     of64 = torch.empty((len(_OUT_F64), r, c), dtype=torch.float64, device=dev)
     of32 = torch.empty((len(_OUT_F32), r, c), dtype=torch.float32, device=dev)
     ovf = torch.empty(c, dtype=torch.int64, device=dev)
-    act = active.to(torch.uint8)
-    hf, hi = _kernel_params(config, r, c, config.track_window)
+    hf, hi = _kernel_params(config, r, c, config.track_window, kn)
     with torch.cuda.device(dev):
-        rc = launch(_ptr(fb0), _ptr(code_pads), _ptr(carr_basis), _ptr(act),
+        # a bool tensor is one byte of 0 or 1 per channel: the kernel reads it as is
+        rc = launch(_ptr(fb0), _ptr(code_pads), _ptr(carr_basis), _ptr(active),
                     _ptr(si), _ptr(sf), _ptr(sa), _ptr(si_o), _ptr(sf_o), _ptr(sa_o),
-                    _ptr(abs_sample), _ptr(of64), _ptr(of32), _ptr(ovf), hf, hi,
+                    _ptr(abs_sample), _ptr(of64), _ptr(of32), _ptr(ovf), kn, threads, hf, hi,
                     _stream(dev))
-    _check(rc, name)
+    _check(rc, f"{name} ({kn} CTAs per channel, {threads} threads each)")
     leaves = dict(zip(_I64_FIELDS, si_o))
     leaves["carr_phase"] = leaves["carr_phase"].to(torch.int32)
     leaves.update(zip(_F64_FIELDS, sf_o))
@@ -337,26 +429,35 @@ def _launch_block(name: str, launch, dev, fb0, state: TrackState, code_pads,
 
 
 def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
-                config: ReceiverConfig, r: int):
+                config: ReceiverConfig, r: int, *, ctas_per_channel: int | None = None,
+                threads_per_cta: int | None = None):
     """Track ``r`` ms of every channel over ``frames`` ((r, C, win/4) int32
     from :func:`build_frames`; frame (j, c) starts at absolute sample
     ``fb0[c] + j*samples_per_code``).  Returns (state, MsOutputs of (r, C)
     leaves, (C,) int64 overflow: > 0 where a ms span left its frame).
-    Kernel B1 (csrc/track_block.cu) on CUDA tensors."""
+    Kernel B1 (csrc/track_block.cu) on CUDA tensors, at ``ctas_per_channel``
+    CTAs per channel of ``threads_per_cta`` threads (default:
+    :func:`launch_size`); ``track_block.ctas_per_channel`` records the size
+    last launched."""
+    _check_launch_size(ctas_per_channel, threads_per_cta)
     if frames.device.type == "cpu":
         return track_block_plain(frames, fb0, state, code_pads, carr_basis,
                                  active, config, r)
     dev = frames.device
     _require(frames, "frames", torch.int32,
              (r, fb0.shape[0], config.track_window // 4), dev)
+    kn, threads = launch_size(dev, False, fb0.shape[0], config.track_window, ctas_per_channel,
+                              threads_per_cta)
     lib = load_library().lib
     out = _launch_block("track_block", lambda *a: lib.sg_track_block(_ptr(frames), *a),
-                        dev, fb0, state, code_pads, carr_basis, active, config, r)
+                        dev, fb0, state, code_pads, carr_basis, active, config, r, kn, threads)
     track_block.launches += 1
+    track_block.ctas_per_channel = kn
     return out
 
 
 track_block.launches = 0
+track_block.ctas_per_channel = None
 
 
 # --- B3: fused block tracker -----------------------------------------------
@@ -372,12 +473,15 @@ def track_block_fused_plain(cap_words, starts_w, state: TrackState, code_pads,
 
 
 def track_block_fused(cap_words, starts_w, state: TrackState, code_pads, carr_basis,
-                      active, config: ReceiverConfig, r: int):
+                      active, config: ReceiverConfig, r: int, *,
+                      ctas_per_channel: int | None = None, threads_per_cta: int | None = None):
     """:func:`build_frames` + :func:`track_block` in one kernel: each ms
     window is read from ``cap_words`` ((L,) int32 word view of the capture)
     at word ``starts_w[c] + j*samples_per_code/4`` (0 outside the capture),
-    and no frames array exists.  Same returns as :func:`track_block`.
-    Kernel B3 (csrc/track_block.cu, fused) on CUDA tensors."""
+    and no frames array exists.  Same returns and keywords as
+    :func:`track_block`.  Kernel B3 (csrc/track_block.cu, fused) on CUDA
+    tensors."""
+    _check_launch_size(ctas_per_channel, threads_per_cta)
     if cap_words.device.type == "cpu":
         return track_block_fused_plain(cap_words, starts_w, state, code_pads,
                                        carr_basis, active, config, r)
@@ -385,14 +489,18 @@ def track_block_fused(cap_words, starts_w, state: TrackState, code_pads, carr_ba
     c = starts_w.shape[0]
     _require(cap_words, "cap_words", torch.int32, (cap_words.shape[0],), dev)
     _require(starts_w, "starts_w", torch.int64, (c,), dev)
+    kn, threads = launch_size(dev, True, c, config.track_window, ctas_per_channel,
+                              threads_per_cta)
     lib = load_library().lib
     n_words = cap_words.shape[0]
     out = _launch_block(
         "track_block_fused",
         lambda *a: lib.sg_track_block_fused(_ptr(cap_words), n_words, _ptr(starts_w), *a),
-        dev, 4 * starts_w, state, code_pads, carr_basis, active, config, r)
+        dev, 4 * starts_w, state, code_pads, carr_basis, active, config, r, kn, threads)
     track_block_fused.launches += 1
+    track_block_fused.ctas_per_channel = kn
     return out
 
 
 track_block_fused.launches = 0
+track_block_fused.ctas_per_channel = None

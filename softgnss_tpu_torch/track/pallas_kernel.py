@@ -69,10 +69,10 @@ def _launch_correlate(name: str, entry, config: ReceiverConfig, cap, ptr, carr_p
     n_cta = -(-(config.samples_per_code + config.track_window_extra) // _SAMPLES_PER_CTA)
     partial = torch.empty((c, n_cta, 6), dtype=torch.float64, device=dev)
     out = torch.empty((c, 6), dtype=torch.float32, device=dev)
-    act = active.to(torch.uint8)
     with torch.cuda.device(dev):
+        # a bool tensor is one byte of 0 or 1 per channel: the kernel reads it as is
         rc = entry(_ptr(cap), cap.shape[0], _ptr(ptr), _ptr(carr_phase), _ptr(w),
-                   _ptr(code_rem_q), _ptr(step_q), _ptr(blk), _ptr(code_pads), _ptr(act),
+                   _ptr(code_rem_q), _ptr(step_q), _ptr(blk), _ptr(code_pads), _ptr(active),
                    chips_to_q(config.dll_correlator_spacing), c, n_cta, _ptr(partial),
                    _ptr(out), _stream(dev))
     _check(rc, name)

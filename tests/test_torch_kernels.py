@@ -6,9 +6,12 @@ runs on the card's machine, which has no JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 On the CPU the wrappers run their plain versions; the ``gpu`` tests
-compare the CUDA kernels with those plain versions and skip without a
-card.
+compare the CUDA kernels with those plain versions, B1 and B3 at every
+cluster size (``ctas_per_channel``) and at 3 and 12 channels, and skip
+without a card.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -37,17 +40,20 @@ def test_build_frames_zero_fill():
     np.testing.assert_array_equal(frames.numpy(), want)
 
 
-def _scenario(device):
-    cfg = sgt.fast_config(number_of_channels=3, track_block_ms=16)
+def _scenario(device, n_ch: int = 3):
+    """Three satellites on ``n_ch`` channels (each satellite on every third
+    channel), the second channel idle."""
+    cfg = sgt.fast_config(number_of_channels=n_ch, track_block_ms=16)
     sats = [SatelliteSignal(prn=p, doppler_hz=d, delay_samples=float(s), phase0=ph,
                             amplitude=2.0, nav_bits=(1, -1, -1, 1))
             for p, d, s, ph in ((5, 1200.0, 333, 0.4), (11, -2500.0, 1777, 2.1),
                                 (20, 400.0, 40, 5.0))]
     sig = synthesize_signal(cfg, sats, 100, noise_std=4.0, seed=4, device=device)
-    ch = Channels(prn=np.asarray([s.prn for s in sats]),
-                  acquired_freq=np.asarray([cfg.intermediate_freq + s.doppler_hz for s in sats]),
-                  code_phase=np.asarray([int(s.delay_samples) for s in sats], np.int64),
-                  status=["T", "-", "T"])
+    on = [sats[i % 3] for i in range(n_ch)]
+    ch = Channels(prn=np.asarray([s.prn for s in on]),
+                  acquired_freq=np.asarray([cfg.intermediate_freq + s.doppler_hz for s in on]),
+                  code_phase=np.asarray([int(s.delay_samples) for s in on], np.int64),
+                  status=["T", "-"] + ["T"] * (n_ch - 2))
     return cfg, sig, ch
 
 
@@ -124,22 +130,31 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: (channels, CTAs per channel) of the card tests: every cluster size at 3
+#: channels, and 12 channels at the sizes that hold 12 clusters (16 may
+#: not: then its clusters run in waves)
+SIZES = [(3, kn) for kn in mk.CLUSTER_SIZES] + [(12, 8), (12, 16)]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_ch, kn", SIZES, ids=[f"C{c}-kN{k}" for c, k in SIZES])
 @pytest.mark.parametrize("opts", [{}, {"pdi_ms": 4, "fll_bandwidth_hz": 10.0,
                                        "carrier_aided_dll": True,
                                        "dll_correlator_spacing": 0.25}],
                          ids=["default", "variant"])
-def test_kernels_match_plain_on_card(cuda_device, opts):
-    """Both kernels against their plain versions on the card, through the
-    segment loop (lead segment included), inactive channel included."""
-    cfg, sig, ch = _scenario(cuda_device)
+def test_kernels_match_plain_on_card(cuda_device, opts, n_ch, kn):
+    """B2 + B1 at ``kn`` CTAs per channel against their plain versions on
+    the card, through the segment loop (lead segment included), inactive
+    channel included."""
+    cfg, sig, ch = _scenario(cuda_device, n_ch)
     cfg = cfg.with_options(**opts)
     words = scan.capture_words(sig)
     pads = scan.build_tables(ch.prn, cuda_device)
     active = torch.tensor([s == "T" for s in ch.status], device=cuda_device)
     cb = torch.as_tensor(ch.acquired_freq).to(cuda_device)
     outs = []
-    for build, block in ((mk.build_frames, mk.track_block),
+    for build, block in ((mk.build_frames, functools.partial(mk.track_block,
+                                                             ctas_per_channel=kn)),
                          (mk.build_frames_plain, mk.track_block_plain)):
         st = scan.initial_state(cfg, ch, cuda_device)
         st, ys1, ov1 = scan.track_segments(cfg, words, st, pads, cb, active, 37, 0,
@@ -173,15 +188,20 @@ def _segments_then_resume(cfg, sig, ch, dev, build, block):
             + [v.cpu().numpy() for v in st])
 
 
+CASES = [("B3", c, k) for c, k in SIZES] + [("B4", 3, None)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel", ["B3", "B4"])
-def test_fused_and_per_ms_kernels_match_plain_on_card(cuda_device, kernel):
-    """B3 (bit-equal, as the B2 + B1 pair it fuses) and B4 (the per-ms
-    tracker through it: absolute_sample equal, correlators within 1e-4 of
-    the plain version's RMS) on the card, with a resume and an idle
-    channel."""
-    cfg, sig, ch = _scenario(cuda_device)
-    pair, plain = (((None, mk.track_block_fused), (None, mk.track_block_fused_plain))
+@pytest.mark.parametrize("kernel, n_ch, kn", CASES,
+                         ids=[f"{k}-C{c}-kN{n}" if n else k for k, c, n in CASES])
+def test_fused_and_per_ms_kernels_match_plain_on_card(cuda_device, kernel, n_ch, kn):
+    """B3 at ``kn`` CTAs per channel (bit-equal, as the B2 + B1 pair it
+    fuses) and B4 (the per-ms tracker through it: absolute_sample equal,
+    correlators within 1e-4 of the plain version's RMS) on the card, with
+    a resume and an idle channel."""
+    cfg, sig, ch = _scenario(cuda_device, n_ch)
+    fused = functools.partial(mk.track_block_fused, ctas_per_channel=kn)
+    pair, plain = (((None, fused), (None, mk.track_block_fused_plain))
                    if kernel == "B3" else
                    (("per_ms", pk.correlate_ms), ("per_ms", pk.correlate_ms_plain)))
     got = _segments_then_resume(cfg, sig, ch, cuda_device, *pair)
