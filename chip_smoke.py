@@ -33,10 +33,14 @@ script exits non-zero:
                 pallas_ablate, S2 mega_vmem_bisect, S3 builder_time, S4
                 dma_probe, S5 pallas_probe): every stage, variant, load
                 pattern and construct against its plain version (bit-equal;
-                S5's tensor-core products within their TF32 bound), then
-                each probe's timings, S5's cluster reduce-and-barrier step
-                among them (its own path: the counts are zeroed before the
-                timings and read after)
+                S5's tensor-core products within their TF32 bound; S5 grid
+                and dot in both designs, the redesign and the first), S5's library
+                calls against the same plain versions, ptxas's resources of
+                every S5 kernel (no spills), then each probe's timings (S5's
+                two designs in turns, its tensor-core library calls with
+                TF32 allowed and at the default precision), S5's cluster
+                reduce-and-barrier step among them (its own path: the
+                counts are zeroed before the timings and read after)
 7. main path  — run_receiver(default_config(), navigate=True,
                 device="cuda") over the reference's 37 000 ms (block
                 tracker, B2 + B1): every satellite acquired and locked,
@@ -184,7 +188,7 @@ def _kernel_wrappers():
     return ((mk.build_frames, mk.track_block, mk.track_block_fused, pk.correlate_ms),
             (pallas_ablate.correlate_ms_stage, mega_vmem_bisect.track_block_stage,
              builder_time.build_frames_vec4, dma_probe.dma_probe,
-             *pallas_probe.KERNELS.values()))
+             *pallas_probe.WRAPPERS.values()))
 
 
 def union_len(starts, length: int, limit: int) -> int:
@@ -220,6 +224,8 @@ def reset_launches():
             fn.launches = 0
             if hasattr(fn, "ctas_per_channel"):
                 fn.ctas_per_channel = None
+            if hasattr(fn, "smem_bytes"):
+                fn.smem_bytes = None
 
 
 def read_launches(probes: bool = False) -> dict:
@@ -617,10 +623,12 @@ def ms_bound(ptr, blk, active) -> tuple[float, str]:
     return block_bound(int(b.sum()), read + int(act.sum()) * 1025 * 4 + act.size * 6 * 4)
 
 
-def phase_probes(dev) -> list[dict]:
+def phase_probes(dev, log: str) -> list[dict]:
     """S1-S5 through their modules: each stage, variant, pattern and
-    construct against its plain version, then the timings with the launch
-    counts zeroed before and read after."""
+    construct (S5 grid and dot in both designs) against its plain version,
+    S5's library calls against the same plain versions, ptxas's resources
+    of every S5 kernel (no spills), then the timings with the launch counts
+    zeroed before and read after."""
     import torch
 
     from softgnss_tpu_torch import default_config
@@ -634,11 +642,21 @@ def phase_probes(dev) -> list[dict]:
     errs = [m.check(dev) for m in probes]
     print("  every S1-S4 stage, variant and load pattern bit-equal to its plain version; "
           f"S5 constructs: max |kernel - plain| {errs[4]} (grid, acc, conv, onehot bit-equal; "
-          "bdot, dot within the TF32 bound)")
+          "bdot, dot within the TF32 bound; two launches of dot bit-equal)")
+    print(f"  S5 library calls equal to the plain versions on the script's inputs; on seeded "
+          f"inputs max |library - plain| {s5.check_library(dev)} (TF32 allowed / default)")
+    s5_res = s5.probe_resources(log)
+    for label, r in s5_res.items():
+        print(f"  ptxas probe_{label}_kernel: {r['registers']} registers, {r['smem']} B static "
+              f"shared, spills {r['spill_stores']} B stored / {r['spill_loads']} B loaded")
+    check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in s5_res.values()),
+          "an S5 kernel spills")
     reset_launches()
     res = [m.measure(dev) for m in probes]
     launches = read_launches(probes=True)
     check(all(n > 0 for n in launches.values()), f"probe launches {launches}")
+    dot_smem = s5.probe_dot.smem_bytes       # what the timed launches of dot were given
+    check(dot_smem is not None, "S5 dot: no dynamic shared memory recorded")
     for m, r in zip(probes, res):
         m.report(r)
     print(f"  launches {launches}")
@@ -686,11 +704,16 @@ def phase_probes(dev) -> list[dict]:
     out = [{**record(kid, name, src, rep, err, ms, plain_ms, bound, lib),
             "launches": launches[name], **x}
            for (kid, name, src, rep, ms, plain_ms, bound, lib), err, x in zip(recs, errs, extra)]
-    for name in s5.PROBES:
-        t = r5[name]
-        rec = record("S5", f"probe_{name}", "pallas_probe.cu", s5.REPLACES[name], errs[4][name],
+    for label, name in s5.VARIANTS.items():
+        t = r5[label]
+        rec = record("S5", f"probe_{label}", "pallas_probe.cu", s5.REPLACES[name], errs[4][label],
                      t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]), t["library_ms"])
-        rec["launches"] = launches[f"probe_{name}"]
+        rec.update(launches=launches[f"probe_{label}"], ms_turns=t["ms_turns"],
+                   registers=s5_res[label]["registers"], smem=s5_res[label]["smem"])
+        if "library_default_ms" in t:     # library_ms: TF32 allowed, as the kernel computes
+            rec["library_default_ms"] = t["library_default_ms"]
+        if label == "dot":
+            rec.update(dynamic_smem=dot_smem, ms_steps0=t["ms_steps0"])
         if name == "acc":
             rec["us_per_cluster_step"] = r5["acc_step_us"]
         out.append(rec)
@@ -1100,7 +1123,7 @@ def main(argv=None) -> int:
     with phase("B4 vs plain"):
         rec_b4 = phase_b4(cfg, sig, sc, dev)
     with phase("probes"):
-        rec_probes = phase_probes(dev)
+        rec_probes = phase_probes(dev, lib.log)
     with phase("main path"):
         main_res, launches, _ = phase_main(cfg, sig, sc, card)
     with phase("profile"):

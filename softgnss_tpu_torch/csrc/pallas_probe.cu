@@ -10,7 +10,10 @@
 // batched dot_general (_k_bdot via bdot) and a 2-D dot in an in-kernel
 // fori loop (_k_dot via dot2d).  Each kernel here computes what its TPU
 // kernel computes, at the script's shapes:
-//   grid   — o = x + 1, one CTA per (8, 128) block;
+//   grid   — o = x + 1, one CTA of 256 threads per (8, 128) block, each
+//            thread moving one 16-byte float4 (probe_grid_kernel); the
+//            first design, a 4-pass loop of scalar loads and stores per
+//            thread, is kept as probe_grid_loop_kernel;
 //   acc    — o[r] = sum_i sum_j x[8i + r, j], (64, 128) -> (8,): on the TPU
 //            the grid runs in order and the sum stays in VMEM; on Hopper
 //            the eight blocks run at once, so they form ONE 8-CTA thread
@@ -28,16 +31,20 @@
 //   bdot   — batched (B, 8, K) @ (B, K, 8) on the tensor cores by hand:
 //            mma.sync.aligned.m16n8k8 TF32 with float32 accumulation, M
 //            padded 8 -> 16 with zero rows, one warp per batch;
-//   dot    — steps * (a @ b): one warp per 16 x 8 output tile, the
-//            ``steps``-step loop inside the kernel accumulating into the
-//            same mma registers.
+//   dot    — steps * (a @ b), the ``steps``-step loop inside the kernel
+//            as the TPU kernel's fori_loop: one CTA of 8 warps per 8 x 8
+//            output tile, its operands staged on chip once and K split
+//            across the warps (probe_dot_kernel, section 6 below); the
+//            first design, one warp per tile walking all of K from global
+//            memory, is kept as probe_dot_chain_kernel.
 //
 // Sums that must be bit-equal to the plain versions (acc, onehot) are
 // taken in float64 in a fixed order and rounded once; the plain versions
 // in scripts/pallas_probe.py repeat that order.  bdot and dot round their
 // inputs to TF32 (cvt.rna), so they are held to 2^-10 * sum_k |a_ik b_kj|.
 //
-// What bounds them on the H100: nothing but the launch.  The largest,
+// What bounds them on the H100: nothing but the launch and, inside it,
+// the longest chain of dependent loads and instructions.  The largest,
 // dot, moves 336 KB (0.1 us at 3.35 TB/s) and does 16.8 MFLOP (0.03 us at
 // 495 TF32 TFLOP/s); a launch costs microseconds.  acc's per-rep step is
 // two cluster barriers and eight DSMEM loads, the number it exists for.
@@ -58,8 +65,30 @@ constexpr int kMaxWidth = 1024;  // one-hot row width the shared copy holds
 
 // --- 1. grid ---------------------------------------------------------------
 
+// What bounds it: 64 KB in and out (0.02 us at 3.35 TB/s) against a launch
+// of ~2 us, so only the launch and one round trip to memory should remain.
+// The first design's loop below runs four passes of 4-byte loads and
+// stores per thread (its bound, blockDim.x, is known only at run time).
+// Here one CTA still takes one (8, 128) block, the TPU grid, and its 256
+// threads each move one float4 (neighbouring threads on neighbouring 16
+// bytes): one load and one store per thread, no loop.  The wrapper requires x to be
+// contiguous and 16-byte aligned (o is allocated so).
+constexpr int kGridThreads = kBlockRows * kCols / 4;
+
+__global__ void __launch_bounds__(kGridThreads)
+probe_grid_kernel(const float4* __restrict__ x, float4* __restrict__ o) {
+  const long long i = static_cast<long long>(blockIdx.x) * kGridThreads + threadIdx.x;
+  float4 v = x[i];
+  v.x += 1.0f;
+  v.y += 1.0f;
+  v.z += 1.0f;
+  v.w += 1.0f;
+  o[i] = v;
+}
+
+// The first design, kept to be timed beside it
 __global__ void __launch_bounds__(256)
-probe_grid_kernel(const float* __restrict__ x, float* __restrict__ o) {
+probe_grid_loop_kernel(const float* __restrict__ x, float* __restrict__ o) {
   const long long base = static_cast<long long>(blockIdx.x) * kBlockRows * kCols;
   for (int i = threadIdx.x; i < kBlockRows * kCols; i += blockDim.x) o[base + i] = x[base + i] + 1.0f;
 }
@@ -185,10 +214,124 @@ probe_bdot_kernel(const float* __restrict__ a, const float* __restrict__ b,
   oi[g * 8 + 2 * t + 1] = d[1];
 }
 
-// tile w = (tm, tn) of the (M, N) output on warp w
-__global__ void __launch_bounds__(256)
+// --- 6. dot: operands on chip, K split across warps ------------------------
+//
+// What bounds it: 336 KB of operands and output (0.10 us at 3.35 TB/s) and
+// 16.8 MFLOP TF32 (0.03 us at 495 TFLOP/s); in practice the launch, one
+// round of loads, and the longest dependent chain.  The first design
+// (probe_dot_chain_kernel below) gave each warp a 16 x 8 tile and all of
+// K: 4 x 64 dependent mma.sync, each behind its own fragment loads from
+// global memory, so four passes over the operands paid the load latency
+// link by link (51-53 us).
+//
+// This design keeps the operands on chip, as the TPU kernel keeps them
+// resident in VMEM across the fori_loop.  CTA c owns the 8 x 8 output
+// tile (c / tiles_n, c % tiles_n): rows 8..15 of the m16n8k8 tile are zero
+// (as in bdot), which halves the bytes each CTA stages (a's 8 rows and b's
+// 8 columns, 32 KB at k = 512) and doubles the CTAs (64 at the script's
+// shape).  Warp w owns the K slices (8 wide) [w * spw, (w + 1) * spw)
+// (``warps`` and ``slices_per_warp`` from the wrapper's launch plan, spw
+// <= kDotSlices).  Each warp stages its slices by 16-byte cp.async into
+// shared memory ONCE (neighbouring lanes on neighbouring addresses), waits
+// for its own copies, converts its fragments to TF32 into registers once,
+// and runs the ``steps`` loop on the tensor cores over them, alternating
+// two accumulators: at the script's shape 8 mma.sync per step in two
+// chains of 4, with no load inside the loop.  The warps' partial tiles
+// meet in shared memory and are summed in warp order (no atomics), so
+// every launch gives the same bits.
+//
+// Shared memory (dynamic, its size and the row stride lda from the
+// wrapper's launch plan, pallas_probe.dot_plan): sa [8][lda] floats, the
+// tile's rows of a, padded (lda = k + 4 in the plan) so that a fragment
+// read (rows g = 0..7, columns t = 0..3 at g * lda + t) hits 32 distinct
+// banks (lda / 4 odd for k % 8 == 0); sb [k][8] floats, the tile's columns
+// of b (lanes at t * 8 + g: distinct banks unpadded); part [warps][8 * 8],
+// the partial tiles.  The launch bounds name one CTA per SM: without that
+// minimum ptxas held the kernel to 64 registers and spilled; with it, 66
+// and no spill.
+constexpr int kDotMaxWarps = 16;  // the launch bounds
+constexpr int kDotSlices = 8;     // most K slices per warp: their fragments stay in registers
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__global__ void __launch_bounds__(kDotMaxWarps * 32, 1)
 probe_dot_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 float* __restrict__ o, int m_dim, int k_dim, int n_dim, int steps) {
+                 float* __restrict__ o, int k_dim, int n_dim, int steps, int slices_per_warp,
+                 int lda) {
+  extern __shared__ __align__(16) float smem[];
+  float* sa = smem;
+  float* sb = sa + 8 * lda;
+  float* part = sb + 8 * k_dim;
+  const int tiles_n = n_dim / 8;
+  const int m0 = (blockIdx.x / tiles_n) * 8, n0 = (blockIdx.x % tiles_n) * 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slices = k_dim / 8;
+  const int j0 = min(warp * slices_per_warp, slices);
+  const int nj = min(slices_per_warp, slices - j0);
+  const int k0 = 8 * j0, kw = 8 * nj;            // this warp's columns of a, rows of b
+
+  // stage: a[m0 + r, k0 + c .. +4) for r < 8 (kw / 4 float4 per row), then
+  // b[k0 + r, n0 + c .. +4) for r < kw (2 float4 per row)
+  const int q = kw / 4;
+  for (int i = lane; i < 8 * q; i += 32) {
+    const int r = i / q, c = k0 + 4 * (i % q);
+    cp_async16(sa + r * lda + c, a + static_cast<long long>(m0 + r) * k_dim + c);
+  }
+  for (int i = lane; i < 2 * kw; i += 32) {
+    const int r = k0 + (i >> 1), c = 4 * (i & 1);
+    cp_async16(sb + r * 8 + c, b + static_cast<long long>(r) * n_dim + n0 + c);
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncwarp();                                  // the warp's copies, visible to all its lanes
+
+  // slice j's fragments: a = {A[g][8j + t], 0, A[g][8j + t + 4], 0} (zero
+  // rows 8..15), b = {B[8j + t][g], B[8j + t + 4][g]}
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t fa[kDotSlices][4], fb[kDotSlices][2];
+#pragma unroll
+  for (int j = 0; j < kDotSlices; ++j) {
+    const int kk = k0 + 8 * j;
+    fa[j][1] = fa[j][3] = 0u;
+    if (j < nj) {
+      fa[j][0] = to_tf32(sa[g * lda + kk + t]);
+      fa[j][2] = to_tf32(sa[g * lda + kk + t + 4]);
+      fb[j][0] = to_tf32(sb[(kk + t) * 8 + g]);
+      fb[j][1] = to_tf32(sb[(kk + t + 4) * 8 + g]);
+    } else {
+      fa[j][0] = fa[j][2] = fb[j][0] = fb[j][1] = 0u;
+    }
+  }
+  float d[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+  for (int s = 0; s < steps; ++s) {
+#pragma unroll
+    for (int j = 0; j < kDotSlices; ++j)
+      if (j < nj) mma_tf32(d[j & 1], fa[j], fb[j]);
+  }
+
+  // the partial tiles, [warp][row][col] (rows 0..7: d[.][0], d[.][1]), then
+  // their sum in warp order
+  float* p = part + warp * 64;
+  *reinterpret_cast<float2*>(p + g * 8 + 2 * t) = make_float2(d[0][0] + d[1][0], d[0][1] + d[1][1]);
+  __syncthreads();
+  if (threadIdx.x < 64) {
+    float v = part[threadIdx.x];
+    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) v += part[w * 64 + threadIdx.x];
+    o[static_cast<long long>(m0 + (threadIdx.x >> 3)) * n_dim + n0 + (threadIdx.x & 7)] = v;
+  }
+}
+
+// The first design, kept to be timed beside it: tile w = (tm, tn) of the
+// (M, N) output on warp w
+__global__ void __launch_bounds__(256)
+probe_dot_chain_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                       float* __restrict__ o, int m_dim, int k_dim, int n_dim, int steps) {
   const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   const int tiles_n = n_dim / 8;
   if (w >= (m_dim / 16) * tiles_n) return;
@@ -212,9 +355,16 @@ int last_error() { return static_cast<int>(cudaGetLastError()); }
 // wrappers in softgnss_tpu_torch/scripts/pallas_probe.py check shapes,
 // types and devices first.
 
-// x, o: (n_blocks * 8, 128) float32
+// x, o: (n_blocks * 8, 128) float32, 16-byte aligned
 extern "C" int sg_probe_grid(const void* x, void* o, int n_blocks, void* stream) {
-  probe_grid_kernel<<<n_blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  probe_grid_kernel<<<n_blocks, kGridThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(x), static_cast<float4*>(o));
+  return last_error();
+}
+
+// The first grid design: x, o: (n_blocks * 8, 128) float32
+extern "C" int sg_probe_grid_loop(const void* x, void* o, int n_blocks, void* stream) {
+  probe_grid_loop_kernel<<<n_blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(o));
   return last_error();
 }
@@ -254,12 +404,38 @@ extern "C" int sg_probe_bdot(const void* a, const void* b, void* o, int batch, i
   return last_error();
 }
 
-// a: (m, k); b: (k, n); o: (m, n) float32 = steps * (a @ b); m % 16, k % 8
-// and n % 8 == 0
+// a: (m, k); b: (k, n); o: (m, n) float32 = steps * (a @ b); a and b
+// 16-byte aligned.  The launch plan (warps per CTA, K slices per warp, the
+// row stride lda of sa, the bytes of dynamic shared memory) is the
+// wrapper's; this refuses one the kernel cannot run: a ragged or empty
+// tile, more warps than its launch bounds, more slices per warp than its
+// registers hold, K left uncovered, a stride that breaks 16-byte copies,
+// or less shared memory than the layout above takes.
 extern "C" int sg_probe_dot(const void* a, const void* b, void* o, int m_dim, int k_dim,
-                            int n_dim, int steps, void* stream) {
+                            int n_dim, int steps, int warps, int slices_per_warp, int lda,
+                            int smem, void* stream) {
+  if (m_dim < 8 || m_dim % 8 || k_dim < 8 || k_dim % 8 || n_dim < 8 || n_dim % 8 ||
+      warps < 1 || warps > kDotMaxWarps || slices_per_warp < 1 ||
+      slices_per_warp > kDotSlices || 8 * warps * slices_per_warp < k_dim || lda < k_dim ||
+      lda % 4 || smem < 4 * (8 * lda + 8 * k_dim + 64 * warps))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(probe_dot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  probe_dot_kernel<<<(m_dim / 8) * (n_dim / 8), warps * 32, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(o), k_dim,
+      n_dim, steps, slices_per_warp, lda);
+  return last_error();
+}
+
+// The first dot design: m % 16, k % 8 and n % 8 == 0, any alignment and k
+extern "C" int sg_probe_dot_chain(const void* a, const void* b, void* o, int m_dim, int k_dim,
+                                  int n_dim, int steps, void* stream) {
   const int warps = (m_dim / 16) * (n_dim / 8);
-  probe_dot_kernel<<<(warps + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  probe_dot_chain_kernel<<<(warps + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(o), m_dim,
       k_dim, n_dim, steps);
   return last_error();

@@ -7,7 +7,9 @@ via ``gridded_acc`` :54, ``_k_conv`` :66 via ``conv`` :70, ``_k_3d`` :79
 via ``batched3d`` :86, ``_k_bdot`` :96 via ``bdot`` :102, ``_k_dot`` :112
 via ``dot2d`` :120).  Its counterpart here is ``csrc/pallas_probe.cu``:
 
-* ``grid`` — ``x + 1``, (64, 128) float32, 8 CTAs of one (8, 128) block;
+* ``grid`` — ``x + 1``, (64, 128) float32, 8 CTAs of one (8, 128) block,
+  one float4 per thread (``design="loop"``: the first design, a scalar
+  loop);
 * ``acc`` — ``o[r] = sum_i sum_j x[8i + r, j]`` into (8, 1): ONE 8-CTA
   thread block cluster reducing its partials through distributed shared
   memory between two cluster barriers; ``reps`` repeats that step, and
@@ -18,7 +20,15 @@ via ``dot2d`` :120).  Its counterpart here is ``csrc/pallas_probe.cu``:
 * ``bdot`` — (4, 8, 128) @ (4, 128, 8) on the tensor cores
   (``mma.sync`` m16n8k8 TF32);
 * ``dot`` — ``4 * (a @ b)``, (32, 512) @ (512, 128), by a 4-step loop in
-  the kernel on the tensor cores.
+  the kernel on the tensor cores: one CTA per 8 x 8 output tile, its
+  operands staged in shared memory once, K split across 8 warps
+  (:func:`dot_plan`; ``design="chain"``: the first design, one warp per
+  tile).
+
+``grid`` and ``dot`` were redesigned for the card; their first kernels stay
+(``grid_loop`` and ``dot_chain`` in :data:`VARIANTS`), each with its own
+wrapper and launch count (:func:`probe_grid_loop`,
+:func:`probe_dot_chain`), so that one run times old and new in turns.
 
 What "does it lower" was on the TPU is here what ptxas reports for each
 kernel (registers, shared memory, stack, spills), parsed from the kernel
@@ -29,19 +39,24 @@ Run on a CUDA card from the repository root::
     python -m softgnss_tpu_torch.scripts.pallas_probe
 
 It prints the card line and each kernel's resources, holds each kernel
-against its plain version on the TPU script's own inputs (ones, arange)
-and on seeded random inputs, printing ``[ok]`` or ``[FAIL]`` as the TPU
-script does (``grid``, ``acc``, ``conv`` and ``onehot`` bit-equal;
-``bdot`` and ``dot`` within ``2^-10 * sum_k |a_ik b_kj|`` per output, the
-TF32 rounding of both inputs, and bit-equal on the script's ones), then
-times each kernel, its plain version and one PyTorch call that computes
-the same function.  Without a CUDA card it raises.
+(both designs of grid and dot) against its plain version on the TPU
+script's own inputs (ones, arange) and on seeded random inputs, printing
+``[ok]`` or ``[FAIL]`` as the TPU script does (``grid``, ``acc``, ``conv``
+and ``onehot`` bit-equal; ``bdot`` and ``dot`` within ``2^-10 * sum_k
+|a_ik b_kj|`` per output, the TF32 rounding of both inputs, and bit-equal
+on the script's ones), holds each :data:`LIBRARY` call to the same plain
+versions, then times each kernel (the two designs of grid and dot in
+turns), its plain version and one PyTorch call that computes the same
+function (for bdot and dot with TF32 allowed, as the kernels compute, and
+at PyTorch's default precision).  Without a CUDA card it raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
 import sys
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,6 +66,12 @@ from softgnss_tpu_torch.scripts.timing import TF32_OPS_PER_S, bound_ms, card, cu
 from softgnss_tpu_torch.track import megakernel as mk
 
 PROBES = ("grid", "acc", "conv", "onehot", "bdot", "dot")
+#: every S5 kernel by label, with the probe it computes: its wrapper is
+#: ``probe_<label>`` (:data:`WRAPPERS`), its kernel ``probe_<label>_kernel``;
+#: ``grid_loop`` and ``dot_chain`` are the first designs of grid and dot,
+#: kept to be timed beside the redesigns
+VARIANTS = {"grid": "grid", "grid_loop": "grid", "acc": "acc", "conv": "conv",
+            "onehot": "onehot", "bdot": "bdot", "dot": "dot", "dot_chain": "dot"}
 #: the TPU script's line number of each kernel's pl.pallas_call
 REPLACES = {"grid": "scripts/pallas_probe.py:37", "acc": "scripts/pallas_probe.py:56",
             "conv": "scripts/pallas_probe.py:72", "onehot": "scripts/pallas_probe.py:89",
@@ -79,6 +100,16 @@ def _launch(name: str, fn, *args) -> None:
     mk._check(rc, name)
 
 
+def require_vec4(t: torch.Tensor, name: str) -> None:
+    """Raise unless ``t`` is 16-byte aligned: the grid and dot kernels move
+    it by 16-byte loads (float4, cp.async) and have no scalar path to fall
+    back on (``megakernel._require``, called first, requires it
+    contiguous)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned (its address is {t.data_ptr() % 16} "
+                         "bytes past a 16-byte boundary)")
+
+
 # --- 1. grid -----------------------------------------------------------------
 
 
@@ -86,14 +117,25 @@ def probe_grid_plain(x: torch.Tensor) -> torch.Tensor:
     return x + 1.0
 
 
-def probe_grid(x: torch.Tensor) -> torch.Tensor:
-    """``x + 1`` for (8n, 128) float32: kernel ``probe_grid_kernel`` on a
-    CUDA tensor, :func:`probe_grid_plain` on a CPU tensor."""
-    if x.device.type == "cpu":
-        return probe_grid_plain(x)
+def _require_grid(x: torch.Tensor) -> None:
     if x.dim() != 2 or x.shape[0] % _BLOCK_ROWS:
         raise ValueError(f"probe_grid: x must be (8n, 128), got {tuple(x.shape)}")
     mk._require(x, "x", torch.float32, (x.shape[0], _COLS), x.device)
+
+
+def probe_grid(x: torch.Tensor, design: str = "vec4") -> torch.Tensor:
+    """``x + 1`` for (8n, 128) float32 on a CUDA tensor: ``design="vec4"``
+    kernel ``probe_grid_kernel`` (one float4 per thread; x contiguous and
+    16-byte aligned, else ValueError), ``"loop"`` the first design,
+    :func:`probe_grid_loop`; :func:`probe_grid_plain` on a CPU tensor."""
+    if design == "loop":
+        return probe_grid_loop(x)
+    if design != "vec4":
+        raise ValueError(f"probe_grid: design must be 'vec4' or 'loop', got {design!r}")
+    if x.device.type == "cpu":
+        return probe_grid_plain(x)
+    _require_grid(x)
+    require_vec4(x, "x")
     o = _out(x.shape, torch.float32, x)
     _launch("probe_grid", _lib().sg_probe_grid, x, o, x.shape[0] // _BLOCK_ROWS)
     probe_grid.launches += 1
@@ -101,6 +143,22 @@ def probe_grid(x: torch.Tensor) -> torch.Tensor:
 
 
 probe_grid.launches = 0
+
+
+def probe_grid_loop(x: torch.Tensor) -> torch.Tensor:
+    """:func:`probe_grid` by the first design's kernel
+    ``probe_grid_loop_kernel`` (a loop of scalar loads and stores per
+    thread) on a CUDA tensor."""
+    if x.device.type == "cpu":
+        return probe_grid_plain(x)
+    _require_grid(x)
+    o = _out(x.shape, torch.float32, x)
+    _launch("probe_grid_loop", _lib().sg_probe_grid_loop, x, o, x.shape[0] // _BLOCK_ROWS)
+    probe_grid_loop.launches += 1
+    return o
+
+
+probe_grid_loop.launches = 0
 
 
 # --- 2. acc: one 8-CTA cluster -----------------------------------------------
@@ -233,41 +291,170 @@ def probe_dot_plain(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS) ->
     return (steps * (a.to(torch.float64) @ b.to(torch.float64))).to(torch.float32)
 
 
-def probe_dot(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS) -> torch.Tensor:
-    """``steps * (a @ b)`` for (M, K) @ (K, N), M % 16, K % 8, N % 8 == 0,
-    by kernel ``probe_dot_kernel`` (the ``steps``-step loop in the kernel,
-    mma.sync TF32) on CUDA tensors; :func:`probe_dot_plain` on CPU tensors."""
-    if a.device.type == "cpu":
-        return probe_dot_plain(a, b, steps)
+#: warps per CTA of ``probe_dot_kernel`` up to K = 512, and at most (its
+#: launch bounds); K slices per warp at most (its register arrays of
+#: fragments), so K <= 16 * 8 * 8 = 1024; floats of padding after each row
+#: of a it stages.  The plan is made here alone: the launch takes warps,
+#: slices per warp, row stride and shared memory from it, and refuses
+#: (cudaErrorInvalidValue) a plan beyond the kernel's limits.
+DOT_WARPS = 8
+DOT_MAX_WARPS = 16
+DOT_SLICES = 8
+_DOT_PAD = 4
+
+
+class DotPlan(NamedTuple):
+    """How ``probe_dot_kernel`` covers (M, K) @ (K, N): CTA c computes the
+    8 x 8 output tile at :meth:`tile` (c), warp w of its ``warps`` the
+    8-wide K slices :meth:`slices_of` (w).  Each CTA launches with
+    ``smem_bytes`` of dynamic shared memory: its 8 rows of a at a stride
+    of ``lda`` floats (K + 4: a fragment read then hits 32 distinct banks),
+    its 8 columns of b as (K, 8), and ``warps`` partial 8 x 8 tiles."""
+
+    tiles_m: int
+    tiles_n: int
+    slices: int
+    warps: int
+    slices_per_warp: int
+    lda: int
+    smem_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+    def tile(self, cta: int) -> tuple[int, int]:
+        """(m0, n0), the first row and column of CTA ``cta``'s tile."""
+        return 8 * (cta // self.tiles_n), 8 * (cta % self.tiles_n)
+
+    def slices_of(self, warp: int) -> range:
+        """The K slices (columns 8j .. 8j + 7 of a) warp ``warp`` sums."""
+        j0 = min(warp * self.slices_per_warp, self.slices)
+        return range(j0, min(j0 + self.slices_per_warp, self.slices))
+
+
+def dot_plan(m: int, k: int, n: int) -> DotPlan:
+    """The launch plan of ``probe_dot_kernel`` for (m, k) @ (k, n): one CTA
+    per 8 x 8 output tile; DOT_WARPS warps per CTA, or as many more (up to
+    DOT_MAX_WARPS) as keep each warp's K slices within DOT_SLICES, dealt in
+    runs of ceil(K/8 / warps).  Raises ValueError on a shape the kernel
+    does not take: an empty or ragged tile (m, k or n not a positive
+    multiple of 8), or K > 1024."""
+    if min(m, k, n) <= 0 or m % 8 or k % 8 or n % 8:
+        raise ValueError(f"probe_dot: ({m}, {k}) @ ({k}, {n}) is not a whole number of 8 x 8 "
+                         "output tiles and 8-wide K slices")
+    slices = k // 8
+    if slices > DOT_MAX_WARPS * DOT_SLICES:
+        raise ValueError(f"probe_dot: K = {k} is more than {DOT_MAX_WARPS} warps of "
+                         f"{DOT_SLICES} slices hold in registers ({8 * DOT_MAX_WARPS * DOT_SLICES})")
+    warps = min(DOT_MAX_WARPS, max(DOT_WARPS, -(-slices // DOT_SLICES)))
+    lda = k + _DOT_PAD
+    smem = 4 * (8 * lda + 8 * k + warps * 64)
+    return DotPlan(m // 8, n // 8, slices, warps, -(-slices // warps), lda, smem)
+
+
+def _require_dot(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"probe_dot: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     m, k = a.shape
     n = b.shape[1]
-    if m % 16 or k % 8 or n % 8:
-        raise ValueError(f"probe_dot: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     mk._require(a, "a", torch.float32, (m, k), a.device)
     mk._require(b, "b", torch.float32, (k, n), a.device)
+    return m, k, n
+
+
+def probe_dot(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS,
+              design: str = "split") -> torch.Tensor:
+    """``steps * (a @ b)`` for (M, K) @ (K, N) on CUDA tensors, the
+    ``steps``-step loop in the kernel on the tensor cores (mma.sync m16n8k8
+    TF32, float32 accumulation): ``design="split"`` kernel
+    ``probe_dot_kernel`` (:func:`dot_plan`; a and b contiguous and 16-byte
+    aligned, else ValueError), ``"chain"`` the first design,
+    :func:`probe_dot_chain`; :func:`probe_dot_plain` on CPU tensors.
+    ``probe_dot.smem_bytes`` records the dynamic shared memory of the last
+    launch."""
+    if design == "chain":
+        return probe_dot_chain(a, b, steps)
+    if design != "split":
+        raise ValueError(f"probe_dot: design must be 'split' or 'chain', got {design!r}")
+    if a.device.type == "cpu":
+        return probe_dot_plain(a, b, steps)
+    m, k, n = _require_dot(a, b)
+    plan = dot_plan(m, k, n)
+    require_vec4(a, "a")
+    require_vec4(b, "b")
     o = _out((m, n), torch.float32, a)
-    _launch("probe_dot", _lib().sg_probe_dot, a, b, o, m, k, n, int(steps))
+    _launch("probe_dot", _lib().sg_probe_dot, a, b, o, m, k, n, int(steps), plan.warps,
+            plan.slices_per_warp, plan.lda, plan.smem_bytes)
     probe_dot.launches += 1
+    probe_dot.smem_bytes = plan.smem_bytes
     return o
 
 
 probe_dot.launches = 0
+probe_dot.smem_bytes = None
 
-KERNELS = {"grid": probe_grid, "acc": probe_acc, "conv": probe_conv, "onehot": probe_onehot,
-           "bdot": probe_bdot, "dot": probe_dot}
+
+def probe_dot_chain(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS) -> torch.Tensor:
+    """:func:`probe_dot` by the first design's kernel
+    ``probe_dot_chain_kernel`` (one warp per 16 x 8 tile walking all of K
+    from global memory; M % 16, K % 8, N % 8 == 0) on CUDA tensors;
+    :func:`probe_dot_plain` on CPU tensors."""
+    if a.device.type == "cpu":
+        return probe_dot_plain(a, b, steps)
+    m, k, n = _require_dot(a, b)
+    if m % 16 or k % 8 or n % 8:
+        raise ValueError(f"probe_dot_chain: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    o = _out((m, n), torch.float32, a)
+    _launch("probe_dot_chain", _lib().sg_probe_dot_chain, a, b, o, m, k, n, int(steps))
+    probe_dot_chain.launches += 1
+    return o
+
+
+probe_dot_chain.launches = 0
+
+#: every kernel's own wrapper, by VARIANTS label: ``.launches`` counts its launches
+WRAPPERS = {"grid": probe_grid, "grid_loop": probe_grid_loop, "acc": probe_acc,
+            "conv": probe_conv, "onehot": probe_onehot, "bdot": probe_bdot, "dot": probe_dot,
+            "dot_chain": probe_dot_chain}
 PLAINS = {"grid": probe_grid_plain, "acc": probe_acc_plain, "conv": probe_conv_plain,
           "onehot": probe_onehot_plain, "bdot": probe_bdot_plain, "dot": probe_dot_plain}
-#: one PyTorch call computing the same function (timed beside the kernel,
-#: never called by the port)
+#: one PyTorch call computing the same function on :func:`library_inputs`
+#: (timed beside the kernel, never called by the port)
 LIBRARY = {
     "grid": lambda x: x + 1.0,
-    "acc": lambda x: x.view(_CLUSTER, _BLOCK_ROWS, _COLS).sum((0, 2)),
+    "acc": lambda x: x.view(_CLUSTER, _BLOCK_ROWS, _COLS).sum((0, 2))[:, None],
     "conv": lambda x: x.to(torch.float32),
     "onehot": lambda h, b: torch.zeros((h.shape[0], _BINS), dtype=torch.float32,
                                        device=h.device).scatter_add_(1, h.long(), b),
     "bdot": torch.bmm,
-    "dot": torch.matmul,
+    "dot": lambda a, b, z: torch.addmm(z, a, b, beta=0.0, alpha=DOT_STEPS),
 }
+#: the probes on the tensor cores: their library calls are timed with TF32
+#: allowed (what the kernels compute) and at PyTorch's default precision
+TF32_PROBES = ("bdot", "dot")
+
+
+def library_inputs(name: str, args) -> tuple:
+    """The arguments of ``LIBRARY[name]``: the probe's inputs, and for dot
+    the bias that ``torch.addmm`` ignores at beta=0, made here, outside
+    the call that is timed."""
+    if name != "dot":
+        return tuple(args)
+    a, b = args
+    return a, b, torch.zeros((a.shape[0], b.shape[1]), dtype=a.dtype, device=a.device)
+
+
+@contextlib.contextmanager
+def tf32_matmul(allow: bool):
+    """``torch.backends.cuda.matmul.allow_tf32`` set to ``allow`` inside,
+    restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 # --- inputs --------------------------------------------------------------------
@@ -338,29 +525,59 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, args, exact: bool)
 
 
 def check(device, verbose: bool = False) -> dict:
-    """Every kernel against its plain version on the script's inputs
-    (bit-equal, all six) and on seeded inputs (bit-equal, or the TF32
-    bound for bdot and dot); raises on the first failure.  Returns
-    {probe: largest absolute difference}."""
+    """Every kernel of VARIANTS (both designs of grid and dot) against its
+    plain version on the script's inputs (bit-equal, all eight) and on
+    seeded inputs (bit-equal, or the TF32 bound for bdot and dot), and two
+    launches of ``probe_dot_kernel`` bit-equal to each other (its reduction
+    has a fixed order); raises on the first failure.  Returns {label:
+    largest absolute difference}."""
     worst = {}
-    for label, inputs in (("script", script_inputs(device)), ("seeded", seeded_inputs(device))):
-        for name in PROBES:
+    for which, inputs in (("script", script_inputs(device)), ("seeded", seeded_inputs(device))):
+        for label, name in VARIANTS.items():
             args = inputs[name]
             try:
-                got = KERNELS[name](*args)
-                err = compare(name, got, PLAINS[name](*args), args, exact=label == "script")
+                got = WRAPPERS[label](*args)
+                err = compare(name, got, PLAINS[name](*args), args, exact=which == "script")
             except (AssertionError, RuntimeError) as exc:
                 if verbose:
-                    print(f"[FAIL] {name} ({label} inputs): {type(exc).__name__}: {exc}")
+                    print(f"[FAIL] {label} ({which} inputs): {type(exc).__name__}: {exc}")
                 raise
             if verbose:
-                print(f"[ok]   {name} ({label} inputs): {got.reshape(-1)[:4].tolist()}, "
+                print(f"[ok]   {label} ({which} inputs): {got.reshape(-1)[:4].tolist()}, "
                       f"max |kernel - plain| {err:.3e}")
-            worst[name] = max(worst.get(name, 0.0), err)
+            worst[label] = max(worst.get(label, 0.0), err)
     acc_x = seeded_inputs(device)["acc"][0]
     compare("acc reps", probe_acc(acc_x, ACC_REPS), probe_acc_plain(acc_x), (acc_x,), True)
+    a, b = seeded_inputs(device)["dot"]
+    if not torch.equal(probe_dot(a, b), probe_dot(a, b)):
+        raise AssertionError("S5 dot: two launches on the same inputs differ")
     torch.cuda.synchronize(device)
     return worst
+
+
+def check_library(device) -> dict:
+    """Each LIBRARY call against its probe's plain version, as the kernels
+    are held: bit-equal on the script's inputs; on seeded inputs bdot and
+    dot within the TF32 bound with TF32 allowed.  Returns {probe: largest
+    absolute difference on seeded inputs} for bdot and dot, with TF32
+    allowed and at the default precision (the difference shows that the
+    flag took effect)."""
+    out = {}
+    for name in PROBES:
+        args = script_inputs(device)[name]
+        with tf32_matmul(name in TF32_PROBES):
+            compare(f"library {name}", LIBRARY[name](*library_inputs(name, args)),
+                    PLAINS[name](*args), args, exact=True)
+    for name in TF32_PROBES:
+        args = seeded_inputs(device)[name]
+        want = PLAINS[name](*args)
+        for allow in (True, False):
+            with tf32_matmul(allow):
+                got = LIBRARY[name](*library_inputs(name, args))
+            out.setdefault(name, {})["tf32" if allow else "default"] = compare(
+                name, got, want, args, exact=False)
+    torch.cuda.synchronize(device)
+    return out
 
 
 def bound(name: str, args) -> tuple[float, str]:
@@ -386,20 +603,35 @@ def bound(name: str, args) -> tuple[float, str]:
 
 
 def measure(device, n: int = 200) -> dict:
-    """On the script's own inputs: {probe: {"ms", "plain_ms",
-    "library_ms", "bound_ms", "bound_by"}}, plus "acc_reps" (ms of one
-    launch at ACC_REPS reps) and "acc_step_us", the cost of one cluster
-    reduce-and-barrier step: (t(ACC_REPS) - t(1)) / (ACC_REPS - 1)."""
+    """On the script's own inputs: {label: {"ms", "ms_turns", "plain_ms",
+    "library_ms", "bound_ms", "bound_by"}} for every kernel of VARIANTS (a
+    probe's designs timed in turns: each, then each in reverse order; "ms"
+    is their mean), "library_default_ms" beside "library_ms" for bdot and
+    dot (whose "library_ms" is with TF32 allowed), dot's "ms_steps0" (the
+    launch, the staging and the reduction without the loop), "acc_reps"
+    (ms of one launch at ACC_REPS reps) and "acc_step_us", the cost of one
+    cluster reduce-and-barrier step: (t(ACC_REPS) - t(1)) / (ACC_REPS - 1)."""
     inputs = script_inputs(device)
     res = {}
     for name in PROBES:
         args = inputs[name]
-        kernel, plain, lib = KERNELS[name], PLAINS[name], LIBRARY[name]
+        plain, lib, largs = PLAINS[name], LIBRARY[name], library_inputs(name, args)
         b_ms, b_by = bound(name, args)
-        res[name] = {"ms": cuda_ms(lambda: kernel(*args), n, busy=True),
-                     "plain_ms": cuda_ms(lambda: plain(*args), 10),
-                     "library_ms": cuda_ms(lambda: lib(*args), n, busy=True),
-                     "bound_ms": b_ms, "bound_by": b_by}
+        common = {"plain_ms": cuda_ms(lambda: plain(*args), 10), "bound_ms": b_ms,
+                  "bound_by": b_by}
+        with tf32_matmul(name in TF32_PROBES):
+            common["library_ms"] = cuda_ms(lambda: lib(*largs), n, busy=True)
+        if name in TF32_PROBES:
+            with tf32_matmul(False):
+                common["library_default_ms"] = cuda_ms(lambda: lib(*largs), n, busy=True)
+        labels = [label for label, probe in VARIANTS.items() if probe == name]
+        turns = {label: [] for label in labels}
+        for label in [*labels, *reversed(labels)]:
+            turns[label].append(cuda_ms(lambda: WRAPPERS[label](*args), n, busy=True))
+        for label in labels:
+            res[label] = {"ms": float(np.mean(turns[label])), "ms_turns": turns[label], **common}
+    a, b = inputs["dot"]
+    res["dot"]["ms_steps0"] = cuda_ms(lambda: probe_dot(a, b, steps=0), n, busy=True)
     x = inputs["acc"][0]
     res["acc_reps"] = cuda_ms(lambda: probe_acc(x, ACC_REPS), n, busy=True)
     res["acc_step_us"] = (res["acc_reps"] - res["acc"]["ms"]) * 1e3 / (ACC_REPS - 1)
@@ -407,11 +639,19 @@ def measure(device, n: int = 200) -> dict:
 
 
 def report(res: dict) -> None:
-    for name in PROBES:
-        r = res[name]
-        print(f"S5 {name:6s}: kernel {r['ms'] * 1e3:8.3f} us, plain {r['plain_ms'] * 1e3:9.3f} us, "
-              f"library {r['library_ms'] * 1e3:8.3f} us, bound {r['bound_ms'] * 1e3:.4f} us "
+    us = lambda ms: f"{ms * 1e3:.3f}"   # noqa: E731
+    for label in VARIANTS:
+        r = res[label]
+        lib = f"library {us(r['library_ms'])} us"
+        if "library_default_ms" in r:
+            lib += f" (TF32 allowed; default precision {us(r['library_default_ms'])} us)"
+        turns = ", ".join(us(t) for t in r["ms_turns"])
+        print(f"S5 {label:9s}: kernel {us(r['ms'])} us (in turns: {turns}), "
+              f"plain {us(r['plain_ms'])} us, {lib}, bound {r['bound_ms'] * 1e3:.4f} us "
               f"({r['bound_by']}) per launch [{card()}]")
+    print(f"S5 dot at steps=0 (launch, staging, reduction; no mma): "
+          f"{us(res['dot']['ms_steps0'])} us against {us(res['dot']['ms'])} us at "
+          f"{DOT_STEPS} steps [{card()}]")
     print(f"S5 acc cluster of 8 CTAs: {res['acc']['ms'] * 1e3:.3f} us at 1 rep, "
           f"{res['acc_reps'] * 1e3:.3f} us at {ACC_REPS} reps: "
           f"{res['acc_step_us']:.4f} us per cluster reduce-and-barrier step [{card()}]")
@@ -442,21 +682,33 @@ def resources(log: str) -> dict:
 
 
 def probe_resources(log: str) -> dict:
-    """{probe: resources} of the six S5 kernels."""
+    """{label: resources} of every S5 kernel of VARIANTS, found by its exact
+    name: the length-prefixed identifier in the mangled name, so that
+    ``probe_dot_kernel`` never matches ``probe_dot_chain_kernel``."""
     res = resources(log)
-    return {name: next(v for k, v in res.items() if f"probe_{name}_kernel" in k)
-            for name in PROBES}
+    out = {}
+    for label in VARIANTS:
+        kernel = f"probe_{label}_kernel"
+        found = [v for k, v in res.items() if f"{len(kernel)}{kernel}" in k]
+        if len(found) != 1:
+            raise KeyError(f"{kernel}: {len(found)} entries in the ptxas log")
+        out[label] = found[0]
+    return out
 
 
 def main() -> int:
     device = require_cuda()
     print(card())
     lib = mk.load_library()
-    for name, r in probe_resources(lib.log).items():
-        print(f"S5 {name:6s}: {r['registers']} registers, {r['smem']} B shared, {r['stack']} B "
-              f"stack, spills {r['spill_stores']} B stored / {r['spill_loads']} B loaded")
+    for label, r in probe_resources(lib.log).items():
+        print(f"S5 {label:9s}: {r['registers']} registers, {r['smem']} B static shared, "
+              f"{r['stack']} B stack, spills {r['spill_stores']} B stored / "
+              f"{r['spill_loads']} B loaded")
     worst = check(device, verbose=True)
     print(f"worst |kernel - plain|: {worst}")
+    print(f"S5 dot      : launched with {probe_dot.smem_bytes} B dynamic shared per CTA at "
+          "(32, 512) @ (512, 128)")
+    print(f"worst |library - plain| on seeded inputs: {check_library(device)}")
     report(measure(device))
     return 0
 

@@ -106,11 +106,13 @@ class KernelLibrary:
                 ("sg_correlate_ms_stage", [i] + correlate),
                 ("sg_dma_probe", [i, i, vp, vp, vp, i, i, i, i, vp]),
                 ("sg_probe_grid", [vp, vp, i, vp]),
+                ("sg_probe_grid_loop", [vp, vp, i, vp]),
                 ("sg_probe_acc", [vp, vp, i, vp]),
                 ("sg_probe_conv", [vp, vp, ll, vp]),
                 ("sg_probe_onehot", [vp, vp, vp, i, i, vp]),
                 ("sg_probe_bdot", [vp, vp, vp, i, i, vp]),
-                ("sg_probe_dot", [vp, vp, vp, i, i, i, i, vp])):
+                ("sg_probe_dot", [vp, vp, vp, i, i, i, i, i, i, i, i, vp]),
+                ("sg_probe_dot_chain", [vp, vp, vp, i, i, i, i, vp])):
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = i

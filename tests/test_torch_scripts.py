@@ -324,6 +324,111 @@ def test_s5_compare_and_bounds():
         (32 * 512 + 512 * 128 + 32 * 128) * 4 / 3.35e12 * 1e3)
 
 
+@pytest.mark.parametrize("name", s5.PROBES)
+def test_s5_library_computes_the_same_function(name):
+    """Each LIBRARY call, the yardstick timed beside its kernel, computes
+    the kernel's function: on the script's inputs (those it is timed on)
+    bit-equal to the plain version, shape and dtype included; on seeded
+    inputs bit-equal for grid and conv, within the TF32 bound for bdot and
+    dot, and within 1e-5 * sum |terms| for the float32 sums of acc and
+    onehot (whose ``scatter_add_`` takes only indices that are bins: the
+    seeded ones outside [0, 32) are wrapped into it here)."""
+    for which in ("script", "seeded"):
+        args = (s5.script_inputs("cpu") if which == "script" else s5.seeded_inputs("cpu"))[name]
+        if name == "onehot":
+            args = (args[0].remainder(32), args[1])
+        got = s5.LIBRARY[name](*s5.library_inputs(name, args))
+        want = s5.PLAINS[name](*args)
+        if which == "script" or name in ("grid", "conv"):
+            s5.compare(name, got, want, args, exact=True)
+        elif name in s5.TF32_PROBES:
+            s5.compare(name, got, want, args, exact=False)
+        else:
+            assert got.dtype == want.dtype and got.shape == want.shape
+            err = (got.double() - want.double()).abs().numpy()
+            assert (err <= 1e-5 * _sum_abs_terms(name, args)).all(), err.max()
+
+
+@pytest.mark.parametrize("m, k, n", [(32, 512, 128), (48, 104, 136), (16, 8, 8), (48, 1024, 136),
+                                     (8, 520, 8)])
+def test_s5_dot_plan_covers_each_tile_and_slice_once(m, k, n):
+    """probe_dot_kernel's launch plan: the CTAs' tiles are every 8 x 8
+    output tile once, the warps' K slices every 8-wide slice once, in
+    order, none holding more than DOT_SLICES; at the script's shape 64
+    CTAs of 8 warps, 8 slices each (two chains of 4 mma per step)."""
+    plan = s5.dot_plan(m, k, n)
+    tiles = [plan.tile(c) for c in range(plan.ctas)]
+    assert sorted(tiles) == [(m0, n0) for m0 in range(0, m, 8) for n0 in range(0, n, 8)]
+    slices = [j for w in range(plan.warps) for j in plan.slices_of(w)]
+    assert slices == list(range(k // 8))
+    assert max(len(plan.slices_of(w)) for w in range(plan.warps)) <= s5.DOT_SLICES
+    assert s5.DOT_WARPS <= plan.warps <= s5.DOT_MAX_WARPS
+    # a's rows at a stride whose float4 count is odd: 16-byte copies, and a
+    # fragment read over rows g = 0..7, columns t = 0..3 on 32 distinct banks
+    assert plan.lda >= k and plan.lda % 4 == 0 and (plan.lda // 4) % 2 == 1
+    assert len({(g * plan.lda + t) % 32 for g in range(8) for t in range(4)}) == 32
+    assert plan.smem_bytes == 4 * (8 * plan.lda + 8 * k + 64 * plan.warps) <= 227 * 1024
+    if (m, k, n) == (32, 512, 128):
+        assert (plan.ctas, plan.warps, plan.slices_per_warp, plan.smem_bytes) == (64, 8, 8, 34944)
+    if (m, k, n) == (48, 104, 136):      # 13 slices: the last warps are short
+        assert [len(plan.slices_of(w)) for w in range(plan.warps)] == [2] * 6 + [1, 0]
+    if k > 512:                          # more than 8 warps of 8 slices
+        assert plan.warps > s5.DOT_WARPS
+
+
+@pytest.mark.parametrize("m, k, n", [(12, 512, 128), (32, 500, 128), (32, 512, 132),
+                                     (0, 512, 128), (32, 1032, 128)])
+def test_s5_dot_plan_refuses_shapes_the_kernel_does_not_take(m, k, n):
+    """Ragged tiles or slices, an empty dimension, and a K beyond the
+    fragments 16 warps hold in registers (the largest K taken is 1024)."""
+    with pytest.raises(ValueError, match="probe_dot"):
+        s5.dot_plan(m, k, n)
+    assert s5.dot_plan(8, 1024, 8).warps == s5.DOT_MAX_WARPS
+
+
+def test_s5_vec4_check_refuses_sliced_views():
+    """grid's and dot's 16-byte loads take a 16-byte aligned tensor and
+    nothing else: a view one float past an aligned start raises, a row
+    slice stays aligned (contiguity is ``megakernel._require``'s check,
+    which a column slice fails on the card:
+    test_s5_vec4_kernels_refuse_sliced_views_on_card)."""
+    s5.require_vec4(torch.ones(64, 128), "x")
+    s5.require_vec4(torch.ones(72, 128)[8:], "x")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        s5.require_vec4(torch.ones(64 * 128 + 2)[2:].view(64, 128), "x")
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        s5.require_vec4(torch.ones(64 * 128 + 1)[1:].view(64, 128), "x")
+
+
+_DESIGNS = {"grid": ("vec4", "loop"), "dot": ("split", "chain")}
+
+
+@pytest.mark.parametrize("name", sorted(_DESIGNS))
+def test_s5_design_keyword(name):
+    """Every design of grid and dot takes the plain version on CPU tensors;
+    an unknown design raises on any device."""
+    args = s5.seeded_inputs("cpu")[name]
+    for design in _DESIGNS[name]:
+        assert torch.equal(s5.WRAPPERS[name](*args, design=design), s5.PLAINS[name](*args))
+    with pytest.raises(ValueError, match="design"):
+        s5.WRAPPERS[name](*args, design="wgmma")
+
+
+def test_probe_resources_find_each_kernel_by_exact_name():
+    """probe_dot_kernel and probe_dot_chain_kernel (grid and grid_loop
+    alike) are told apart by the length-prefixed name in the mangled
+    symbol; a kernel missing from the log raises."""
+    names = [f"probe_{label}_kernel" for label in s5.VARIANTS]
+    log = "".join(f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{len(k)}{k}EPKfPf' "
+                  f"for 'sm_90a'\nptxas info    : Used {10 + i} registers, 380 bytes cmem[0]\n"
+                  for i, k in enumerate(reversed(names)))
+    res = s5.probe_resources(log)
+    assert list(res) == list(s5.VARIANTS)
+    assert [r["registers"] for r in res.values()] == list(range(9 + len(names), 9, -1))
+    with pytest.raises(KeyError, match="probe_dot_kernel"):
+        s5.probe_resources(log.replace("16probe_dot_kernel", "16probe_xxx_kernel"))
+
+
 def test_ptxas_resources_parsed():
     log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116probe_acc_kernelEPKfPfi'"
            " for 'sm_90a'\nptxas info    : Function properties for _ZN12_GLOBAL__N_116probe_acc"
@@ -363,7 +468,7 @@ def test_timers_require_cuda():
 
 def test_plain_probes_count_no_launches():
     wrappers = (s1.correlate_ms_stage, s2.track_block_stage, s3.build_frames_vec4,
-                s4.dma_probe, *s5.KERNELS.values())
+                s4.dma_probe, *s5.WRAPPERS.values())
     before = [f.launches for f in wrappers]
     cfg = _cfg()
     s1.correlate_ms_stage("carrier", *s1.ms_args(cfg, "cpu"))
@@ -371,8 +476,8 @@ def test_plain_probes_count_no_launches():
     s3.build_frames_vec4(*s3.frame_args(2, 2, "cpu"))
     s4.dma_probe("bulk", 4, *s4.probe_args(2, 2, "cpu"))
     inputs = s5.seeded_inputs("cpu")
-    for name, kernel in s5.KERNELS.items():
-        assert torch.equal(kernel(*inputs[name]), s5.PLAINS[name](*inputs[name]))
+    for label, name in s5.VARIANTS.items():
+        assert torch.equal(s5.WRAPPERS[label](*inputs[name]), s5.PLAINS[name](*inputs[name]))
     assert [f.launches for f in wrappers] == before
 
 
@@ -425,13 +530,60 @@ def test_dma_probe_kernel_matches_plain_on_card(cuda_device, pattern, depth):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("inputs", ["script", "seeded"])
-@pytest.mark.parametrize("name", s5.PROBES)
-def test_s5_kernel_matches_plain_on_card(cuda_device, name, inputs):
+@pytest.mark.parametrize("label, name", s5.VARIANTS.items())
+def test_s5_kernel_matches_plain_on_card(cuda_device, label, name, inputs):
+    """Every S5 kernel, both designs of grid and dot among them."""
     args = (s5.script_inputs(cuda_device) if inputs == "script"
             else s5.seeded_inputs(cuda_device))[name]
-    s5.compare(name, s5.KERNELS[name](*args), s5.PLAINS[name](*args), args,
+    s5.compare(name, s5.WRAPPERS[label](*args), s5.PLAINS[name](*args), args,
                exact=inputs == "script")
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", _DESIGNS["dot"])
+@pytest.mark.parametrize("m, k, n", [(16, 8, 8), (48, 1024, 136), (48, 104, 136)])
+def test_s5_dot_shapes_on_card(cuda_device, m, k, n, design):
+    """dot at further shapes the wrapper takes: one tile and one slice, a
+    K twice the script's, and 13 slices over 8 warps."""
+    rng = np.random.default_rng(m * k * n)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda_device)
+    s5.compare("dot", s5.probe_dot(a, b, design=design), s5.probe_dot_plain(a, b), (a, b),
+               exact=False)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_s5_dot_launches_bit_equal_on_card(cuda_device):
+    """The warps' partial tiles are summed in a fixed order, no atomics."""
+    a, b = s5.seeded_inputs(cuda_device)["dot"]
+    assert torch.equal(s5.probe_dot(a, b), s5.probe_dot(a, b))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_s5_vec4_kernels_refuse_sliced_views_on_card(cuda_device):
+    """No scalar path: grid and dot raise on a view they cannot load by 16
+    bytes; the first grid design still takes the unaligned one."""
+    ones = lambda *s: torch.ones(s, device=cuda_device)   # noqa: E731
+    with pytest.raises(ValueError, match="contiguous"):
+        s5.probe_grid(ones(64, 256)[:, :128])
+    shifted = ones(64 * 128 + 1)[1:].view(64, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        s5.probe_grid(shifted)
+    assert torch.equal(s5.probe_grid(shifted, design="loop"), s5.probe_grid_plain(shifted))
+    a, b = s5.script_inputs(cuda_device)["dot"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        s5.probe_dot(ones(32 * 512 + 1)[1:].view(32, 512), b)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_s5_library_matches_plain_on_card(cuda_device):
+    errs = s5.check_library(cuda_device)
+    for name in s5.TF32_PROBES:      # TF32 allowed rounds the inputs: a larger difference
+        assert errs[name]["tf32"] > errs[name]["default"]
 
 
 @pytest.mark.gpu
