@@ -186,9 +186,9 @@ def _kernel_wrappers():
     from softgnss_tpu_torch.track import pallas_kernel as pk
 
     return ((mk.build_frames, mk.track_block, mk.track_block_fused, pk.correlate_ms),
-            (pallas_ablate.correlate_ms_stage, mega_vmem_bisect.track_block_stage,
+            (*pallas_ablate.VARIANTS.values(), mega_vmem_bisect.track_block_stage,
              builder_time.build_frames_vec4, dma_probe.dma_probe,
-             *pallas_probe.WRAPPERS.values()))
+             *pallas_probe.VARIANTS.values()))
 
 
 def union_len(starts, length: int, limit: int) -> int:
@@ -581,36 +581,229 @@ def phase_block_kernels(cfg, sig, sc, dev, log: str) -> tuple[dict, dict]:
     return rec_b1, rec_b3
 
 
-def phase_b4(cfg, sig, sc, dev) -> dict:
-    """B4 against its plain version through the per-ms driver; one launch
-    timed at the main path's shapes."""
+def b4_args(cfg, sig, channels, dev) -> tuple:
+    """The arguments of one correlate_ms call: the first ms of ``channels``
+    at their truth state."""
     import torch
 
     from softgnss_tpu_torch.signals.nco import CODE_ONE, carrier_step_u32, code_step_q
-    from softgnss_tpu_torch.track import pallas_kernel as pk
     from softgnss_tpu_torch.track.scan import initial_state
     from softgnss_tpu_torch.track.tables import build_tables
 
-    channels = truth_channels(sc, ["T"] * (N_SATS - 1) + ["-"])
-    worst = hold_against_plain("B4", cfg, sig, channels, ("per_ms", pk.correlate_ms),
-                               ("per_ms", pk.correlate_ms_plain))
     st = initial_state(cfg, channels, dev)
     step_q = code_step_q(st.code_freq, cfg.sampling_freq)
     blk = torch.div(cfg.code_length * CODE_ONE - st.code_rem_q + step_q - 1, step_q,
                     rounding_mode="floor")
     w = carrier_step_u32(st.carr_freq, cfg.sampling_freq)
     active = torch.tensor([s == "T" for s in channels.status], device=dev)
-    args = (cfg, sig, st.ptr, st.carr_phase, w, st.code_rem_q, step_q, blk,
+    return (cfg, sig, st.ptr, st.carr_phase, w, st.code_rem_q, step_q, blk,
             build_tables(channels.prn, dev), active)
-    ms = cuda_ms(lambda: pk.correlate_ms(*args), 200, busy=True)
-    wrapper_ms = host_ms(lambda: pk.correlate_ms(*args), 200)
+
+
+def b4_cases(cfg, sig, sc, dev) -> dict:
+    """{label: correlate_ms arguments}: every shape B4 is held bit-equal at."""
+    import torch
+
+    from softgnss_tpu_torch import default_config
+    from softgnss_tpu_torch.scripts import pallas_ablate as s1
+
+    main = b4_args(cfg, sig, truth_channels(sc, ["T"] * N_SATS), dev)
+    edges = list(main)
+    edges[2] = main[2].clone()
+    edges[2][0] = -777                                  # starts before the capture
+    edges[2][1] = sig.shape[0] - 5000                   # runs past its end
+    edges[2][2] = sig.shape[0] + 100                    # wholly past it
+    idle = list(main)
+    idle[9] = torch.zeros_like(main[9])
+    one_idle = b4_args(cfg, sig, truth_channels(sc, ["T"] * (N_SATS - 1) + ["-"]), dev)
+    cases = {f"C={N_SATS}, all active (the main path's shape)": main,
+             f"C={N_SATS}, one idle": one_idle,
+             "ptr before the capture, past its end": tuple(edges),
+             "every channel idle": tuple(idle),
+             f"fs {ODD_FS / 1e6:.3f} MHz, C=8, one idle":
+                 s1.ms_args(default_config(sampling_freq=ODD_FS, number_of_channels=8), dev, 1)}
+    for c in PARITY_CHANNELS:
+        cases[f"C={c}, one idle (seeded capture)"] = s1.ms_args(
+            default_config(number_of_channels=c), dev, n_idle=1)
+    return cases
+
+
+#: CTAs per channel B4 is timed at (the plan's 16 at 8 channels among them)
+B4_SIZES = (8, 12, 16, 24)
+#: ms of the per-ms route under the profiler, and timed with each B4 design
+B4_PROFILE_MS = 200
+B4_ROUTE_MS = 1000
+
+
+def warm_per_ms(cfg, sig, channels, dev, correlate):
+    """The per-ms route (scan.track_ms) with ``correlate`` as its
+    correlator, after 20 ms of warm-up: a function that tracks the next
+    ``n`` ms and synchronizes."""
+    import torch
+
+    from softgnss_tpu_torch.track.scan import initial_state, track_ms
+    from softgnss_tpu_torch.track.tables import build_tables
+
+    pads = build_tables(channels.prn, dev)
+    active = torch.tensor([s == "T" for s in channels.status], device=dev)
+    cb = torch.as_tensor(channels.acquired_freq).to(dev)
+    st, _ = track_ms(cfg, sig, initial_state(cfg, channels, dev), pads, cb, active, 20, 0,
+                     correlate)
+    torch.cuda.synchronize()
+
+    def run(n: int) -> None:
+        track_ms(cfg, sig, st, pads, cb, active, n, 20, correlate)
+        torch.cuda.synchronize()
+
+    return run
+
+
+def per_ms_route_s(cfg, sig, channels, dev, correlate) -> float:
+    """Host seconds of B4_ROUTE_MS ms of the per-ms route with
+    ``correlate`` as its correlator."""
+    run = warm_per_ms(cfg, sig, channels, dev, correlate)
+    t0 = time.perf_counter()
+    run(B4_ROUTE_MS)
+    return time.perf_counter() - t0
+
+
+def phase_b4(cfg, sig, sc, dev, log: str) -> dict:
+    """B4 against its plain version through the per-ms route and call by
+    call (bit-equal at every shape of b4_cases, over two launches and two
+    replays of a CUDA graph); ptxas's resources of the correlate kernels
+    (no spills); B4 and its other designs timed in turns at the main
+    path's shapes (device, host and in-graph time per call, each S1 stage,
+    each cluster size); one profiler window over the per-ms route."""
+    import functools
+
+    import torch
+
+    from softgnss_tpu_torch.scripts import pallas_ablate as s1
+    from softgnss_tpu_torch.scripts.pallas_probe import resources
+    from softgnss_tpu_torch.scripts.timing import graph_marginal_ms
+    from softgnss_tpu_torch.track import pallas_kernel as pk
+
+    channels = truth_channels(sc, ["T"] * (N_SATS - 1) + ["-"])
+    worst = hold_against_plain("B4", cfg, sig, channels, ("per_ms", pk.correlate_ms),
+                               ("per_ms", pk.correlate_ms_plain))
+    for label, a in b4_cases(cfg, sig, sc, dev).items():
+        got, want = pk.correlate_ms(*a), pk.correlate_ms_plain(*a)
+        check(torch.equal(got, want), f"B4 {label}: differs from the plain version (max abs "
+                                      f"diff {float((got - want).abs().max()):.3e})")
+        check(torch.equal(pk.correlate_ms(*a), got), f"B4 {label}: two launches differ")
+        for v, fn in s1.VARIANTS.items():
+            check(torch.equal(fn("full", *a), want), f"S1 {v} full, {label}: differs")
+        print(f"  B4 bit-equal to its plain version, twice, {label} "
+              f"(plan {tuple(pk.correlate_plan(a[0], a[2].shape[0]))}); S1 "
+              f"{'/'.join(s1.VARIANTS)} full too")
+    args = b4_args(cfg, sig, truth_channels(sc, ["T"] * N_SATS), dev)
+    want = pk.correlate_ms_plain(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pk.correlate_ms(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pk.correlate_ms(*args)
+    for rep in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(out, want), f"B4 in a CUDA graph, replay {rep}: differs")
+    del graph
+    print("  B4 captured in a CUDA graph: two replays bit-equal to the plain version")
+
+    res = {k: v for k, v in resources(log).items() if "correlate" in k}
+    for k, r in sorted(res.items()):
+        print(f"  ptxas {k}: {r['registers']} registers, {r['smem']} B shared, spills "
+              f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded")
+    check(len(res) >= 9 and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                                 for r in res.values()), "a correlate kernel spills")
+    b4_res = [r for k, r in res.items() if "correlate_ms_kernelILi3E" in k]
+    check(len(b4_res) == 1, f"B4's instantiation in the ptxas log: {len(b4_res)}")
+
+    # B4 and its first design, full, in turns: device, host, in a graph
+    designs = {"b4": pk.correlate_ms,
+               "two_pass": functools.partial(s1.correlate_ms_two_pass, "full")}
+    fulls = {v: (lambda f=f: f(*args)) for v, f in designs.items()}
+    t_dev = in_turns(lambda v: fulls[v](), list(fulls), 200)
+    t_host = {v: host_ms(fulls[v], 200) for v in fulls}
+    t_graph = {v: graph_marginal_ms(fulls[v]) for v in fulls}
+    for v in fulls:
+        print(f"  [{smi_line()}] {v:8s} one ms x {N_SATS} ch: device {us_list(t_dev[v])} us per "
+              f"call (in turns), host {t_host[v] * 1e3:.3f} us per wrapper call, in a CUDA graph "
+              f"{t_graph[v] * 1e3:.3f} us per call")
+    stages = s1.time_stages(args)
+    for v, per in stages.items():
+        print(f"  [{smi_line()}] S1 {v:8s} stages at the main path's shape, device / host / "
+              "graph us: " + "; ".join(
+                  f"{s} {t['device'] * 1e3:.3f} / {t['host'] * 1e3:.3f} / {t['graph'] * 1e3:.3f}"
+                  for s, t in per.items()))
+    sizes = in_turns(lambda kn: s1.correlate_ms_stage("full", *args, ctas_per_channel=kn),
+                     list(B4_SIZES), 200)
+    for kn in B4_SIZES:
+        print(f"  [{smi_line()}] {kn:2d} CTAs per channel "
+              f"{tuple(pk.correlate_plan(cfg, N_SATS, kn))}: B4 {us_list(sizes[kn])} us per call")
+
+    t_route = {v: [] for v in designs}
+    for v in [*designs, *reversed(designs)]:
+        t_route[v].append(per_ms_route_s(cfg, sig, channels, dev, designs[v]))
+    print(f"  [{smi_line()}] per-ms route, {B4_ROUTE_MS} ms x {N_SATS} ch (scan.track_ms, host "
+          "clock, in turns): " + ", ".join(f"{v} {[round(t, 3) for t in ts]} s"
+                                          for v, ts in t_route.items()))
+    prof = b4_profile(cfg, sig, channels, dev)
+    ms = float(np.mean(t_dev["b4"]))
     plain_ms = cuda_ms(lambda: pk.correlate_ms_plain(*args), 20)
-    bound = ms_bound(st.ptr, blk, active)
-    print(f"  one ms x {N_SATS} ch: kernel {ms:.4f} ms of device time per launch "
-          f"({wrapper_ms:.4f} ms of host time per wrapper call), plain {plain_ms:.4f} ms, "
-          f"bound {bound[0]:.5f} ms ({bound[1]})")
-    return record("B4", "correlate_ms", "correlate_ms.cu", "softgnss_tpu/track/pallas_kernel.py:98",
-                  worst, ms, plain_ms, bound, None)
+    bound = ms_bound(args[2], args[7], args[9])
+    print(f"  one ms x {N_SATS} ch, all active: B4 {ms * 1e3:.3f} us of device time per launch, "
+          f"plain {plain_ms:.4f} ms, bound {bound[0] * 1e3:.4f} us ({bound[1]})")
+    rec = record("B4", "correlate_ms", "correlate_ms.cu", "softgnss_tpu/track/pallas_kernel.py:98",
+                 worst, ms, plain_ms, bound, None)
+    rec.update(ms_turns=t_dev["b4"], host_ms=t_host["b4"], graph_ms=t_graph["b4"],
+               plan=list(pk.correlate_plan(cfg, N_SATS)), registers=b4_res[0]["registers"],
+               designs={v: {"ms": float(np.mean(t_dev[v])), "host_ms": t_host[v],
+                            "graph_ms": t_graph[v]} for v in fulls if v != "b4"},
+               stages_us={v: {s: {k: t * 1e3 for k, t in st.items()} for s, st in per.items()}
+                          for v, per in stages.items()},
+               us_by_ctas={kn: us_list(sizes[kn]) for kn in B4_SIZES},
+               per_ms_route_s={v: ts for v, ts in t_route.items()}, per_ms_ms=B4_ROUTE_MS,
+               per_ms_profile=prof)
+    return rec
+
+
+def us_list(ts) -> list:
+    return [round(t * 1e3, 4) for t in ts]
+
+
+def b4_profile(cfg, sig, channels, dev) -> dict:
+    """One torch.profiler window over B4_PROFILE_MS ms of the per-ms route
+    (scan.track_ms with B4): every correlate kernel on the card is B4's,
+    one launch per ms; the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from softgnss_tpu_torch.track import pallas_kernel as pk
+
+    run = warm_per_ms(cfg, sig, channels, dev, pk.correlate_ms)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(B4_PROFILE_MS)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = device_spans(prof)
+    names = {}
+    for _, _, n in spans:
+        if "correlate" in n:
+            names[n] = names.get(n, 0) + 1
+    check(len(names) == 1 and "correlate_ms_kernel" in next(iter(names))
+          and sum(names.values()) == B4_PROFILE_MS,
+          f"per-ms route: correlate kernels on the card {names}, expected one "
+          f"correlate_ms_kernel launch per ms ({B4_PROFILE_MS})")
+    busy = busy_us(spans)
+    out = {"wall_s": wall_us / 1e6, "busy_s": busy / 1e6, "idle_share": 1.0 - busy / wall_us,
+           "device_events": len(spans), "correlate_kernels": names}
+    print(f"  per-ms route under the profiler, {B4_PROFILE_MS} ms x {len(channels.prn)} ch: "
+          f"{out['wall_s']:.3f} s, device busy {out['busy_s'] * 1e3:.3f} ms, idle share "
+          f"{out['idle_share']:.4f}, {len(spans)} device events; correlate kernels {names}")
+    return out
 
 
 def ms_bound(ptr, blk, active) -> tuple[float, str]:
@@ -642,21 +835,23 @@ def phase_probes(dev, log: str) -> list[dict]:
     errs = [m.check(dev) for m in probes]
     print("  every S1-S4 stage, variant and load pattern bit-equal to its plain version; "
           f"S5 constructs: max |kernel - plain| {errs[4]} (grid, acc, conv, onehot bit-equal; "
-          "bdot, dot within the TF32 bound; two launches of dot bit-equal)")
+          "bdot, dot within the TF32 bound; two launches of dot, of bdot, bit-equal)")
     print(f"  S5 library calls equal to the plain versions on the script's inputs; on seeded "
           f"inputs max |library - plain| {s5.check_library(dev)} (TF32 allowed / default)")
     s5_res = s5.probe_resources(log)
     for label, r in s5_res.items():
-        print(f"  ptxas probe_{label}_kernel: {r['registers']} registers, {r['smem']} B static "
-              f"shared, spills {r['spill_stores']} B stored / {r['spill_loads']} B loaded")
+        print(f"  ptxas {s5.kernel_of(label)} ({label}): {r['registers']} registers, "
+              f"{r['smem']} B static shared, spills {r['spill_stores']} B stored / "
+              f"{r['spill_loads']} B loaded")
     check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in s5_res.values()),
           "an S5 kernel spills")
     reset_launches()
     res = [m.measure(dev) for m in probes]
     launches = read_launches(probes=True)
     check(all(n > 0 for n in launches.values()), f"probe launches {launches}")
-    dot_smem = s5.probe_dot.smem_bytes       # what the timed launches of dot were given
-    check(dot_smem is not None, "S5 dot: no dynamic shared memory recorded")
+    # what the timed launches of dot and bdot were given
+    dyn_smem = {"dot": s5.probe_dot.smem_bytes, "bdot": s5.probe_bdot.smem_bytes}
+    check(None not in dyn_smem.values(), f"S5: dynamic shared memory recorded {dyn_smem}")
     for m, r in zip(probes, res):
         m.report(r)
     print(f"  launches {launches}")
@@ -682,8 +877,8 @@ def phase_probes(dev, log: str) -> list[dict]:
 
     us = lambda ms, r=1: ms * 1e3 / r   # noqa: E731
     extra = [
-        {"us_per_launch": {n: {s: {k: us(v) for k, v in r1[n][s].items()} for s in s1.STAGES}
-                           for n in r1}},
+        {"us_per_launch": {n: {v: {s: {k: us(t) for k, t in r1[n][v][s].items()}
+                                   for s in s1.STAGES} for v in s1.VARIANTS} for n in r1}},
         {"us_per_ms": {f"C={n}/kN={k[0]}x{k[1]}": {s: us(r2[n][k][s], s2.R) for s in s2.STAGES}
                        for n in r2 for k in r2[n] if k != "plain"}},
         {"us_per_ms": {n: {v: {k: us(t, s3.R) for k, t in r3[n][v].items()} for v in s3.VARIANTS}
@@ -693,7 +888,7 @@ def phase_probes(dev, log: str) -> list[dict]:
     ]
     recs = [
         ("S1", "correlate_ms_stage", "correlate_ms.cu", "scripts/pallas_ablate.py:49",
-         r1[c]["full"]["device"], r1[c]["plain"], b_s1, None),
+         r1[c]["b4"]["full"]["device"], r1[c]["plain"], b_s1, None),
         ("S2", "track_block_stage", "track_block.cu", "scripts/mega_vmem_bisect.py:45",
          r2[c][s2.launch_sizes(dev, c)[1]]["full"], r2[c]["plain"], b_s2, None),
         ("S3", "build_frames_vec4", "build_frames.cu", "scripts/builder_time.py:60",
@@ -704,16 +899,28 @@ def phase_probes(dev, log: str) -> list[dict]:
     out = [{**record(kid, name, src, rep, err, ms, plain_ms, bound, lib),
             "launches": launches[name], **x}
            for (kid, name, src, rep, ms, plain_ms, bound, lib), err, x in zip(recs, errs, extra)]
-    for label, name in s5.VARIANTS.items():
+    # B4's first design, kept for S1's same-run comparison (its stages are
+    # in S1's us_per_launch)
+    out.insert(1, {**record("S1", "correlate_ms_two_pass", "correlate_ms.cu",
+                            "scripts/pallas_ablate.py:49", errs[0],
+                            r1[c]["two_pass"]["full"]["device"], r1[c]["plain"], b_s1, None),
+                   "launches": launches["correlate_ms_two_pass"]})
+    for label in s5.VARIANTS:
+        name = s5.probe_of(label)
         t = r5[label]
         rec = record("S5", f"probe_{label}", "pallas_probe.cu", s5.REPLACES[name], errs[4][label],
                      t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]), t["library_ms"])
         rec.update(launches=launches[f"probe_{label}"], ms_turns=t["ms_turns"],
-                   registers=s5_res[label]["registers"], smem=s5_res[label]["smem"])
+                   kernel=s5.kernel_of(label), registers=s5_res[label]["registers"],
+                   smem=s5_res[label]["smem"])
         if "library_default_ms" in t:     # library_ms: TF32 allowed, as the kernel computes
             rec["library_default_ms"] = t["library_default_ms"]
+        if label in dyn_smem:
+            rec["dynamic_smem"] = dyn_smem[label]
         if label == "dot":
-            rec.update(dynamic_smem=dot_smem, ms_steps0=t["ms_steps0"])
+            rec["ms_steps0"] = t["ms_steps0"]
+        if label == "bdot":
+            rec["ms_by_warps"] = t["ms_by_warps"]
         if name == "acc":
             rec["us_per_cluster_step"] = r5["acc_step_us"]
         out.append(rec)
@@ -1121,7 +1328,7 @@ def main(argv=None) -> int:
     with phase("B1 and B3 vs plain"):
         rec_b1, rec_b3 = phase_block_kernels(cfg, sig, sc, dev, lib.log)
     with phase("B4 vs plain"):
-        rec_b4 = phase_b4(cfg, sig, sc, dev)
+        rec_b4 = phase_b4(cfg, sig, sc, dev, lib.log)
     with phase("probes"):
         rec_probes = phase_probes(dev, lib.log)
     with phase("main path"):

@@ -28,9 +28,13 @@
 //   onehot — o[c, k] = sum_w [h[c, w] == k] * b[c, w], one CTA per row c:
 //            h and b copied to shared memory, thread k owns bin k and walks
 //            w in order;
-//   bdot   — batched (B, 8, K) @ (B, K, 8) on the tensor cores by hand:
-//            mma.sync.aligned.m16n8k8 TF32 with float32 accumulation, M
-//            padded 8 -> 16 with zero rows, one warp per batch;
+//   bdot   — batched (B, 8, K) @ (B, K, 8) on the tensor cores by hand
+//            (mma.sync.aligned.m16n8k8 TF32, float32 accumulation, rows
+//            8..15 of the m16 tile zero): batch i is one 8 x 8 output tile,
+//            so probe_dot_kernel runs it, one CTA per batch on the grid's
+//            y index, steps = 1; the first design, one warp per batch
+//            walking K from global memory, is kept as
+//            probe_bdot_chain_kernel;
 //   dot    — steps * (a @ b), the ``steps``-step loop inside the kernel
 //            as the TPU kernel's fori_loop: one CTA of 8 warps per 8 x 8
 //            output tile, its operands staged on chip once and K split
@@ -199,10 +203,13 @@ __device__ __forceinline__ void mma_tile(const float* __restrict__ a,
   }
 }
 
-// batch i of (B, 8, K) @ (B, K, 8) on warp i
+// The first bdot design, kept to be timed beside it (bdot now launches
+// probe_dot_kernel, section 6): batch i of (B, 8, K) @ (B, K, 8) on warp i,
+// one dependent mma chain over K with its fragments loaded from global
+// memory link by link
 __global__ void __launch_bounds__(128)
-probe_bdot_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  float* __restrict__ o, int batch, int k_dim) {
+probe_bdot_chain_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                        float* __restrict__ o, int batch, int k_dim) {
   const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (i >= batch) return;
   float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -249,6 +256,11 @@ probe_bdot_kernel(const float* __restrict__ a, const float* __restrict__ b,
 // the partial tiles.  The launch bounds name one CTA per SM: without that
 // minimum ptxas held the kernel to 64 registers and spilled; with it, 66
 // and no spill.
+//
+// bdot runs this same body: batch i of (B, 8, K) @ (B, K, 8) is one 8 x 8
+// output tile of an (8, K) @ (K, 8) product at steps = 1, so its grid is
+// (1, B) and the grid's y index selects the batch through the strides
+// batch_a, batch_b, batch_o (dot's grid has one row, y = 0).
 constexpr int kDotMaxWarps = 16;  // the launch bounds
 constexpr int kDotSlices = 8;     // most K slices per warp: their fragments stay in registers
 
@@ -264,8 +276,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __global__ void __launch_bounds__(kDotMaxWarps * 32, 1)
 probe_dot_kernel(const float* __restrict__ a, const float* __restrict__ b,
                  float* __restrict__ o, int k_dim, int n_dim, int steps, int slices_per_warp,
-                 int lda) {
+                 int lda, long long batch_a, long long batch_b, long long batch_o) {
   extern __shared__ __align__(16) float smem[];
+  a += blockIdx.y * batch_a;
+  b += blockIdx.y * batch_b;
+  o += blockIdx.y * batch_o;
   float* sa = smem;
   float* sb = sa + 8 * lda;
   float* part = sb + 8 * k_dim;
@@ -395,40 +410,64 @@ extern "C" int sg_probe_onehot(const void* h, const void* b, void* o, int rows, 
   return last_error();
 }
 
-// a: (batch, 8, k) float32; b: (batch, k, 8) float32; o: (batch, 8, 8); k % 8 == 0
-extern "C" int sg_probe_bdot(const void* a, const void* b, void* o, int batch, int k_dim,
-                             void* stream) {
-  probe_bdot_kernel<<<(batch + 3) / 4, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+// The first bdot design: a: (batch, 8, k); b: (batch, k, 8); o: (batch,
+// 8, 8) float32; k % 8 == 0
+extern "C" int sg_probe_bdot_chain(const void* a, const void* b, void* o, int batch, int k_dim,
+                                   void* stream) {
+  probe_bdot_chain_kernel<<<(batch + 3) / 4, 128, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(o), batch,
       k_dim);
   return last_error();
 }
 
-// a: (m, k); b: (k, n); o: (m, n) float32 = steps * (a @ b); a and b
-// 16-byte aligned.  The launch plan (warps per CTA, K slices per warp, the
-// row stride lda of sa, the bytes of dynamic shared memory) is the
-// wrapper's; this refuses one the kernel cannot run: a ragged or empty
-// tile, more warps than its launch bounds, more slices per warp than its
-// registers hold, K left uncovered, a stride that breaks 16-byte copies,
-// or less shared memory than the layout above takes.
-extern "C" int sg_probe_dot(const void* a, const void* b, void* o, int m_dim, int k_dim,
-                            int n_dim, int steps, int warps, int slices_per_warp, int lda,
-                            int smem, void* stream) {
+namespace {
+
+// probe_dot_kernel over a grid of (m/8 * n/8, batch) CTAs at the wrapper's
+// launch plan (warps per CTA, K slices per warp, the row stride lda of sa,
+// the bytes of dynamic shared memory); refuses a plan the kernel cannot
+// run: a ragged or empty tile, more warps than its launch bounds, more
+// slices per warp than its registers hold, K left uncovered, a stride that
+// breaks 16-byte copies, less shared memory than the layout above takes,
+// or a batch outside the grid's y range.
+int launch_dot(const void* a, const void* b, void* o, int m_dim, int k_dim, int n_dim,
+               int steps, int batch, int warps, int slices_per_warp, int lda, int smem,
+               void* stream) {
   if (m_dim < 8 || m_dim % 8 || k_dim < 8 || k_dim % 8 || n_dim < 8 || n_dim % 8 ||
       warps < 1 || warps > kDotMaxWarps || slices_per_warp < 1 ||
       slices_per_warp > kDotSlices || 8 * warps * slices_per_warp < k_dim || lda < k_dim ||
-      lda % 4 || smem < 4 * (8 * lda + 8 * k_dim + 64 * warps))
+      lda % 4 || smem < 4 * (8 * lda + 8 * k_dim + 64 * warps) || batch < 1 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(probe_dot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  probe_dot_kernel<<<(m_dim / 8) * (n_dim / 8), warps * 32, smem,
+  const long long m = m_dim, k = k_dim, n = n_dim;
+  probe_dot_kernel<<<dim3((m_dim / 8) * (n_dim / 8), batch), warps * 32, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(o), k_dim,
-      n_dim, steps, slices_per_warp, lda);
+      n_dim, steps, slices_per_warp, lda, m * k, k * n, m * n);
   return last_error();
+}
+
+}  // namespace
+
+// a: (batch, 8, k); b: (batch, k, 8); o: (batch, 8, 8) float32; a and b
+// 16-byte aligned; probe_dot_kernel, one CTA per batch (steps = 1), at the
+// wrapper's launch plan (pallas_probe.dot_plan(8, k, 8)), refused past the
+// kernel's limits as sg_probe_dot
+extern "C" int sg_probe_bdot(const void* a, const void* b, void* o, int batch, int k_dim,
+                             int warps, int slices_per_warp, int lda, int smem, void* stream) {
+  return launch_dot(a, b, o, 8, k_dim, 8, 1, batch, warps, slices_per_warp, lda, smem, stream);
+}
+
+// a: (m, k); b: (k, n); o: (m, n) float32 = steps * (a @ b); a and b
+// 16-byte aligned; at the wrapper's launch plan (pallas_probe.dot_plan)
+extern "C" int sg_probe_dot(const void* a, const void* b, void* o, int m_dim, int k_dim,
+                            int n_dim, int steps, int warps, int slices_per_warp, int lda,
+                            int smem, void* stream) {
+  return launch_dot(a, b, o, m_dim, k_dim, n_dim, steps, 1, warps, slices_per_warp, lda, smem,
+                    stream);
 }
 
 // The first dot design: m % 16, k % 8 and n % 8 == 0, any alignment and k

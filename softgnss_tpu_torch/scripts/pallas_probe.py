@@ -8,8 +8,7 @@ via ``batched3d`` :86, ``_k_bdot`` :96 via ``bdot`` :102, ``_k_dot`` :112
 via ``dot2d`` :120).  Its counterpart here is ``csrc/pallas_probe.cu``:
 
 * ``grid`` — ``x + 1``, (64, 128) float32, 8 CTAs of one (8, 128) block,
-  one float4 per thread (``design="loop"``: the first design, a scalar
-  loop);
+  one float4 per thread;
 * ``acc`` — ``o[r] = sum_i sum_j x[8i + r, j]`` into (8, 1): ONE 8-CTA
   thread block cluster reducing its partials through distributed shared
   memory between two cluster barriers; ``reps`` repeats that step, and
@@ -18,17 +17,18 @@ via ``dot2d`` :120).  Its counterpart here is ``csrc/pallas_probe.cu``:
 * ``onehot`` — ``o[c, k] = sum_w [h[c, w] == k] * b[c, w]``, (8, 256) ->
   (8, 32);
 * ``bdot`` — (4, 8, 128) @ (4, 128, 8) on the tensor cores
-  (``mma.sync`` m16n8k8 TF32);
+  (``mma.sync`` m16n8k8 TF32): ``dot``'s kernel body, one CTA per batch
+  (its 8 x 8 output tile), at ``dot_plan(8, K, 8)``;
 * ``dot`` — ``4 * (a @ b)``, (32, 512) @ (512, 128), by a 4-step loop in
   the kernel on the tensor cores: one CTA per 8 x 8 output tile, its
   operands staged in shared memory once, K split across 8 warps
-  (:func:`dot_plan`; ``design="chain"``: the first design, one warp per
-  tile).
+  (:func:`dot_plan`).
 
-``grid`` and ``dot`` were redesigned for the card; their first kernels stay
-(``grid_loop`` and ``dot_chain`` in :data:`VARIANTS`), each with its own
-wrapper and launch count (:func:`probe_grid_loop`,
-:func:`probe_dot_chain`), so that one run times old and new in turns.
+``grid``, ``dot`` and ``bdot`` were redesigned for the card; their first
+kernels stay (``grid_loop``, ``dot_chain`` and ``bdot_chain`` in
+:data:`VARIANTS`), each with its own wrapper and launch count
+(:func:`probe_grid_loop`, :func:`probe_dot_chain`,
+:func:`probe_bdot_chain`), so that one run times old and new in turns.
 
 What "does it lower" was on the TPU is here what ptxas reports for each
 kernel (registers, shared memory, stack, spills), parsed from the kernel
@@ -39,14 +39,14 @@ Run on a CUDA card from the repository root::
     python -m softgnss_tpu_torch.scripts.pallas_probe
 
 It prints the card line and each kernel's resources, holds each kernel
-(both designs of grid and dot) against its plain version on the TPU
+(both designs of grid, dot and bdot) against its plain version on the TPU
 script's own inputs (ones, arange) and on seeded random inputs, printing
 ``[ok]`` or ``[FAIL]`` as the TPU script does (``grid``, ``acc``, ``conv``
 and ``onehot`` bit-equal; ``bdot`` and ``dot`` within ``2^-10 * sum_k
 |a_ik b_kj|`` per output, the TF32 rounding of both inputs, and bit-equal
 on the script's ones), holds each :data:`LIBRARY` call to the same plain
-versions, then times each kernel (the two designs of grid and dot in
-turns), its plain version and one PyTorch call that computes the same
+versions, then times each kernel (the two designs of grid, dot and bdot
+in turns), its plain version and one PyTorch call that computes the same
 function (for bdot and dot with TF32 allowed, as the kernels compute, and
 at PyTorch's default precision).  Without a CUDA card it raises.
 """
@@ -66,12 +66,6 @@ from softgnss_tpu_torch.scripts.timing import TF32_OPS_PER_S, bound_ms, card, cu
 from softgnss_tpu_torch.track import megakernel as mk
 
 PROBES = ("grid", "acc", "conv", "onehot", "bdot", "dot")
-#: every S5 kernel by label, with the probe it computes: its wrapper is
-#: ``probe_<label>`` (:data:`WRAPPERS`), its kernel ``probe_<label>_kernel``;
-#: ``grid_loop`` and ``dot_chain`` are the first designs of grid and dot,
-#: kept to be timed beside the redesigns
-VARIANTS = {"grid": "grid", "grid_loop": "grid", "acc": "acc", "conv": "conv",
-            "onehot": "onehot", "bdot": "bdot", "dot": "dot", "dot_chain": "dot"}
 #: the TPU script's line number of each kernel's pl.pallas_call
 REPLACES = {"grid": "scripts/pallas_probe.py:37", "acc": "scripts/pallas_probe.py:56",
             "conv": "scripts/pallas_probe.py:72", "onehot": "scripts/pallas_probe.py:89",
@@ -101,10 +95,9 @@ def _launch(name: str, fn, *args) -> None:
 
 
 def require_vec4(t: torch.Tensor, name: str) -> None:
-    """Raise unless ``t`` is 16-byte aligned: the grid and dot kernels move
-    it by 16-byte loads (float4, cp.async) and have no scalar path to fall
-    back on (``megakernel._require``, called first, requires it
-    contiguous)."""
+    """Raise unless ``t`` is 16-byte aligned: the grid and dot kernels (dot's
+    also runs bdot) move it by 16-byte loads (float4, cp.async) and have no
+    scalar path to fall back on."""
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned (its address is {t.data_ptr() % 16} "
                          "bytes past a 16-byte boundary)")
@@ -123,15 +116,10 @@ def _require_grid(x: torch.Tensor) -> None:
     mk._require(x, "x", torch.float32, (x.shape[0], _COLS), x.device)
 
 
-def probe_grid(x: torch.Tensor, design: str = "vec4") -> torch.Tensor:
-    """``x + 1`` for (8n, 128) float32 on a CUDA tensor: ``design="vec4"``
-    kernel ``probe_grid_kernel`` (one float4 per thread; x contiguous and
-    16-byte aligned, else ValueError), ``"loop"`` the first design,
-    :func:`probe_grid_loop`; :func:`probe_grid_plain` on a CPU tensor."""
-    if design == "loop":
-        return probe_grid_loop(x)
-    if design != "vec4":
-        raise ValueError(f"probe_grid: design must be 'vec4' or 'loop', got {design!r}")
+def probe_grid(x: torch.Tensor) -> torch.Tensor:
+    """``x + 1`` for (8n, 128) float32 by kernel ``probe_grid_kernel`` (one
+    float4 per thread; x contiguous and 16-byte aligned, else ValueError)
+    on a CUDA tensor; :func:`probe_grid_plain` on a CPU tensor."""
     if x.device.type == "cpu":
         return probe_grid_plain(x)
     _require_grid(x)
@@ -266,24 +254,58 @@ def probe_bdot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(torch.float64) @ b.to(torch.float64)).to(torch.float32)
 
 
-def probe_bdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(B, 8, K) @ (B, K, 8), K % 8 == 0, by kernel ``probe_bdot_kernel``
-    (mma.sync m16n8k8 TF32, float32 accumulation) on CUDA tensors;
-    :func:`probe_bdot_plain` on CPU tensors."""
-    if a.device.type == "cpu":
-        return probe_bdot_plain(a, b)
-    batch, m, k = a.shape
-    if m != 8 or k % 8:
+def _require_bdot(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
+    if a.dim() != 3 or a.shape[1] != 8 or a.shape[2] % 8:
         raise ValueError(f"probe_bdot: a must be (B, 8, 8n), got {tuple(a.shape)}")
+    batch, _, k = a.shape
     mk._require(a, "a", torch.float32, (batch, 8, k), a.device)
     mk._require(b, "b", torch.float32, (batch, k, 8), a.device)
+    return batch, k
+
+
+def probe_bdot(a: torch.Tensor, b: torch.Tensor, warps: int | None = None) -> torch.Tensor:
+    """(B, 8, K) @ (B, K, 8) on CUDA tensors by ``probe_dot_kernel``, the
+    body of :func:`probe_dot`: one CTA per batch (its 8 x 8 output tile,
+    steps = 1) at ``dot_plan(8, K, 8, warps)`` (BDOT_WARPS by default;
+    K a multiple of 8 up to 1024, B <= 65535, a and b contiguous and
+    16-byte aligned, else ValueError); :func:`probe_bdot_plain` on CPU
+    tensors.  ``probe_bdot.smem_bytes`` records the dynamic shared memory
+    of the last launch."""
+    if a.device.type == "cpu":
+        return probe_bdot_plain(a, b)
+    batch, k = _require_bdot(a, b)
+    if batch > 65535:
+        raise ValueError(f"probe_bdot: {batch} batches, more than the grid's 65535")
+    plan = dot_plan(8, k, 8, BDOT_WARPS if warps is None else warps)
+    require_vec4(a, "a")
+    require_vec4(b, "b")
     o = _out((batch, 8, 8), torch.float32, a)
-    _launch("probe_bdot", _lib().sg_probe_bdot, a, b, o, batch, k)
+    _launch("probe_bdot", _lib().sg_probe_bdot, a, b, o, batch, k, plan.warps,
+            plan.slices_per_warp, plan.lda, plan.smem_bytes)
     probe_bdot.launches += 1
+    probe_bdot.smem_bytes = plan.smem_bytes
     return o
 
 
 probe_bdot.launches = 0
+probe_bdot.smem_bytes = None
+
+
+def probe_bdot_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`probe_bdot` by the first design's kernel
+    ``probe_bdot_chain_kernel`` (one warp per batch walking K from global
+    memory; any alignment) on CUDA tensors; :func:`probe_bdot_plain` on
+    CPU tensors."""
+    if a.device.type == "cpu":
+        return probe_bdot_plain(a, b)
+    batch, k = _require_bdot(a, b)
+    o = _out((batch, 8, 8), torch.float32, a)
+    _launch("probe_bdot_chain", _lib().sg_probe_bdot_chain, a, b, o, batch, k)
+    probe_bdot_chain.launches += 1
+    return o
+
+
+probe_bdot_chain.launches = 0
 
 
 def probe_dot_plain(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS) -> torch.Tensor:
@@ -301,6 +323,11 @@ DOT_WARPS = 8
 DOT_MAX_WARPS = 16
 DOT_SLICES = 8
 _DOT_PAD = 4
+#: warps per CTA of bdot (``dot_plan(8, K, 8, BDOT_WARPS)``): one CTA per
+#: batch and only K / 8 slices to deal (16 at the script's K = 128)
+BDOT_WARPS = 4
+#: the warp counts ``measure`` times bdot at, in turns
+BDOT_WARP_SWEEP = (2, 4, 8)
 
 
 class DotPlan(NamedTuple):
@@ -333,13 +360,14 @@ class DotPlan(NamedTuple):
         return range(j0, min(j0 + self.slices_per_warp, self.slices))
 
 
-def dot_plan(m: int, k: int, n: int) -> DotPlan:
+def dot_plan(m: int, k: int, n: int, warps: int = DOT_WARPS) -> DotPlan:
     """The launch plan of ``probe_dot_kernel`` for (m, k) @ (k, n): one CTA
-    per 8 x 8 output tile; DOT_WARPS warps per CTA, or as many more (up to
+    per 8 x 8 output tile; ``warps`` warps per CTA, or as many more (up to
     DOT_MAX_WARPS) as keep each warp's K slices within DOT_SLICES, dealt in
     runs of ceil(K/8 / warps).  Raises ValueError on a shape the kernel
     does not take: an empty or ragged tile (m, k or n not a positive
-    multiple of 8), or K > 1024."""
+    multiple of 8), or K > 1024; or on ``warps`` outside [1,
+    DOT_MAX_WARPS]."""
     if min(m, k, n) <= 0 or m % 8 or k % 8 or n % 8:
         raise ValueError(f"probe_dot: ({m}, {k}) @ ({k}, {n}) is not a whole number of 8 x 8 "
                          "output tiles and 8-wide K slices")
@@ -347,7 +375,9 @@ def dot_plan(m: int, k: int, n: int) -> DotPlan:
     if slices > DOT_MAX_WARPS * DOT_SLICES:
         raise ValueError(f"probe_dot: K = {k} is more than {DOT_MAX_WARPS} warps of "
                          f"{DOT_SLICES} slices hold in registers ({8 * DOT_MAX_WARPS * DOT_SLICES})")
-    warps = min(DOT_MAX_WARPS, max(DOT_WARPS, -(-slices // DOT_SLICES)))
+    if not 1 <= warps <= DOT_MAX_WARPS:
+        raise ValueError(f"probe_dot: {warps} warps, not in [1, {DOT_MAX_WARPS}]")
+    warps = min(DOT_MAX_WARPS, max(warps, -(-slices // DOT_SLICES)))
     lda = k + _DOT_PAD
     smem = 4 * (8 * lda + 8 * k + warps * 64)
     return DotPlan(m // 8, n // 8, slices, warps, -(-slices // warps), lda, smem)
@@ -363,20 +393,14 @@ def _require_dot(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
     return m, k, n
 
 
-def probe_dot(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS,
-              design: str = "split") -> torch.Tensor:
+def probe_dot(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS) -> torch.Tensor:
     """``steps * (a @ b)`` for (M, K) @ (K, N) on CUDA tensors, the
     ``steps``-step loop in the kernel on the tensor cores (mma.sync m16n8k8
-    TF32, float32 accumulation): ``design="split"`` kernel
-    ``probe_dot_kernel`` (:func:`dot_plan`; a and b contiguous and 16-byte
-    aligned, else ValueError), ``"chain"`` the first design,
-    :func:`probe_dot_chain`; :func:`probe_dot_plain` on CPU tensors.
+    TF32, float32 accumulation): kernel ``probe_dot_kernel`` at
+    :func:`dot_plan` (a and b contiguous and 16-byte aligned, else
+    ValueError); :func:`probe_dot_plain` on CPU tensors.
     ``probe_dot.smem_bytes`` records the dynamic shared memory of the last
     launch."""
-    if design == "chain":
-        return probe_dot_chain(a, b, steps)
-    if design != "split":
-        raise ValueError(f"probe_dot: design must be 'split' or 'chain', got {design!r}")
     if a.device.type == "cpu":
         return probe_dot_plain(a, b, steps)
     m, k, n = _require_dot(a, b)
@@ -413,10 +437,26 @@ def probe_dot_chain(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS) ->
 
 probe_dot_chain.launches = 0
 
-#: every kernel's own wrapper, by VARIANTS label: ``.launches`` counts its launches
-WRAPPERS = {"grid": probe_grid, "grid_loop": probe_grid_loop, "acc": probe_acc,
-            "conv": probe_conv, "onehot": probe_onehot, "bdot": probe_bdot, "dot": probe_dot,
-            "dot_chain": probe_dot_chain}
+#: every S5 kernel's own wrapper by label (``.launches`` counts its
+#: launches): ``<probe>`` the design the probe runs, ``<probe>_<first>``
+#: the first design of grid, bdot and dot, kept to be timed beside it
+VARIANTS = {"grid": probe_grid, "grid_loop": probe_grid_loop, "acc": probe_acc,
+            "conv": probe_conv, "onehot": probe_onehot, "bdot": probe_bdot,
+            "bdot_chain": probe_bdot_chain, "dot": probe_dot, "dot_chain": probe_dot_chain}
+
+
+def probe_of(label: str) -> str:
+    """The probe (a key of PROBES, PLAINS, LIBRARY) the kernel ``label``
+    of VARIANTS computes."""
+    return label.split("_")[0]
+
+
+def kernel_of(label: str) -> str:
+    """The CUDA kernel that the wrapper of ``label`` launches: bdot runs
+    dot's body."""
+    return "probe_dot_kernel" if label == "bdot" else f"probe_{label}_kernel"
+
+
 PLAINS = {"grid": probe_grid_plain, "acc": probe_acc_plain, "conv": probe_conv_plain,
           "onehot": probe_onehot_plain, "bdot": probe_bdot_plain, "dot": probe_dot_plain}
 #: one PyTorch call computing the same function on :func:`library_inputs`
@@ -525,18 +565,19 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, args, exact: bool)
 
 
 def check(device, verbose: bool = False) -> dict:
-    """Every kernel of VARIANTS (both designs of grid and dot) against its
-    plain version on the script's inputs (bit-equal, all eight) and on
+    """Every kernel of VARIANTS (both designs of grid, bdot and dot) against
+    its plain version on the script's inputs (bit-equal, all nine) and on
     seeded inputs (bit-equal, or the TF32 bound for bdot and dot), and two
-    launches of ``probe_dot_kernel`` bit-equal to each other (its reduction
-    has a fixed order); raises on the first failure.  Returns {label:
-    largest absolute difference}."""
+    launches of ``probe_dot_kernel``, as dot and as bdot, bit-equal to each
+    other (its reduction has a fixed order); raises on the first failure.
+    Returns {label: largest absolute difference}."""
     worst = {}
     for which, inputs in (("script", script_inputs(device)), ("seeded", seeded_inputs(device))):
-        for label, name in VARIANTS.items():
+        for label, wrapper in VARIANTS.items():
+            name = probe_of(label)
             args = inputs[name]
             try:
-                got = WRAPPERS[label](*args)
+                got = wrapper(*args)
                 err = compare(name, got, PLAINS[name](*args), args, exact=which == "script")
             except (AssertionError, RuntimeError) as exc:
                 if verbose:
@@ -548,9 +589,10 @@ def check(device, verbose: bool = False) -> dict:
             worst[label] = max(worst.get(label, 0.0), err)
     acc_x = seeded_inputs(device)["acc"][0]
     compare("acc reps", probe_acc(acc_x, ACC_REPS), probe_acc_plain(acc_x), (acc_x,), True)
-    a, b = seeded_inputs(device)["dot"]
-    if not torch.equal(probe_dot(a, b), probe_dot(a, b)):
-        raise AssertionError("S5 dot: two launches on the same inputs differ")
+    for name in ("dot", "bdot"):
+        args = seeded_inputs(device)[name]
+        if not torch.equal(VARIANTS[name](*args), VARIANTS[name](*args)):
+            raise AssertionError(f"S5 {name}: two launches on the same inputs differ")
     torch.cuda.synchronize(device)
     return worst
 
@@ -608,9 +650,11 @@ def measure(device, n: int = 200) -> dict:
     probe's designs timed in turns: each, then each in reverse order; "ms"
     is their mean), "library_default_ms" beside "library_ms" for bdot and
     dot (whose "library_ms" is with TF32 allowed), dot's "ms_steps0" (the
-    launch, the staging and the reduction without the loop), "acc_reps"
-    (ms of one launch at ACC_REPS reps) and "acc_step_us", the cost of one
-    cluster reduce-and-barrier step: (t(ACC_REPS) - t(1)) / (ACC_REPS - 1)."""
+    launch, the staging and the reduction without the loop), bdot's
+    "ms_by_warps" ({warps: ms} at each of BDOT_WARP_SWEEP, in turns),
+    "acc_reps" (ms of one launch at ACC_REPS reps) and "acc_step_us", the
+    cost of one cluster reduce-and-barrier step: (t(ACC_REPS) - t(1)) /
+    (ACC_REPS - 1)."""
     inputs = script_inputs(device)
     res = {}
     for name in PROBES:
@@ -624,14 +668,19 @@ def measure(device, n: int = 200) -> dict:
         if name in TF32_PROBES:
             with tf32_matmul(False):
                 common["library_default_ms"] = cuda_ms(lambda: lib(*largs), n, busy=True)
-        labels = [label for label, probe in VARIANTS.items() if probe == name]
+        labels = [label for label in VARIANTS if probe_of(label) == name]
         turns = {label: [] for label in labels}
         for label in [*labels, *reversed(labels)]:
-            turns[label].append(cuda_ms(lambda: WRAPPERS[label](*args), n, busy=True))
+            turns[label].append(cuda_ms(lambda: VARIANTS[label](*args), n, busy=True))
         for label in labels:
             res[label] = {"ms": float(np.mean(turns[label])), "ms_turns": turns[label], **common}
     a, b = inputs["dot"]
     res["dot"]["ms_steps0"] = cuda_ms(lambda: probe_dot(a, b, steps=0), n, busy=True)
+    a, b = inputs["bdot"]
+    sweep = {w: [] for w in BDOT_WARP_SWEEP}
+    for w in [*BDOT_WARP_SWEEP, *reversed(BDOT_WARP_SWEEP)]:
+        sweep[w].append(cuda_ms(lambda: probe_bdot(a, b, warps=w), n, busy=True))
+    res["bdot"]["ms_by_warps"] = {w: float(np.mean(t)) for w, t in sweep.items()}
     x = inputs["acc"][0]
     res["acc_reps"] = cuda_ms(lambda: probe_acc(x, ACC_REPS), n, busy=True)
     res["acc_step_us"] = (res["acc_reps"] - res["acc"]["ms"]) * 1e3 / (ACC_REPS - 1)
@@ -652,6 +701,8 @@ def report(res: dict) -> None:
     print(f"S5 dot at steps=0 (launch, staging, reduction; no mma): "
           f"{us(res['dot']['ms_steps0'])} us against {us(res['dot']['ms'])} us at "
           f"{DOT_STEPS} steps [{card()}]")
+    by_w = ", ".join(f"{w} warps {us(t)} us" for w, t in res["bdot"]["ms_by_warps"].items())
+    print(f"S5 bdot by warps per CTA (in turns; the default is {BDOT_WARPS}): {by_w} [{card()}]")
     print(f"S5 acc cluster of 8 CTAs: {res['acc']['ms'] * 1e3:.3f} us at 1 rep, "
           f"{res['acc_reps'] * 1e3:.3f} us at {ACC_REPS} reps: "
           f"{res['acc_step_us']:.4f} us per cluster reduce-and-barrier step [{card()}]")
@@ -682,13 +733,14 @@ def resources(log: str) -> dict:
 
 
 def probe_resources(log: str) -> dict:
-    """{label: resources} of every S5 kernel of VARIANTS, found by its exact
-    name: the length-prefixed identifier in the mangled name, so that
+    """{label: resources} of the kernel of every S5 label of VARIANTS
+    (:func:`kernel_of`: bdot's is dot's), found by its exact name: the
+    length-prefixed identifier in the mangled name, so that
     ``probe_dot_kernel`` never matches ``probe_dot_chain_kernel``."""
     res = resources(log)
     out = {}
     for label in VARIANTS:
-        kernel = f"probe_{label}_kernel"
+        kernel = kernel_of(label)
         found = [v for k, v in res.items() if f"{len(kernel)}{kernel}" in k]
         if len(found) != 1:
             raise KeyError(f"{kernel}: {len(found)} entries in the ptxas log")
@@ -707,7 +759,8 @@ def main() -> int:
     worst = check(device, verbose=True)
     print(f"worst |kernel - plain|: {worst}")
     print(f"S5 dot      : launched with {probe_dot.smem_bytes} B dynamic shared per CTA at "
-          "(32, 512) @ (512, 128)")
+          f"(32, 512) @ (512, 128); bdot with {probe_bdot.smem_bytes} B at (4, 8, 128) @ "
+          "(4, 128, 8)")
     print(f"worst |library - plain| on seeded inputs: {check_library(device)}")
     report(measure(device))
     return 0

@@ -94,7 +94,7 @@ class KernelLibrary:
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         hf, hi = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_longlong)
         block = [vp] * 15 + [i, i, hf, hi, vp]
-        correlate = [vp, ll] + [vp] * 8 + [ll, i, i, vp, vp, vp]
+        correlate = [vp, ll] + [vp] * 8 + [ll, i, i, i, i, vp, vp, vp, vp]
         for name, args in (
                 ("sg_build_frames", [vp, ll, vp, vp, i, i, i, ll, vp]),
                 ("sg_build_frames_vec4", [vp, ll, vp, vp, i, i, i, ll, vp]),
@@ -104,13 +104,15 @@ class KernelLibrary:
                 ("sg_track_block_max_clusters", [i, i, i, i, i, ctypes.POINTER(i)]),
                 ("sg_correlate_ms", correlate),
                 ("sg_correlate_ms_stage", [i] + correlate),
+                ("sg_correlate_ms_two_pass", [i, vp, ll] + [vp] * 8 + [ll, i, i, vp, vp, vp]),
                 ("sg_dma_probe", [i, i, vp, vp, vp, i, i, i, i, vp]),
                 ("sg_probe_grid", [vp, vp, i, vp]),
                 ("sg_probe_grid_loop", [vp, vp, i, vp]),
                 ("sg_probe_acc", [vp, vp, i, vp]),
                 ("sg_probe_conv", [vp, vp, ll, vp]),
                 ("sg_probe_onehot", [vp, vp, vp, i, i, vp]),
-                ("sg_probe_bdot", [vp, vp, vp, i, i, vp]),
+                ("sg_probe_bdot", [vp, vp, vp, i, i, i, i, i, i, vp]),
+                ("sg_probe_bdot_chain", [vp, vp, vp, i, i, vp]),
                 ("sg_probe_dot", [vp, vp, vp, i, i, i, i, i, i, i, i, vp]),
                 ("sg_probe_dot_chain", [vp, vp, vp, i, i, i, i, vp])):
             fn = getattr(lib, name)

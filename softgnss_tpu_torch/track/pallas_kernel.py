@@ -5,7 +5,9 @@ channels; ``scan.track_ms`` computes the NCO steps and the block length
 before it and runs the float64 loop filters after it, in torch.  That is
 the split of softgnss_tpu.track.pallas_kernel.fused_correlate_ms and
 ``scan._frame_ms_pallas``; the CUDA source is
-``softgnss_tpu_torch/csrc/correlate_ms.cu``.
+``softgnss_tpu_torch/csrc/correlate_ms.cu``: one launch per call, each
+channel over several CTAs whose float64 rows the last of them sums, in
+CTA order, from a scratch allocated once per device (:func:`_scratch`).
 
 The kernel reads the samples straight from the device capture at
 ``[ptr, ptr + blk)``, so the JAX path's block framing (per-block buffers,
@@ -13,12 +15,18 @@ packed frames, frame slack) and its frame-overflow check have nothing to
 guard here; ``scan.track``'s capture-length check still bounds every read
 of a run (a read outside the capture would be a zero sample).
 
-:func:`correlate_ms` launches the kernel for CUDA tensors and runs
-:func:`correlate_ms_plain` for CPU tensors, and for nothing else;
+:func:`correlate_plan` is the only owner of the launch plan (CTAs per
+channel, threads per CTA, 16-sample vectors per CTA): the C entry launches
+with it and refuses (cudaErrorInvalidValue) a plan past the kernel's
+limits.  :func:`correlate_ms` launches the kernel for CUDA tensors and
+runs :func:`correlate_ms_plain` for CPU tensors, and for nothing else;
 ``correlate_ms.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -27,9 +35,90 @@ from softgnss_tpu_torch.signals.nco import carrier_turns, chips_to_q, sin_turns
 from softgnss_tpu_torch.track.megakernel import _check, _ptr, _require, _stream, load_library
 from softgnss_tpu_torch.track.scan import _correlate_gather
 
-#: samples of one channel per CTA and ms (256 threads x 8): 19 CTAs per
-#: channel at the reference front end
-_SAMPLES_PER_CTA = 2048
+#: samples one 16-byte copy brings
+VECTOR = 16
+#: samples each thread correlates per pass: one 32-bit word
+SAMPLES_PER_THREAD = 4
+#: SMs of an H100 SXM: the plan spreads the channels' CTAs over them, one
+#: CTA per SM where the channels allow
+SMS = 132
+#: CTAs per channel at most (the kernel's limit)
+MAX_CTAS_PER_CHANNEL = 64
+#: the kernel's launch bounds, and the vectors its shared buffer holds
+MAX_THREADS = 1024
+MAX_VECTORS_PER_CTA = 512
+#: a CTA gets at least one warp's worth of samples (small front ends take
+#: fewer CTAs per channel, not idle lanes)
+_MIN_VECTORS_PER_CTA = 32 * SAMPLES_PER_THREAD // VECTOR
+
+
+class CorrelatePlan(NamedTuple):
+    """How ``correlate_ms_kernel`` covers one ms: ``ctas_per_channel`` CTAs
+    of ``threads`` threads per channel; CTA r stages the 16-sample vectors
+    [r vpc, (r + 1) vpc) of the window (vpc = ``vectors_per_cta``) into
+    shared memory, 4 samples per thread, then the next
+    ``ctas_per_channel * vpc`` on, so any block length is covered."""
+
+    ctas_per_channel: int
+    threads: int
+    vectors_per_cta: int
+
+    @property
+    def samples_per_cta(self) -> int:
+        return VECTOR * self.vectors_per_cta
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(window: int, n_ch: int, ctas: int | None) -> CorrelatePlan:
+    if n_ch < 1:
+        raise ValueError(f"correlate_ms: {n_ch} channels")
+    if window < 1:
+        raise ValueError(f"correlate_ms: a window of {window} samples")
+    if ctas is not None and not 1 <= ctas <= MAX_CTAS_PER_CHANNEL:
+        raise ValueError(f"correlate_ms: {ctas} CTAs per channel, not in "
+                         f"[1, {MAX_CTAS_PER_CHANNEL}]")
+    n_vec = -(-(window + VECTOR - 1) // VECTOR)       # at any alignment of ptr
+    if ctas is None:
+        ctas = min(MAX_CTAS_PER_CHANNEL, max(SMS // n_ch, -(-n_vec // MAX_VECTORS_PER_CTA)))
+    kn = max(1, min(ctas, -(-n_vec // _MIN_VECTORS_PER_CTA)))
+    vpc = -(-n_vec // kn)
+    kn = -(-n_vec // vpc)                              # no CTA left without vectors
+    if vpc > MAX_VECTORS_PER_CTA:
+        raise ValueError(f"correlate_ms: a window of {window} samples needs {n_vec} 16-sample "
+                         f"vectors, more than {kn} CTAs stage in one pass "
+                         f"({MAX_VECTORS_PER_CTA} each)")
+    threads = min(MAX_THREADS, -(-vpc * VECTOR // SAMPLES_PER_THREAD // 32) * 32)
+    return CorrelatePlan(kn, threads, vpc)
+
+
+def correlate_plan(config: ReceiverConfig, n_ch: int,
+                   ctas_per_channel: int | None = None) -> CorrelatePlan:
+    """The launch plan of B4 for ``n_ch`` channels at ``config``: the
+    window ``samples_per_code + track_window_extra`` (the longest code
+    period the loops hand it) in 16-sample vectors at any alignment, over
+    ``ctas_per_channel`` CTAs per channel (default: SMS // n_ch, one CTA
+    per SM, at most 64; fewer where a CTA would get less than a warp's
+    worth), 4 samples per thread (up to 1024 threads).  Raises ValueError
+    for no channels, a CTA count outside [1, 64], or a window those CTAs
+    do not stage in one pass (512 vectors each)."""
+    return _plan(config.samples_per_code + config.track_window_extra, int(n_ch),
+                 None if ctas_per_channel is None else int(ctas_per_channel))
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(device: torch.device, n_ch: int, ctas: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """B4's float64 partial rows (n_ch, ctas, 6) and its per-channel
+    tickets (n_ch,), allocated once per device and shape, never per call:
+    every launch leaves the tickets zero.  Launches on one device share
+    them, so B4 runs on one stream of a device at a time (the per-ms route
+    does)."""
+    key = (device, n_ch, ctas)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = (torch.empty((n_ch, ctas, 6), dtype=torch.float64, device=device),
+                         torch.zeros(n_ch, dtype=torch.int32, device=device))
+    return _SCRATCH[key]
 
 
 def correlate_ms_plain(config: ReceiverConfig, cap, ptr, carr_phase, w, code_rem_q,
@@ -52,11 +141,12 @@ def correlate_ms_plain(config: ReceiverConfig, cap, ptr, carr_phase, w, code_rem
 
 
 def _launch_correlate(name: str, entry, config: ReceiverConfig, cap, ptr, carr_phase, w,
-                      code_rem_q, step_q, blk, code_pads, active) -> torch.Tensor:
-    """Check the inputs of :func:`correlate_ms`, allocate its output and
-    scratch, and call ``entry`` (a C entry point that takes the arguments
-    of ``sg_correlate_ms``) on the current stream.  Never synchronizes,
-    so a CUDA graph can capture it."""
+                      code_rem_q, step_q, blk, code_pads, active, *plan) -> torch.Tensor:
+    """Check the inputs of :func:`correlate_ms`, allocate its output, and
+    call ``entry`` (a C entry point that takes the arguments of
+    ``sg_correlate_ms`` up to ``n_ch``, then ``plan``'s integers and
+    pointers, then ``out`` and the stream) on the current stream.  Never
+    synchronizes, so a CUDA graph can capture it."""
     dev = cap.device
     c = ptr.shape[0]
     _require(cap, "cap", torch.int8, (cap.shape[0],), dev)
@@ -66,14 +156,13 @@ def _launch_correlate(name: str, entry, config: ReceiverConfig, cap, ptr, carr_p
                           ("active", active, torch.bool)):
         _require(t, arg, dtype, (c,), dev)
     _require(code_pads, "code_pads", torch.float32, (c, 1025), dev)
-    n_cta = -(-(config.samples_per_code + config.track_window_extra) // _SAMPLES_PER_CTA)
-    partial = torch.empty((c, n_cta, 6), dtype=torch.float64, device=dev)
     out = torch.empty((c, 6), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         # a bool tensor is one byte of 0 or 1 per channel: the kernel reads it as is
         rc = entry(_ptr(cap), cap.shape[0], _ptr(ptr), _ptr(carr_phase), _ptr(w),
                    _ptr(code_rem_q), _ptr(step_q), _ptr(blk), _ptr(code_pads), _ptr(active),
-                   chips_to_q(config.dll_correlator_spacing), c, n_cta, _ptr(partial),
+                   chips_to_q(config.dll_correlator_spacing), c,
+                   *[_ptr(p) if isinstance(p, torch.Tensor) else p for p in plan],
                    _ptr(out), _stream(dev))
     _check(rc, name)
     return out
@@ -88,13 +177,15 @@ def correlate_ms(config: ReceiverConfig, cap, ptr, carr_phase, w, code_rem_q, st
     sample, samples in this code period); ``carr_phase``, ``w``: (C,) int32
     carrier NCO counts and counts per sample; ``code_pads``: (C, 1025)
     float32; ``active``: (C,) bool.  Returns (C, 6) float32
-    [i_e, i_p, i_l, q_e, q_p, q_l].  Kernel B4 (csrc/correlate_ms.cu) on
-    CUDA tensors."""
+    [i_e, i_p, i_l, q_e, q_p, q_l].  Kernel B4 (csrc/correlate_ms.cu), one
+    launch at :func:`correlate_plan`, on CUDA tensors."""
     if cap.device.type == "cpu":
         return correlate_ms_plain(config, cap, ptr, carr_phase, w, code_rem_q, step_q,
                                   blk, code_pads, active)
+    plan = correlate_plan(config, ptr.shape[0])
     out = _launch_correlate("correlate_ms", load_library().lib.sg_correlate_ms, config, cap,
-                            ptr, carr_phase, w, code_rem_q, step_q, blk, code_pads, active)
+                            ptr, carr_phase, w, code_rem_q, step_q, blk, code_pads, active,
+                            *plan, *_scratch(cap.device, ptr.shape[0], plan.ctas_per_channel))
     correlate_ms.launches += 1
     return out
 

@@ -106,6 +106,106 @@ def test_correlate_ms_plain_reads_the_capture():
                                      .to(torch.float32))
 
 
+_FRONT_ENDS = {"default": sgt.default_config(),
+               "odd_38194": sgt.default_config(sampling_freq=38_194_000.0),
+               "fast": sgt.fast_config()}
+
+
+@pytest.mark.parametrize("name", list(_FRONT_ENDS))
+def test_correlate_plan_covers_the_window(name):
+    """B4's launch plan covers samples_per_code + track_window_extra at any
+    alignment of ptr in one pass, one 4-sample word per thread, within the
+    kernel's limits (64 CTAs per channel, 1024 threads in warps, 512 staged
+    vectors), with at most one CTA per SM of an H100 where it can."""
+    cfg = _FRONT_ENDS[name]
+    window = cfg.samples_per_code + cfg.track_window_extra
+    for n_ch in (1, 3, 8, 12, 40):
+        plan = pk.correlate_plan(cfg, n_ch)
+        assert plan.ctas_per_channel * plan.samples_per_cta >= window + pk.VECTOR - 1
+        assert (plan.ctas_per_channel - 1) * plan.vectors_per_cta < -(-(window + 15) // 16)
+        if plan.threads < pk.MAX_THREADS:       # else a thread takes two words
+            assert plan.samples_per_cta <= plan.threads * pk.SAMPLES_PER_THREAD < (
+                plan.samples_per_cta + 32 * pk.SAMPLES_PER_THREAD)
+        assert plan.threads % 32 == 0 and plan.threads <= pk.MAX_THREADS
+        assert 1 <= plan.ctas_per_channel <= 64 and plan.vectors_per_cta <= 512
+        assert plan.samples_per_cta >= 32 * pk.SAMPLES_PER_THREAD     # a warp's worth
+        fewest = -(-(window + 15) // 16 // 512)
+        assert n_ch * plan.ctas_per_channel <= max(pk.SMS, n_ch * (fewest + 1))
+    if name != "fast":
+        assert pk.correlate_plan(cfg, 8) == (16, 608, 150)
+        assert pk.correlate_plan(cfg, 12).ctas_per_channel == 11
+        assert pk.correlate_plan(cfg, 40) == (5, 1024, 478)
+        assert pk.correlate_plan(cfg, 8, 12) == (12, 800, 200)
+
+
+@pytest.mark.parametrize("case", ["no channels", "fs 200 MHz", "0 CTAs", "65 CTAs"])
+def test_correlate_plan_refuses_shapes_past_its_limits(case):
+    cfg, n_ch, kn = sgt.default_config(), 8, None
+    if case == "no channels":
+        n_ch = 0
+    elif case == "fs 200 MHz":      # 200 000 samples per ms: more than 8 x 512 vectors
+        cfg, kn = sgt.default_config(sampling_freq=200e6), 8
+    else:
+        kn = int(case.split()[0])
+    with pytest.raises(ValueError, match="correlate_ms"):
+        pk.correlate_plan(cfg, n_ch, kn)
+
+
+def test_correlate_scratch_is_allocated_once():
+    """B4's float64 rows and tickets come from one allocation per device and
+    shape, never one per call: 16-byte aligned rows (the last CTA copies
+    them by 16-byte cp.async) and tickets that start at zero."""
+    rows, tickets = pk._scratch(torch.device("cpu"), 8, 16)
+    again = pk._scratch(torch.device("cpu"), 8, 16)
+    assert again[0] is rows and again[1] is tickets
+    assert rows.shape == (8, 16, 6) and rows.dtype == torch.float64
+    assert rows.data_ptr() % 16 == 0 and (6 * 8) % 16 == 0
+    assert tickets.shape == (8,) and not tickets.any()
+
+
+def _vector_cut(address: int, p0: int, n: int, n_cap: int, plan) -> list:
+    """The window samples k that correlate_ms_kernel's threads correlate,
+    in the kernel's own index arithmetic (csrc/correlate_ms.cu): 16-byte
+    vectors on the capture's address grid, rank r's [r vpc, (r+1) vpc) then
+    every kn vpc on, staged; thread t's 4-sample words t, t + threads, ...,
+    lanes [lo, hi) in the window and the capture."""
+    kn, vpc, threads = plan.ctas_per_channel, plan.vectors_per_cta, plan.threads
+    head = (address + p0) % 16
+    n_vec = (head + n + 15) // 16 if n > 0 else 0
+    got = []
+    for rank in range(kn):
+        v0 = rank * vpc
+        while v0 < n_vec:
+            nv = min(vpc, n_vec - v0)
+            s_base = p0 - head + 16 * v0
+            assert (address + s_base) % 16 == 0          # every copy 16-byte aligned
+            for tid in range(threads):
+                for i in range(4 * tid, 16 * nv, 4 * threads):
+                    s0 = s_base + i
+                    k0 = s0 - p0
+                    lo, hi = max(-k0, -s0, 0), min(n - k0, n_cap - s0, 4)
+                    got.extend(k0 + j for j in range(lo, hi))
+            v0 += kn * vpc
+    return got
+
+
+@pytest.mark.parametrize("address, p0, n, n_cap", [
+    (0x7F0000000000, 0, 38_200, 10**6),          # aligned
+    (0x7F0000000000, 13, 38_201, 10**6),         # odd ptr
+    (0x7F0000000007, 1000, 38_194, 10**6),       # unaligned capture
+    (0x7F0000000000, -21, 38_192, 10**6),        # before the capture
+    (0x7F0000000000, 10**6 - 500, 38_192, 10**6),  # past its end
+    (0x7F0000000000, 3, 3 * 38_200, 10**6),      # longer than one pass
+])
+def test_correlate_vector_cut_takes_each_sample_once(address, p0, n, n_cap):
+    """Every sample of [ptr, ptr + blk) inside the capture is correlated by
+    exactly one lane, and nothing else, at any alignment and length."""
+    plan = pk.correlate_plan(sgt.default_config(), 8)
+    got = _vector_cut(address, p0, n, n_cap, plan)
+    want = [k for k in range(n) if 0 <= p0 + k < n_cap]
+    assert len(got) == len(want) and sorted(got) == want
+
+
 def test_overflow_is_flagged():
     """A frame that cannot hold its ms span is reported, never silent."""
     cfg, sig, ch = _scenario("cpu")
@@ -201,6 +301,7 @@ def test_fused_and_per_ms_kernels_match_plain_on_card(cuda_device, kernel, n_ch,
     a resume and an idle channel."""
     cfg, sig, ch = _scenario(cuda_device, n_ch)
     fused = functools.partial(mk.track_block_fused, ctas_per_channel=kn)
+    assert pk.correlate_plan(cfg, n_ch).ctas_per_channel > 1
     pair, plain = (((None, fused), (None, mk.track_block_fused_plain))
                    if kernel == "B3" else
                    (("per_ms", pk.correlate_ms), ("per_ms", pk.correlate_ms_plain)))
@@ -213,3 +314,74 @@ def test_fused_and_per_ms_kernels_match_plain_on_card(cuda_device, kernel, n_ch,
         elif f in ("i_p", "i_e", "i_l", "q_e", "q_p", "q_l"):
             assert np.abs(a - b).max() <= 1e-4 * np.sqrt(np.mean(b.astype(np.float64) ** 2)), f
     torch.cuda.synchronize()
+
+
+def _b4_args(dev, n_ch: int, cfg=None, n_idle: int = 1):
+    """One ms of every channel of a seeded capture (the probes' inputs)."""
+    from softgnss_tpu_torch.scripts.pallas_ablate import ms_args
+
+    return ms_args(cfg or sgt.default_config(number_of_channels=n_ch), dev, n_idle=n_idle)
+
+
+def _assert_b4_bit_equal(args):
+    got = pk.correlate_ms(*args)
+    want = pk.correlate_ms_plain(*args)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert torch.equal(pk.correlate_ms(*args), got)         # a second launch: the same bits
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ch", [3, 8, 12])
+def test_correlate_ms_bit_equal_on_card(cuda_device, n_ch):
+    """B4, one launch per call, bit-equal to its plain version at the
+    reference front end with one idle channel, over two launches."""
+    before = pk.correlate_ms.launches
+    _assert_b4_bit_equal(_b4_args(cuda_device, n_ch))
+    assert pk.correlate_ms.launches == before + 2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["edges", "one idle", "all idle", "odd front end"])
+def test_correlate_ms_edge_cases_on_card(cuda_device, case):
+    """ptr before the capture and past its end (partly and wholly), idle
+    channels (their rows zero), and the 38.194-MHz front end, whose windows
+    start at any alignment."""
+    if case == "odd front end":
+        args = _b4_args(cuda_device, 8, sgt.default_config(sampling_freq=38_194_000.0,
+                                                           number_of_channels=8))
+    else:
+        args = list(_b4_args(cuda_device, 8, n_idle=0))
+        n_cap = args[1].shape[0]
+        if case == "edges":
+            args[2] = args[2].clone()
+            args[2][:4] = torch.tensor([-777, -38_000, n_cap - 5000, n_cap + 3], device=cuda_device)
+        else:
+            args[9] = torch.zeros_like(args[9])
+            if case == "one idle":
+                args[9][1:] = True
+    got = _assert_b4_bit_equal(tuple(args))
+    assert not got[~args[9]].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_correlate_ms_in_a_cuda_graph_on_card(cuda_device):
+    """B4 captured in a CUDA graph (nothing in the wrapper synchronizes or
+    allocates scratch): two replays give the plain version's bits."""
+    args = _b4_args(cuda_device, 8)
+    want = pk.correlate_ms_plain(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pk.correlate_ms(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pk.correlate_ms(*args)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)

@@ -159,6 +159,21 @@ def test_b4_full_stage_plain_is_correlate_ms_plain():
     assert torch.equal(s1.correlate_ms_stage("full", *args), pk.correlate_ms_plain(*args))
 
 
+@pytest.mark.parametrize("label", list(s1.VARIANTS))
+def test_b4_variant_takes_plain_on_cpu(label):
+    """Each design of B4 in S1 (the route's kernel and the two-pass first
+    design) runs the plain version of every stage on CPU tensors, counting
+    no launch; an unknown stage raises."""
+    fn = s1.VARIANTS[label]
+    args = s1.ms_args(_cfg(), "cpu", n_idle=1)
+    before = fn.launches
+    for stage in s1.STAGES:
+        assert torch.equal(fn(stage, *args), s1.correlate_ms_stage_plain(stage, *args)), stage
+    assert fn.launches == before
+    with pytest.raises(ValueError, match="stage"):
+        s1.correlate_ms_stage_plain("bb", *args)
+
+
 # --- S3: B2 and its 16-byte variant -----------------------------------------
 
 
@@ -386,6 +401,26 @@ def test_s5_dot_plan_refuses_shapes_the_kernel_does_not_take(m, k, n):
     assert s5.dot_plan(8, 1024, 8).warps == s5.DOT_MAX_WARPS
 
 
+@pytest.mark.parametrize("k", [8, 128, 512, 1024])
+def test_s5_dot_plan_gives_bdot_a_plan(k):
+    """bdot's shapes, (B, 8, K) @ (B, K, 8), are one 8 x 8 tile of dot's
+    kernel: one CTA, BDOT_WARPS warps (more only where K needs them), every
+    K slice once; any warp count outside [1, 16] raises."""
+    plan = s5.dot_plan(8, k, 8, s5.BDOT_WARPS)
+    assert (plan.ctas, plan.tile(0)) == (1, (0, 0))
+    assert [j for w in range(plan.warps) for j in plan.slices_of(w)] == list(range(k // 8))
+    assert plan.warps == max(s5.BDOT_WARPS, -(-(k // 8) // s5.DOT_SLICES))
+    assert plan.slices_per_warp <= s5.DOT_SLICES
+    assert plan.smem_bytes == 4 * (8 * plan.lda + 8 * k + 64 * plan.warps)
+    if k == 128:
+        assert (plan.warps, plan.slices_per_warp) == (s5.BDOT_WARPS, 16 // s5.BDOT_WARPS)
+    for w in s5.BDOT_WARP_SWEEP:
+        assert s5.dot_plan(8, k, 8, w).warps >= w
+    for w in (0, s5.DOT_MAX_WARPS + 1):
+        with pytest.raises(ValueError, match="warps"):
+            s5.dot_plan(8, k, 8, w)
+
+
 def test_s5_vec4_check_refuses_sliced_views():
     """grid's and dot's 16-byte loads take a 16-byte aligned tensor and
     nothing else: a view one float past an aligned start raises, a row
@@ -400,31 +435,36 @@ def test_s5_vec4_check_refuses_sliced_views():
         s5.require_vec4(torch.ones(64 * 128 + 1)[1:].view(64, 128), "x")
 
 
-_DESIGNS = {"grid": ("vec4", "loop"), "dot": ("split", "chain")}
-
-
-@pytest.mark.parametrize("name", sorted(_DESIGNS))
-def test_s5_design_keyword(name):
-    """Every design of grid and dot takes the plain version on CPU tensors;
-    an unknown design raises on any device."""
-    args = s5.seeded_inputs("cpu")[name]
-    for design in _DESIGNS[name]:
-        assert torch.equal(s5.WRAPPERS[name](*args, design=design), s5.PLAINS[name](*args))
-    with pytest.raises(ValueError, match="design"):
-        s5.WRAPPERS[name](*args, design="wgmma")
+@pytest.mark.parametrize("label", list(s5.VARIANTS))
+def test_s5_variant_takes_plain_on_cpu(label):
+    """Each S5 kernel's own wrapper (the redesigns and the first designs of
+    grid, bdot and dot alike, each reached only through its own wrapper)
+    runs its probe's plain version on CPU tensors, on the script's and on
+    seeded inputs, counting no launch."""
+    fn = s5.VARIANTS[label]
+    name = s5.probe_of(label)
+    assert name in s5.PROBES and fn.__name__ == f"probe_{label}"
+    before = fn.launches
+    for inputs in (s5.script_inputs("cpu"), s5.seeded_inputs("cpu")):
+        assert torch.equal(fn(*inputs[name]), s5.PLAINS[name](*inputs[name]))
+    assert fn.launches == before
 
 
 def test_probe_resources_find_each_kernel_by_exact_name():
-    """probe_dot_kernel and probe_dot_chain_kernel (grid and grid_loop
-    alike) are told apart by the length-prefixed name in the mangled
-    symbol; a kernel missing from the log raises."""
-    names = [f"probe_{label}_kernel" for label in s5.VARIANTS]
+    """probe_dot_kernel and probe_dot_chain_kernel (grid and grid_loop,
+    bdot_chain alike) are told apart by the length-prefixed name in the
+    mangled symbol; bdot's resources are dot's kernel's; a kernel missing
+    from the log raises."""
+    names = list(dict.fromkeys(s5.kernel_of(label) for label in s5.VARIANTS))
+    assert len(names) == len(s5.VARIANTS) - 1          # bdot runs dot's body
     log = "".join(f"ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_1{len(k)}{k}EPKfPf' "
                   f"for 'sm_90a'\nptxas info    : Used {10 + i} registers, 380 bytes cmem[0]\n"
-                  for i, k in enumerate(reversed(names)))
+                  for i, k in enumerate(names))
     res = s5.probe_resources(log)
     assert list(res) == list(s5.VARIANTS)
-    assert [r["registers"] for r in res.values()] == list(range(9 + len(names), 9, -1))
+    regs = {k: 10 + i for i, k in enumerate(names)}
+    assert [r["registers"] for r in res.values()] == [regs[s5.kernel_of(x)] for x in s5.VARIANTS]
+    assert res["bdot"] == res["dot"]
     with pytest.raises(KeyError, match="probe_dot_kernel"):
         s5.probe_resources(log.replace("16probe_dot_kernel", "16probe_xxx_kernel"))
 
@@ -467,17 +507,19 @@ def test_timers_require_cuda():
 
 
 def test_plain_probes_count_no_launches():
-    wrappers = (s1.correlate_ms_stage, s2.track_block_stage, s3.build_frames_vec4,
-                s4.dma_probe, *s5.WRAPPERS.values())
+    wrappers = (*s1.VARIANTS.values(), s2.track_block_stage, s3.build_frames_vec4,
+                s4.dma_probe, *s5.VARIANTS.values())
     before = [f.launches for f in wrappers]
     cfg = _cfg()
-    s1.correlate_ms_stage("carrier", *s1.ms_args(cfg, "cpu"))
+    for fn in s1.VARIANTS.values():
+        fn("carrier", *s1.ms_args(cfg, "cpu"))
     s2.track_block_stage("load", *s2.block_args(cfg, 2, "cpu"))
     s3.build_frames_vec4(*s3.frame_args(2, 2, "cpu"))
     s4.dma_probe("bulk", 4, *s4.probe_args(2, 2, "cpu"))
     inputs = s5.seeded_inputs("cpu")
-    for label, name in s5.VARIANTS.items():
-        assert torch.equal(s5.WRAPPERS[label](*inputs[name]), s5.PLAINS[name](*inputs[name]))
+    for label, fn in s5.VARIANTS.items():
+        name = s5.probe_of(label)
+        assert torch.equal(fn(*inputs[name]), s5.PLAINS[name](*inputs[name]))
     assert [f.launches for f in wrappers] == before
 
 
@@ -503,11 +545,15 @@ def test_b1_stage_kernel_matches_plain_on_card(cuda_device, stage):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("label", list(s1.VARIANTS))
 @pytest.mark.parametrize("stage", s1.STAGES)
-def test_b4_stage_kernel_matches_plain_on_card(cuda_device, stage):
-    args = s1.ms_args(_cfg(), cuda_device, n_idle=1)
-    assert torch.equal(s1.correlate_ms_stage(stage, *args),
-                       s1.correlate_ms_stage_plain(stage, *args))
+def test_b4_stage_kernel_matches_plain_on_card(cuda_device, stage, label):
+    """Every stage of both designs of B4, at the fast and the reference
+    front end, bit-equal to its plain version."""
+    for cfg in (_cfg(), sgt.default_config(number_of_channels=8)):
+        args = s1.ms_args(cfg, cuda_device, n_idle=1)
+        assert torch.equal(s1.VARIANTS[label](stage, *args),
+                           s1.correlate_ms_stage_plain(stage, *args))
     torch.cuda.synchronize()
 
 
@@ -530,35 +576,58 @@ def test_dma_probe_kernel_matches_plain_on_card(cuda_device, pattern, depth):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("inputs", ["script", "seeded"])
-@pytest.mark.parametrize("label, name", s5.VARIANTS.items())
-def test_s5_kernel_matches_plain_on_card(cuda_device, label, name, inputs):
-    """Every S5 kernel, both designs of grid and dot among them."""
+@pytest.mark.parametrize("label", list(s5.VARIANTS))
+def test_s5_kernel_matches_plain_on_card(cuda_device, label, inputs):
+    """Every S5 kernel, both designs of grid, bdot and dot among them."""
+    name = s5.probe_of(label)
     args = (s5.script_inputs(cuda_device) if inputs == "script"
             else s5.seeded_inputs(cuda_device))[name]
-    s5.compare(name, s5.WRAPPERS[label](*args), s5.PLAINS[name](*args), args,
+    s5.compare(name, s5.VARIANTS[label](*args), s5.PLAINS[name](*args), args,
                exact=inputs == "script")
     torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("design", _DESIGNS["dot"])
+@pytest.mark.parametrize("label", ["dot", "dot_chain"])
 @pytest.mark.parametrize("m, k, n", [(16, 8, 8), (48, 1024, 136), (48, 104, 136)])
-def test_s5_dot_shapes_on_card(cuda_device, m, k, n, design):
+def test_s5_dot_shapes_on_card(cuda_device, m, k, n, label):
     """dot at further shapes the wrapper takes: one tile and one slice, a
     K twice the script's, and 13 slices over 8 warps."""
     rng = np.random.default_rng(m * k * n)
     a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(cuda_device)
     b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32)).to(cuda_device)
-    s5.compare("dot", s5.probe_dot(a, b, design=design), s5.probe_dot_plain(a, b), (a, b),
-               exact=False)
+    s5.compare("dot", s5.VARIANTS[label](a, b), s5.probe_dot_plain(a, b), (a, b), exact=False)
     torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
-def test_s5_dot_launches_bit_equal_on_card(cuda_device):
-    """The warps' partial tiles are summed in a fixed order, no atomics."""
-    a, b = s5.seeded_inputs(cuda_device)["dot"]
-    assert torch.equal(s5.probe_dot(a, b), s5.probe_dot(a, b))
+@pytest.mark.parametrize("label", ["bdot", "bdot_chain"])
+@pytest.mark.parametrize("k", [8, 128, 512])
+@pytest.mark.parametrize("batch", [1, 4, 7])
+def test_s5_bdot_shapes_on_card(cuda_device, batch, k, label):
+    """bdot in both designs at batch 1, 4 and 7 and K = 8, 128, 512: within
+    the TF32 bound on seeded inputs, bit-equal on ones; dot's body as bdot
+    at every warp count of the sweep."""
+    rng = np.random.default_rng(batch * k)
+    a = torch.from_numpy(rng.standard_normal((batch, 8, k)).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(rng.standard_normal((batch, k, 8)).astype(np.float32)).to(cuda_device)
+    s5.compare("bdot", s5.VARIANTS[label](a, b), s5.probe_bdot_plain(a, b), (a, b), exact=False)
+    ones = (torch.ones_like(a), torch.ones_like(b))
+    s5.compare("bdot", s5.VARIANTS[label](*ones), s5.probe_bdot_plain(*ones), ones, exact=True)
+    if label == "bdot":
+        for w in s5.BDOT_WARP_SWEEP:
+            s5.compare("bdot", s5.probe_bdot(a, b, warps=w), s5.probe_bdot_plain(a, b), (a, b),
+                       exact=False)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dot", "bdot"])
+def test_s5_dot_launches_bit_equal_on_card(cuda_device, name):
+    """The warps' partial tiles are summed in a fixed order, no atomics:
+    as dot and as bdot."""
+    args = s5.seeded_inputs(cuda_device)[name]
+    assert torch.equal(s5.VARIANTS[name](*args), s5.VARIANTS[name](*args))
     torch.cuda.synchronize()
 
 
@@ -572,10 +641,13 @@ def test_s5_vec4_kernels_refuse_sliced_views_on_card(cuda_device):
     shifted = ones(64 * 128 + 1)[1:].view(64, 128)
     with pytest.raises(ValueError, match="16-byte aligned"):
         s5.probe_grid(shifted)
-    assert torch.equal(s5.probe_grid(shifted, design="loop"), s5.probe_grid_plain(shifted))
+    assert torch.equal(s5.probe_grid_loop(shifted), s5.probe_grid_plain(shifted))
     a, b = s5.script_inputs(cuda_device)["dot"]
     with pytest.raises(ValueError, match="16-byte aligned"):
         s5.probe_dot(ones(32 * 512 + 1)[1:].view(32, 512), b)
+    a, b = s5.script_inputs(cuda_device)["bdot"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        s5.probe_bdot(ones(4 * 8 * 128 + 1)[1:].view(4, 8, 128), b)
     torch.cuda.synchronize()
 
 
