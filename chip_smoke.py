@@ -33,14 +33,17 @@ script exits non-zero:
                 pallas_ablate, S2 mega_vmem_bisect, S3 builder_time, S4
                 dma_probe, S5 pallas_probe): every stage, variant, load
                 pattern and construct against its plain version (bit-equal;
-                S5's tensor-core products within their TF32 bound; S5 grid
-                and dot in both designs, the redesign and the first), S5's library
-                calls against the same plain versions, ptxas's resources of
-                every S5 kernel (no spills), then each probe's timings (S5's
-                two designs in turns, its tensor-core library calls with
-                TF32 allowed and at the default precision), S5's cluster
-                reduce-and-barrier step among them (its own path: the
-                counts are zeroed before the timings and read after)
+                S5's tensor-core products within their TF32 bound; S4 at
+                every cluster size and its first design, S5 grid, acc, bdot
+                and dot in each design), S5's library calls against the
+                same plain versions, ptxas's resources of every S4 and S5
+                kernel (no spills), then each probe's timings (S4's
+                patterns at 1-16 CTAs per channel, its first design and
+                ``direct`` at 16 in turns; S5's designs in turns, its
+                tensor-core library calls with TF32 allowed and at the
+                default precision, each acc design's per-rep handoff) (its
+                own path: the counts are zeroed before the timings and read
+                after)
 7. main path  — run_receiver(default_config(), navigate=True,
                 device="cuda") over the reference's 37 000 ms (block
                 tracker, B2 + B1): every satellite acquired and locked,
@@ -187,7 +190,7 @@ def _kernel_wrappers():
 
     return ((mk.build_frames, mk.track_block, mk.track_block_fused, pk.correlate_ms),
             (*pallas_ablate.VARIANTS.values(), mega_vmem_bisect.track_block_stage,
-             builder_time.build_frames_vec4, dma_probe.dma_probe,
+             builder_time.build_frames_vec4, dma_probe.dma_probe, dma_probe.dma_probe_cta,
              *pallas_probe.VARIANTS.values()))
 
 
@@ -833,18 +836,23 @@ def phase_probes(dev, log: str) -> list[dict]:
 
     probes = (s1, s2, s3, s4, s5)
     errs = [m.check(dev) for m in probes]
-    print("  every S1-S4 stage, variant and load pattern bit-equal to its plain version; "
-          f"S5 constructs: max |kernel - plain| {errs[4]} (grid, acc, conv, onehot bit-equal; "
-          "bdot, dot within the TF32 bound; two launches of dot, of bdot, bit-equal)")
+    print("  every S1-S4 stage, variant and load pattern bit-equal to its plain version (S4 at "
+          f"every cluster size and its first design); S5 constructs: max |kernel - plain| "
+          f"{errs[4]} (grid, each acc design at 1, 2, 3 and {s5.ACC_REPS} reps, conv, onehot "
+          "bit-equal; bdot, dot within the TF32 bound; two launches of dot, bdot and each acc "
+          "design bit-equal)")
     print(f"  S5 library calls equal to the plain versions on the script's inputs; on seeded "
           f"inputs max |library - plain| {s5.check_library(dev)} (TF32 allowed / default)")
+    s4_res = s4.probe_resources(log)
     s5_res = s5.probe_resources(log)
-    for label, r in s5_res.items():
-        print(f"  ptxas {s5.kernel_of(label)} ({label}): {r['registers']} registers, "
-              f"{r['smem']} B static shared, spills {r['spill_stores']} B stored / "
-              f"{r['spill_loads']} B loaded")
-    check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in s5_res.values()),
-          "an S5 kernel spills")
+    ptxas = {**{f"dma_probe_kernel{k}" if k != "cta" else "dma_probe_cta_kernel": r
+                for k, r in s4_res.items()},
+             **{f"{s5.kernel_of(label)} ({label})": r for label, r in s5_res.items()}}
+    for kernel, r in ptxas.items():
+        print(f"  ptxas {kernel}: {r['registers']} registers, {r['smem']} B static shared, "
+              f"spills {r['spill_stores']} B stored / {r['spill_loads']} B loaded")
+    check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0 for r in ptxas.values()),
+          "an S4 or S5 kernel spills")
     reset_launches()
     res = [m.measure(dev) for m in probes]
     launches = read_launches(probes=True)
@@ -857,8 +865,9 @@ def phase_probes(dev, log: str) -> list[dict]:
     print(f"  launches {launches}")
     r1, r2, r3, r4, r5 = res
     c = s1.N_CHANNELS[0]
-    print(f"  S5 cluster reduce-and-barrier step: {r5['acc_step_us']:.4f} us per rep "
-          f"(8-CTA cluster, DSMEM, two cluster barriers)")
+    for label in s5.ACC_LABELS:
+        print(f"  S5 {label} per-rep handoff: {r5[label]['step_us']:.4f} us "
+              f"({s5.ACC_HANDOFF[label]})")
 
     # the bounds, at the inputs each probe timed (C = 8, r = 64)
     cfg = default_config(number_of_channels=c)
@@ -874,6 +883,11 @@ def phase_probes(dev, log: str) -> list[dict]:
     span = (r - 1) * spc + win
     b_s4 = bound_ms(union_len((4 * starts).tolist(), span, cap.shape[0]) + r * c * 8, r * c * win)
     torch.cuda.synchronize(dev)
+    ms_s4 = {label: float(np.mean(t["warm"])) for label, t in r4["turns"].items()}
+    print(f"  S4 direct at kN={s4.CTAS_PER_CHANNEL}: {ms_s4['direct']:.5f} ms per call (first "
+          f"design {ms_s4['cta']:.5f}, in turns), bound {b_s4[0]:.5f} ms ({b_s4[1]}): "
+          f"{b_s4[0] / ms_s4['direct']:.3f} of it; target 0.02 ms "
+          f"{'met' if ms_s4['direct'] <= 0.02 else 'missed'}")
 
     us = lambda ms, r=1: ms * 1e3 / r   # noqa: E731
     extra = [
@@ -883,8 +897,12 @@ def phase_probes(dev, log: str) -> list[dict]:
                        for n in r2 for k in r2[n] if k != "plain"}},
         {"us_per_ms": {n: {v: {k: us(t, s3.R) for k, t in r3[n][v].items()} for v in s3.VARIANTS}
                        for n in r3}},
-        {"us_per_ms": {f"{p}/{d}": {k: us(t, s4.R) for k, t in r4[(p, d)].items()}
-                       for p, d in s4.PATTERNS}},
+        {"us_per_ms": {f"{p}/{d}/kN={kn}": {k: us(t, s4.R) for k, t in r4[(p, d, kn)].items()}
+                       for p, d in s4.PATTERNS for kn in s4.KN_SWEEP},
+         "ctas_per_channel": s4.CTAS_PER_CHANNEL, "threads_per_cta": s4.THREADS,
+         "ms_by_threads": r4["direct_by_threads"], "ms_r1": r4["direct_r1"],
+         "ms_turns": r4["turns"]["direct"]["warm"],
+         "ms_cold": float(np.mean(r4["turns"]["direct"]["cold"]))},
     ]
     recs = [
         ("S1", "correlate_ms_stage", "correlate_ms.cu", "scripts/pallas_ablate.py:49",
@@ -894,7 +912,7 @@ def phase_probes(dev, log: str) -> list[dict]:
         ("S3", "build_frames_vec4", "build_frames.cu", "scripts/builder_time.py:60",
          r3[c]["vec4"]["warm"], r3[c]["plain"], b_s3, lib_s3),
         ("S4", "dma_probe", "dma_probe.cu", "scripts/dma_probe.py:34",
-         r4[("direct", 1)]["warm"], r4["plain"], b_s4, None),
+         ms_s4["direct"], r4["plain"], b_s4, None),
     ]
     out = [{**record(kid, name, src, rep, err, ms, plain_ms, bound, lib),
             "launches": launches[name], **x}
@@ -905,6 +923,11 @@ def phase_probes(dev, log: str) -> list[dict]:
                             "scripts/pallas_ablate.py:49", errs[0],
                             r1[c]["two_pass"]["full"]["device"], r1[c]["plain"], b_s1, None),
                    "launches": launches["correlate_ms_two_pass"]})
+    # S4's first design, timed in turns with direct at kN = 16
+    out.append({**record("S4", "dma_probe_cta", "dma_probe.cu", "scripts/dma_probe.py:34",
+                         errs[3], ms_s4["cta"], r4["plain"], b_s4, None),
+                "launches": launches["dma_probe_cta"], "ms_turns": r4["turns"]["cta"]["warm"],
+                "ms_cold": float(np.mean(r4["turns"]["cta"]["cold"]))})
     for label in s5.VARIANTS:
         name = s5.probe_of(label)
         t = r5[label]
@@ -922,7 +945,10 @@ def phase_probes(dev, log: str) -> list[dict]:
         if label == "bdot":
             rec["ms_by_warps"] = t["ms_by_warps"]
         if name == "acc":
-            rec["us_per_cluster_step"] = r5["acc_step_us"]
+            rec.update(ms_reps=t["ms_reps"], us_per_rep_step=t["step_us"])
+        if label == "acc":                # every design's time and step beside the kept one
+            rec["designs"] = {x: {"ms": r5[x]["ms"], "ms_reps": r5[x]["ms_reps"],
+                                  "us_per_rep_step": r5[x]["step_us"]} for x in s5.ACC_LABELS}
         out.append(rec)
     return out
 

@@ -18,12 +18,16 @@
 //            the grid runs in order and the sum stays in VMEM; on Hopper
 //            the eight blocks run at once, so they form ONE 8-CTA thread
 //            block cluster: each CTA sums its (8, 128) block to 8 partials
-//            in shared memory, cluster.sync(), rank 0 reads the 8 ranks'
-//            partials through distributed shared memory (DSMEM) in rank
-//            order and writes o, and a second cluster.sync() keeps the
-//            peers resident while it reads.  ``reps`` repeats that step:
-//            its cost per rep bounds what B1's cluster pays per ms for
-//            its reduce and barrier (B1 needs one barrier, not two);
+//            and rank 0 sums the 8 ranks' partials in rank order.  The
+//            design (probe_acc_kernel) is a one-sided push: each warp
+//            stores its partial into rank 0's shared memory by st.async,
+//            completing on rank 0's mbarrier, and a consumer warp of rank
+//            0 frees the slot with a remote mbarrier arrive: no cluster
+//            barrier per rep.  B1's own pattern (one cluster barrier per
+//            rep, parity slots, probe_acc_parity_kernel) and the first
+//            design (two cluster.sync() per rep, probe_acc_sync_kernel)
+//            stay to be timed beside it (section 2).  ``reps`` repeats the
+//            step: its cost per rep is the handoff B1's cluster pays per ms;
 //   conv   — __int2float_rn, elementwise;
 //   onehot — o[c, k] = sum_w [h[c, w] == k] * b[c, w], one CTA per row c:
 //            h and b copied to shared memory, thread k owns bin k and walks
@@ -51,7 +55,8 @@
 // the longest chain of dependent loads and instructions.  The largest,
 // dot, moves 336 KB (0.1 us at 3.35 TB/s) and does 16.8 MFLOP (0.03 us at
 // 495 TF32 TFLOP/s); a launch costs microseconds.  acc's per-rep step is
-// two cluster barriers and eight DSMEM loads, the number it exists for.
+// the handoff of 64 partials to rank 0 and of the slot back, the number it
+// exists for.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -98,11 +103,180 @@ probe_grid_loop_kernel(const float* __restrict__ x, float* __restrict__ o) {
 }
 
 // --- 2. acc: one 8-CTA cluster, DSMEM reduction ---------------------------
+//
+// Three designs of the same sum, each one 8-CTA cluster run ``reps`` times
+// in one launch: warp w < 8 of CTA ``rank`` sums row 8*rank + w
+// (row_sum), and rank 0 sums the 8 ranks' partials of row w in rank order
+// and rounds once.  They differ in how a rep's partials reach rank 0 and
+// how a rank learns that it may overwrite them:
+//   probe_acc_kernel        — a one-sided push: each warp stores its
+//                             partial straight into rank 0's slot
+//                             [rep & 1][rank][w] by st.async, whose
+//                             completion counts its 8 bytes on rank 0's
+//                             ``full`` mbarrier of the slot (armed for the
+//                             8 x 64 bytes of a rep); a ninth warp of rank
+//                             0, the consumer, waits on it
+//                             (try_wait.parity), reads the slot from its
+//                             own shared memory, arms the slot for the rep
+//                             two on and arrives remotely on each rank's
+//                             ``empty`` mbarrier of the slot, on which that
+//                             rank's warps wait before they reuse the slot.
+//                             A producer/consumer ring: one cluster barrier
+//                             at the start (the mbarriers initialised),
+//                             none per rep;
+//   probe_acc_parity_kernel — B1's pattern (track_block.cu): each rank
+//                             writes its partials into its own slot of the
+//                             rep's parity, ONE cluster barrier per rep,
+//                             rank 0 reads the ranks' slots through DSMEM;
+//                             the parity keeps a fast rank from
+//                             overwriting a slot rank 0 still reads; one
+//                             last barrier keeps the peers resident;
+//   probe_acc_sync_kernel   — the first design: one slot per rank between
+//                             two cluster barriers per rep.
+// What the push's design had to get right (PERF.md section 6): the
+// consumer is a warp of its own, since rank 0's warp 0 both summing its row
+// and draining the slot put the two in series (1.72 us per rep, slower
+// than two cluster barriers, against 0.36 now); and the mbarrier
+// operations keep PTX's default semantics (release / acquire at CTA scope,
+// as CUTLASS's cluster pipelines use them for a peer's copies into a CTA's
+// shared memory and for the remote "slot free" arrive), since
+// cluster-scope release and acquire on every wait and arrive were slower.
 
 // warp w of CTA ``rank`` sums row 8*rank + w: lane l adds x[row, l + 32 i],
-// i = 0..3, in order in float64, then a shuffle tree (offsets 16 .. 1)
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kBlockRows * 32)
+// i = 0..3, in order in float64, then a shuffle tree (offsets 16 .. 1);
+// lane 0 holds the row's sum
+__device__ __forceinline__ double row_sum(const float* row, int lane) {
+  double v = static_cast<double>(row[lane]);
+#pragma unroll
+  for (int i = 1; i < kCols / 32; ++i) v += static_cast<double>(row[lane + 32 * i]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the shared::cluster address of ``p``'s counterpart in CTA ``rank``
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, unsigned rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+
+// wait for phase ``parity`` of a local mbarrier
+__device__ __forceinline__ void wait_bar(const uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// arm a phase of a local mbarrier of count 1: expect ``bytes`` and arrive
+__device__ __forceinline__ void arm(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+constexpr uint32_t kRepBytes = kCluster * kBlockRows * sizeof(double);  // one rep's partials
+constexpr int kAccThreads = kBlockRows * 32 + 32;  // 8 producer warps and the consumer warp
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kAccThreads)
 probe_acc_kernel(const float* x, float* __restrict__ o, int reps) {
+  __shared__ double slots[2][kCluster][kBlockRows];  // rank 0's: every rank's partials by parity
+  __shared__ __align__(8) uint64_t full[2];          // rank 0's: slot s holds a whole rep
+  __shared__ __align__(8) uint64_t empty[2];         // each rank's: rank 0 has read slot s
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(empty + s)) : "memory");
+      if (rank == 0)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(full + s)) : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if (rank == 0)
+      for (int s = 0; s < 2 && s < reps; ++s) arm(full + s, kRepBytes);  // reps 0 and 1
+  }
+  cluster.sync();  // every mbarrier initialised before a rank pushes or arrives
+
+  if (w == kBlockRows) {  // the consumer: rank 0's ninth warp; the peers' have nothing to do
+    if (rank != 0) return;
+    for (int rep = 0; rep < reps; ++rep) {
+      const int s = rep & 1;
+      wait_bar(full + s, static_cast<uint32_t>((rep >> 1) & 1));  // all 64 partials landed
+      double t = 0.0;
+      if (lane < kBlockRows) {
+        t = slots[s][0][lane];
+#pragma unroll
+        for (int q = 1; q < kCluster; ++q) t += slots[s][q][lane];
+      }
+      if (rep + 2 < reps) {  // slot s is read: expect rep + 2 in it, and free it on every rank
+        __syncwarp();
+        if (lane == 0) arm(full + s, kRepBytes);
+        __syncwarp();
+        if (lane < kCluster)
+          asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];"
+                       ::"r"(cluster_addr(empty + s, lane))
+                       : "memory");
+      }
+      if (lane < kBlockRows) o[lane] = static_cast<float>(t);
+    }
+    return;
+  }
+
+  // the producers: this warp's entry of rank 0's two slots, and their mbarriers
+  const uint32_t dst0 = cluster_addr(&slots[0][rank][w], 0);
+  const uint32_t dst1 = cluster_addr(&slots[1][rank][w], 0);
+  const uint32_t full0 = cluster_addr(full, 0);
+  const uint32_t full1 = cluster_addr(full + 1, 0);
+  const float* row = x + (static_cast<long long>(rank) * kBlockRows + w) * kCols;
+  for (int rep = 0; rep < reps; ++rep) {
+    const int s = rep & 1;
+    const double v = row_sum(row, lane);
+    if (lane == 0) {
+      if (rep >= 2) wait_bar(empty + s, static_cast<uint32_t>(((rep >> 1) - 1) & 1));
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];"
+          ::"r"(s ? dst1 : dst0), "l"(__double_as_longlong(v)), "r"(s ? full1 : full0)
+          : "memory");
+    }
+  }
+}
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kBlockRows * 32)
+probe_acc_parity_kernel(const float* x, float* __restrict__ o, int reps) {
+  __shared__ double part[2][kBlockRows];  // this rank's partials of rep, in slot rep & 1
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float* row = x + (static_cast<long long>(rank) * kBlockRows + w) * kCols;
+  for (int rep = 0; rep < reps; ++rep) {
+    const double v = row_sum(row, lane);
+    if (lane == 0) part[rep & 1][w] = v;
+    cluster.sync();  // every rank's partials of rep are written
+    if (rank == 0 && threadIdx.x < kBlockRows) {
+      double s = *cluster.map_shared_rank(&part[rep & 1][threadIdx.x], 0);
+      for (int q = 1; q < kCluster; ++q) s += *cluster.map_shared_rank(&part[rep & 1][threadIdx.x], q);
+      o[threadIdx.x] = static_cast<float>(s);
+    }
+  }
+  cluster.sync();  // peers stay resident until rank 0 has read the last rep
+}
+
+// The first design, kept to be timed beside them
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kBlockRows * 32)
+probe_acc_sync_kernel(const float* x, float* __restrict__ o, int reps) {
   __shared__ double partials[kBlockRows];
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
@@ -110,11 +284,7 @@ probe_acc_kernel(const float* x, float* __restrict__ o, int reps) {
   const int lane = threadIdx.x & 31;
   const float* row = x + (static_cast<long long>(rank) * kBlockRows + w) * kCols;
   for (int rep = 0; rep < reps; ++rep) {
-    double v = static_cast<double>(row[lane]);
-#pragma unroll
-    for (int i = 1; i < kCols / 32; ++i) v += static_cast<double>(row[lane + 32 * i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    const double v = row_sum(row, lane);
     if (lane == 0) partials[w] = v;
     cluster.sync();                       // every rank's partials are written
     if (rank == 0 && threadIdx.x < kBlockRows) {
@@ -264,10 +434,6 @@ probe_bdot_chain_kernel(const float* __restrict__ a, const float* __restrict__ b
 constexpr int kDotMaxWarps = 16;  // the launch bounds
 constexpr int kDotSlices = 8;     // most K slices per warp: their fragments stay in registers
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
@@ -384,9 +550,23 @@ extern "C" int sg_probe_grid_loop(const void* x, void* o, int n_blocks, void* st
   return last_error();
 }
 
-// x: (64, 128) float32; o: (8,) float32; reps >= 1
+// x: (64, 128) float32; o: (8,) float32; reps >= 1: the push design
 extern "C" int sg_probe_acc(const void* x, void* o, int reps, void* stream) {
-  probe_acc_kernel<<<kCluster, kBlockRows * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  probe_acc_kernel<<<kCluster, kAccThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(o), reps);
+  return last_error();
+}
+
+// B1's design (one cluster barrier per rep, parity slots); as sg_probe_acc
+extern "C" int sg_probe_acc_parity(const void* x, void* o, int reps, void* stream) {
+  probe_acc_parity_kernel<<<kCluster, kBlockRows * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(o), reps);
+  return last_error();
+}
+
+// The first design (two cluster barriers per rep); as sg_probe_acc
+extern "C" int sg_probe_acc_sync(const void* x, void* o, int reps, void* stream) {
+  probe_acc_sync_kernel<<<kCluster, kBlockRows * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(o), reps);
   return last_error();
 }

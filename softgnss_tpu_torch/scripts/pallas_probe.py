@@ -10,9 +10,12 @@ via ``dot2d`` :120).  Its counterpart here is ``csrc/pallas_probe.cu``:
 * ``grid`` — ``x + 1``, (64, 128) float32, 8 CTAs of one (8, 128) block,
   one float4 per thread;
 * ``acc`` — ``o[r] = sum_i sum_j x[8i + r, j]`` into (8, 1): ONE 8-CTA
-  thread block cluster reducing its partials through distributed shared
-  memory between two cluster barriers; ``reps`` repeats that step, and
-  ``(t(64) - t(1)) / 63`` is the cost of one reduce-and-barrier step;
+  thread block cluster whose ranks push their partials one-sided into
+  rank 0's shared memory (``st.async`` completing on rank 0's mbarrier;
+  a consumer warp of rank 0 frees each slot with a remote mbarrier
+  arrive), with no cluster barrier per rep; ``reps`` repeats that step,
+  and ``(t(64) - t(1)) / 63`` is the cost of one rep's handoff, what B1's
+  cluster pays per ms;
 * ``conv`` — int32 -> float32, round to nearest even;
 * ``onehot`` — ``o[c, k] = sum_w [h[c, w] == k] * b[c, w]``, (8, 256) ->
   (8, 32);
@@ -24,10 +27,12 @@ via ``dot2d`` :120).  Its counterpart here is ``csrc/pallas_probe.cu``:
   operands staged in shared memory once, K split across 8 warps
   (:func:`dot_plan`).
 
-``grid``, ``dot`` and ``bdot`` were redesigned for the card; their first
-kernels stay (``grid_loop``, ``dot_chain`` and ``bdot_chain`` in
-:data:`VARIANTS`), each with its own wrapper and launch count
-(:func:`probe_grid_loop`, :func:`probe_dot_chain`,
+``grid``, ``acc``, ``dot`` and ``bdot`` were redesigned for the card;
+their first kernels stay (``grid_loop``, ``acc_sync``, ``dot_chain`` and
+``bdot_chain`` in :data:`VARIANTS`), and so does B1's own handoff for
+``acc`` (``acc_parity``: one cluster barrier per rep, parity slots), each
+with its own wrapper and launch count (:func:`probe_grid_loop`,
+:func:`probe_acc_sync`, :func:`probe_acc_parity`, :func:`probe_dot_chain`,
 :func:`probe_bdot_chain`), so that one run times old and new in turns.
 
 What "does it lower" was on the TPU is here what ptxas reports for each
@@ -39,16 +44,17 @@ Run on a CUDA card from the repository root::
     python -m softgnss_tpu_torch.scripts.pallas_probe
 
 It prints the card line and each kernel's resources, holds each kernel
-(both designs of grid, dot and bdot) against its plain version on the TPU
+(each design of grid, acc, dot and bdot) against its plain version on the TPU
 script's own inputs (ones, arange) and on seeded random inputs, printing
 ``[ok]`` or ``[FAIL]`` as the TPU script does (``grid``, ``acc``, ``conv``
 and ``onehot`` bit-equal; ``bdot`` and ``dot`` within ``2^-10 * sum_k
 |a_ik b_kj|`` per output, the TF32 rounding of both inputs, and bit-equal
 on the script's ones), holds each :data:`LIBRARY` call to the same plain
-versions, then times each kernel (the two designs of grid, dot and bdot
-in turns), its plain version and one PyTorch call that computes the same
-function (for bdot and dot with TF32 allowed, as the kernels compute, and
-at PyTorch's default precision).  Without a CUDA card it raises.
+versions, then times each kernel (the designs of grid, acc, dot and bdot
+in turns; each acc design at 1 and 64 reps), its plain version and one
+PyTorch call that computes the same function (for bdot and dot with TF32
+allowed, as the kernels compute, and at PyTorch's default precision).
+Without a CUDA card it raises.
 """
 
 from __future__ import annotations
@@ -172,22 +178,58 @@ def probe_acc_plain(x: torch.Tensor) -> torch.Tensor:
     return s.to(torch.float32)[:, None]
 
 
-def probe_acc(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
-    """:func:`probe_acc_plain` of (64, 128) float32 by kernel
-    ``probe_acc_kernel``, one 8-CTA cluster (DSMEM reduction) run ``reps``
-    times, on a CUDA tensor; the plain version on a CPU tensor."""
-    if x.device.type == "cpu":
-        return probe_acc_plain(x)
+def _launch_acc(name: str, entry, x: torch.Tensor, reps: int) -> torch.Tensor:
     if reps < 1:
-        raise ValueError(f"probe_acc: reps must be >= 1, got {reps}")
+        raise ValueError(f"{name}: reps must be >= 1, got {reps}")
     mk._require(x, "x", torch.float32, (_CLUSTER * _BLOCK_ROWS, _COLS), x.device)
     o = _out((_BLOCK_ROWS, 1), torch.float32, x)
-    _launch("probe_acc", _lib().sg_probe_acc, x, o, int(reps))
+    _launch(name, entry, x, o, int(reps))
+    return o
+
+
+def probe_acc(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
+    """:func:`probe_acc_plain` of (64, 128) float32 by kernel
+    ``probe_acc_kernel``, one 8-CTA cluster run ``reps`` times, each rep
+    pushed one-sided into rank 0's shared memory (``st.async`` onto rank
+    0's mbarrier, the slot freed by a remote arrive from rank 0's consumer
+    warp; no cluster barrier per rep), on a CUDA tensor; the plain version
+    on a CPU tensor."""
+    if x.device.type == "cpu":
+        return probe_acc_plain(x)
+    o = _launch_acc("probe_acc", _lib().sg_probe_acc, x, reps)
     probe_acc.launches += 1
     return o
 
 
 probe_acc.launches = 0
+
+
+def probe_acc_parity(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
+    """:func:`probe_acc` by B1's design, kernel ``probe_acc_parity_kernel``
+    (one cluster barrier per rep, partials in parity slots read through
+    DSMEM), on a CUDA tensor."""
+    if x.device.type == "cpu":
+        return probe_acc_plain(x)
+    o = _launch_acc("probe_acc_parity", _lib().sg_probe_acc_parity, x, reps)
+    probe_acc_parity.launches += 1
+    return o
+
+
+probe_acc_parity.launches = 0
+
+
+def probe_acc_sync(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
+    """:func:`probe_acc` by the first design's kernel
+    ``probe_acc_sync_kernel`` (two cluster barriers per rep) on a CUDA
+    tensor."""
+    if x.device.type == "cpu":
+        return probe_acc_plain(x)
+    o = _launch_acc("probe_acc_sync", _lib().sg_probe_acc_sync, x, reps)
+    probe_acc_sync.launches += 1
+    return o
+
+
+probe_acc_sync.launches = 0
 
 
 # --- 3. conv -----------------------------------------------------------------
@@ -438,11 +480,19 @@ def probe_dot_chain(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS) ->
 probe_dot_chain.launches = 0
 
 #: every S5 kernel's own wrapper by label (``.launches`` counts its
-#: launches): ``<probe>`` the design the probe runs, ``<probe>_<first>``
-#: the first design of grid, bdot and dot, kept to be timed beside it
+#: launches): ``<probe>`` the design the probe runs, ``<probe>_<design>``
+#: the first design of grid, acc, bdot and dot and B1's design of acc,
+#: kept to be timed beside it
 VARIANTS = {"grid": probe_grid, "grid_loop": probe_grid_loop, "acc": probe_acc,
+            "acc_parity": probe_acc_parity, "acc_sync": probe_acc_sync,
             "conv": probe_conv, "onehot": probe_onehot, "bdot": probe_bdot,
             "bdot_chain": probe_bdot_chain, "dot": probe_dot, "dot_chain": probe_dot_chain}
+#: the designs of acc, each timed at 1 and ACC_REPS reps, and how each
+#: rep's partials reach rank 0
+ACC_LABELS = ("acc", "acc_parity", "acc_sync")
+ACC_HANDOFF = {"acc": "one-sided st.async push onto rank 0's mbarrier",
+               "acc_parity": "one cluster barrier per rep, parity slots",
+               "acc_sync": "two cluster barriers per rep"}
 
 
 def probe_of(label: str) -> str:
@@ -565,12 +615,13 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, args, exact: bool)
 
 
 def check(device, verbose: bool = False) -> dict:
-    """Every kernel of VARIANTS (both designs of grid, bdot and dot) against
-    its plain version on the script's inputs (bit-equal, all nine) and on
-    seeded inputs (bit-equal, or the TF32 bound for bdot and dot), and two
-    launches of ``probe_dot_kernel``, as dot and as bdot, bit-equal to each
-    other (its reduction has a fixed order); raises on the first failure.
-    Returns {label: largest absolute difference}."""
+    """Every kernel of VARIANTS (each design of grid, acc, bdot and dot)
+    against its plain version on the script's inputs (bit-equal, all
+    eleven) and on seeded inputs (bit-equal, or the TF32 bound for bdot
+    and dot), each acc design at 2, 3 and ACC_REPS reps, and two launches
+    of ``probe_dot_kernel`` (as dot and as bdot) and of each acc design
+    bit-equal to each other (their reductions have a fixed order); raises
+    on the first failure.  Returns {label: largest absolute difference}."""
     worst = {}
     for which, inputs in (("script", script_inputs(device)), ("seeded", seeded_inputs(device))):
         for label, wrapper in VARIANTS.items():
@@ -588,11 +639,14 @@ def check(device, verbose: bool = False) -> dict:
                       f"max |kernel - plain| {err:.3e}")
             worst[label] = max(worst.get(label, 0.0), err)
     acc_x = seeded_inputs(device)["acc"][0]
-    compare("acc reps", probe_acc(acc_x, ACC_REPS), probe_acc_plain(acc_x), (acc_x,), True)
-    for name in ("dot", "bdot"):
-        args = seeded_inputs(device)[name]
-        if not torch.equal(VARIANTS[name](*args), VARIANTS[name](*args)):
-            raise AssertionError(f"S5 {name}: two launches on the same inputs differ")
+    for label in ACC_LABELS:
+        for reps in (2, 3, ACC_REPS):
+            compare(f"{label} at {reps} reps", VARIANTS[label](acc_x, reps),
+                    probe_acc_plain(acc_x), (acc_x,), True)
+    for label in ("dot", "bdot", *ACC_LABELS):
+        args = seeded_inputs(device)[probe_of(label)]
+        if not torch.equal(VARIANTS[label](*args), VARIANTS[label](*args)):
+            raise AssertionError(f"S5 {label}: two launches on the same inputs differ")
     torch.cuda.synchronize(device)
     return worst
 
@@ -651,10 +705,10 @@ def measure(device, n: int = 200) -> dict:
     is their mean), "library_default_ms" beside "library_ms" for bdot and
     dot (whose "library_ms" is with TF32 allowed), dot's "ms_steps0" (the
     launch, the staging and the reduction without the loop), bdot's
-    "ms_by_warps" ({warps: ms} at each of BDOT_WARP_SWEEP, in turns),
-    "acc_reps" (ms of one launch at ACC_REPS reps) and "acc_step_us", the
-    cost of one cluster reduce-and-barrier step: (t(ACC_REPS) - t(1)) /
-    (ACC_REPS - 1)."""
+    "ms_by_warps" ({warps: ms} at each of BDOT_WARP_SWEEP, in turns), and
+    for each acc design "ms_reps" (ms of one launch at ACC_REPS reps, the
+    designs in turns) and "step_us", the cost of one rep's handoff of the
+    partials to rank 0: (t(ACC_REPS) - t(1)) / (ACC_REPS - 1)."""
     inputs = script_inputs(device)
     res = {}
     for name in PROBES:
@@ -682,8 +736,13 @@ def measure(device, n: int = 200) -> dict:
         sweep[w].append(cuda_ms(lambda: probe_bdot(a, b, warps=w), n, busy=True))
     res["bdot"]["ms_by_warps"] = {w: float(np.mean(t)) for w, t in sweep.items()}
     x = inputs["acc"][0]
-    res["acc_reps"] = cuda_ms(lambda: probe_acc(x, ACC_REPS), n, busy=True)
-    res["acc_step_us"] = (res["acc_reps"] - res["acc"]["ms"]) * 1e3 / (ACC_REPS - 1)
+    turns = {label: [] for label in ACC_LABELS}
+    for label in [*ACC_LABELS, *reversed(ACC_LABELS)]:
+        turns[label].append(cuda_ms(lambda: VARIANTS[label](x, ACC_REPS), n, busy=True))
+    for label in ACC_LABELS:
+        r = res[label]
+        r["ms_reps"] = float(np.mean(turns[label]))
+        r["step_us"] = (r["ms_reps"] - r["ms"]) * 1e3 / (ACC_REPS - 1)
     return res
 
 
@@ -703,9 +762,11 @@ def report(res: dict) -> None:
           f"{DOT_STEPS} steps [{card()}]")
     by_w = ", ".join(f"{w} warps {us(t)} us" for w, t in res["bdot"]["ms_by_warps"].items())
     print(f"S5 bdot by warps per CTA (in turns; the default is {BDOT_WARPS}): {by_w} [{card()}]")
-    print(f"S5 acc cluster of 8 CTAs: {res['acc']['ms'] * 1e3:.3f} us at 1 rep, "
-          f"{res['acc_reps'] * 1e3:.3f} us at {ACC_REPS} reps: "
-          f"{res['acc_step_us']:.4f} us per cluster reduce-and-barrier step [{card()}]")
+    for label in ACC_LABELS:
+        r = res[label]
+        print(f"S5 {label} (8-CTA cluster, {ACC_HANDOFF[label]}): {us(r['ms'])} us at 1 rep, "
+              f"{us(r['ms_reps'])} us at {ACC_REPS} reps: {r['step_us']:.4f} us per rep "
+              f"[{card()}]")
 
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")

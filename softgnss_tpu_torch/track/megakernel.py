@@ -105,10 +105,13 @@ class KernelLibrary:
                 ("sg_correlate_ms", correlate),
                 ("sg_correlate_ms_stage", [i] + correlate),
                 ("sg_correlate_ms_two_pass", [i, vp, ll] + [vp] * 8 + [ll, i, i, vp, vp, vp]),
-                ("sg_dma_probe", [i, i, vp, vp, vp, i, i, i, i, vp]),
+                ("sg_dma_probe", [i] * 7 + [vp, ll, vp, vp, i, i, i, i, vp]),
+                ("sg_dma_probe_cta", [vp, ll, vp, vp, i, i, i, i, vp]),
                 ("sg_probe_grid", [vp, vp, i, vp]),
                 ("sg_probe_grid_loop", [vp, vp, i, vp]),
                 ("sg_probe_acc", [vp, vp, i, vp]),
+                ("sg_probe_acc_parity", [vp, vp, i, vp]),
+                ("sg_probe_acc_sync", [vp, vp, i, vp]),
                 ("sg_probe_conv", [vp, vp, ll, vp]),
                 ("sg_probe_onehot", [vp, vp, vp, i, i, vp]),
                 ("sg_probe_bdot", [vp, vp, vp, i, i, i, i, i, i, vp]),

@@ -229,6 +229,149 @@ def test_dma_probe_plain_against_numpy(c, r):
     np.testing.assert_array_equal(got, want)
 
 
+def _byte_mask(lo: int, hi: int) -> int:
+    """csrc/dma_probe.cu ``byte_mask``: bytes [lo, hi) of a 32-bit word."""
+    lo, hi = min(max(lo, 0), 4), min(max(hi, 0), 4)
+    return 0 if hi <= lo else ((1 << (8 * hi)) - 1) ^ ((1 << (8 * lo)) - 1)
+
+
+def _s4_walk(cap, starts, r: int, win: int, spc: int, kn: int):
+    """The bytes dma_probe_kernel sums, in its own index arithmetic
+    (csrc/dma_probe.cu ``slice_of`` / ``vec_sum``): rank q's slice [lo, hi)
+    of window (j, c) is the capture bytes [a, b) = off + [lo, hi), off =
+    4 starts[c] + j spc, clipped to the capture, read as the vectors
+    [a >> 4, (b + 15) >> 4) of the
+    16-byte grid, an interior vector whole, an edge vector's four words
+    each masked by ``byte_mask(l - 4w, h - 4w)``, l, h = a, b - the
+    vector's first byte, clamped to [0, 16].  Returns (sums (r, C), the
+    times each window byte was summed (r, C, win), the window leads, the
+    most vectors one rank read)."""
+    capn = cap.numpy().astype(np.int64)
+    c = starts.shape[0]
+    chunk = mk.rank_chunk(win, kn)
+    sums = np.zeros((r, c), np.int64)
+    seen = np.zeros((r, c, win), np.int64)
+    leads, most = set(), 0
+    for j in range(r):
+        for ch in range(c):
+            off = 4 * int(starts[ch]) + j * spc
+            leads.add(off % 16)
+            for q in range(kn):
+                lo = min(q * chunk, win)
+                hi = min(lo + chunk, win)
+                a, b = max(off + lo, 0), min(off + hi, capn.shape[0])   # zero outside the capture
+                v0 = a >> 4
+                nvec = ((b + 15) >> 4) - v0 if b > a else 0
+                most = max(most, nvec)
+                if nvec == 0:
+                    continue
+                assert 0 <= 16 * v0 and 16 * (v0 + nvec - 1) < capn.shape[0]  # in the capture
+                # interior vectors (16 v >= a, 16 v + 16 <= b): all 16 bytes, in one slice
+                i0, i1 = max(v0, (a + 15) >> 4), min(v0 + nvec, b >> 4)
+                if i1 > i0:
+                    sums[j, ch] += capn[16 * i0:16 * i1].sum()
+                    seen[j, ch, 16 * i0 - off:16 * i1 - off] += 1
+                for v in sorted({v0, v0 + nvec - 1}):         # the edge vectors, masked
+                    base = 16 * v
+                    if base >= a and base + 16 <= b:
+                        continue
+                    l, h = min(max(a - base, 0), 16), min(max(b - base, 0), 16)
+                    for w in range(4):
+                        mask = _byte_mask(l - 4 * w, h - 4 * w)
+                        for k in range(4):
+                            if (mask >> (8 * k)) & 0xFF:
+                                i = base + 4 * w + k
+                                sums[j, ch] += capn[i]
+                                seen[j, ch, i - off] += 1
+    return sums, seen, leads, most
+
+
+@pytest.mark.parametrize("c, r", [(3, 1), (3, 2), (3, 5), (8, 1), (8, 2), (8, 5)])
+@pytest.mark.parametrize("kn", s4.KN_SWEEP)
+def test_dma_probe_index_walk_takes_each_byte_once(kn, c, r):
+    """dma_probe_kernel's rank split (megakernel.rank_slices, B1's), 16-byte
+    grid and edge masks sum every window byte exactly once and nothing
+    else, at window leads 0, 4, 8 and 12 (consecutive word starts) and, with
+    a code period of an odd byte count, at any lead; each rank reads at
+    most a staging slot; the sums are dma_probe_plain's.  With windows past
+    both ends of the capture, exactly the bytes inside it once."""
+    cap, starts, r, win, spc = s4.probe_args(c, r, "cpu")
+    starts = starts[0] + torch.arange(c)               # leads 0, 4, 8, 12 in turn
+    assert [lo for lo, _ in mk.rank_slices(win, kn)] == [
+        min(q * mk.rank_chunk(win, kn), win) for q in range(kn)]
+    slot = s4.dma_plan("bulk", 2, win, r, kn).slot
+    for period in (spc, spc - 1):
+        sums, seen, leads, most = _s4_walk(cap, starts, r, win, period, kn)
+        assert (seen == 1).all()
+        assert 16 * most <= slot
+        np.testing.assert_array_equal(sums, s4.dma_probe_plain(cap, starts, r, win, period).numpy())
+        if period == spc and c >= 4:
+            assert leads == {0, 4, 8, 12}
+    if (c, r) == (8, 5):
+        assert len(leads) == 16                         # the odd period reaches every lead
+    cap, starts, r, win, spc = args = s4.probe_args(c, r, "cpu", edges="outside")
+    sums, seen, _, _ = _s4_walk(cap, starts, r, win, spc, kn)
+    pos = (4 * starts[None, :, None] + spc * torch.arange(r)[:, None, None]
+           + torch.arange(win)[None, None, :]).numpy()
+    np.testing.assert_array_equal(seen, (pos >= 0) & (pos < cap.shape[0]))
+    assert not seen[0, 0, :1000].any() and not seen[-1].all()
+    np.testing.assert_array_equal(sums, s4.dma_probe_plain(*args).numpy())
+
+
+def test_dma_plan_at_b1_geometry():
+    """At the reference front end the plan splits windows as B1 does: 16
+    CTAs per channel by default (of 512 threads), rank slices of
+    megakernel.rank_chunk bytes, staging slots of chunk + 16 bytes, the r
+    int64 partials after them."""
+    win = sgt.default_config().track_window
+    plan = s4.dma_plan("direct", 1, win, 64)
+    assert plan == (mk.CTAS_PER_CHANNEL, 512, 2400, 2416, 8 * 64)
+    for kn in s4.KN_SWEEP:
+        for p, d in s4.PATTERNS:
+            got = s4.dma_plan(p, d, win, 64, kn)
+            chunk = mk.rank_chunk(win, kn)
+            assert got.chunk == chunk and got.chunk * kn >= win and got.slot == chunk + 16
+            assert got.smem_bytes == (0 if p == "direct" else d * (chunk + 16)) + 8 * 64
+            assert got.smem_bytes <= s4.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("kw", [{"ctas_per_channel": 3}, {"ctas_per_channel": 32},
+                                {"threads": 48}, {"threads": 2048}, {"r": 40_000},
+                                {"pattern": "bulk", "depth": 8}])
+def test_dma_plan_refuses_what_the_kernel_does_not_take(kw):
+    """A cluster size the kernel is not built for, a thread count outside
+    its launch bounds, a pattern it does not have, or more shared memory
+    than a CTA holds (the partials of 40 000 ms)."""
+    args = {"pattern": "direct", "depth": 1, "win": sgt.default_config().track_window, "r": 64,
+            **kw}
+    with pytest.raises(ValueError, match="dma_probe"):
+        s4.dma_plan(**args)
+    if "threads" not in kw:                             # the wrapper checks the plan on the CPU too
+        cap, starts, _, win, spc = s4.probe_args(2, 1, "cpu")
+        with pytest.raises(ValueError, match="dma_probe"):
+            s4.dma_probe(args["pattern"], args["depth"], cap, starts, args["r"], win, spc,
+                         ctas_per_channel=args.get("ctas_per_channel", 16))
+
+
+def test_dma_probe_resources_found_per_instantiation():
+    """Every (pattern, depth, kN) instantiation of dma_probe_kernel and the
+    first design's kernel are found in the ptxas log by their mangled
+    template arguments; a missing one raises."""
+    names = [f"_ZN12_GLOBAL__N_116dma_probe_kernelILi{s4._PATTERN_IDS[p]}ELi{d}ELi{kn}EEEvPKa"
+             for p, d in s4.PATTERNS for kn in s4.KN_SWEEP]
+    names.append("_ZN12_GLOBAL__N_120dma_probe_cta_kernelEPKaPKxPxiiii")
+    log = "".join(f"ptxas info    : Compiling entry function '{k}' for 'sm_90a'\n"
+                  f"ptxas info    : Used {20 + i} registers, 380 bytes cmem[0]\n"
+                  for i, k in enumerate(names))
+    res = s4.probe_resources(log)
+    assert len(res) == len(s4.PATTERNS) * len(s4.KN_SWEEP) + 1
+    assert res[("direct", 1, 1)]["registers"] == 20
+    assert res[("bulk", 4, 16)]["registers"] == 20 + len(names) - 2
+    assert res["cta"]["registers"] == 20 + len(names) - 1
+    with pytest.raises(KeyError, match="cta"):
+        s4.probe_resources(log.replace("20dma_probe_cta_kernel", "20dma_probe_xyz_kernel"))
+
+
 # --- S5: the construct probes ------------------------------------------------
 
 
@@ -437,8 +580,8 @@ def test_s5_vec4_check_refuses_sliced_views():
 
 @pytest.mark.parametrize("label", list(s5.VARIANTS))
 def test_s5_variant_takes_plain_on_cpu(label):
-    """Each S5 kernel's own wrapper (the redesigns and the first designs of
-    grid, bdot and dot alike, each reached only through its own wrapper)
+    """Each S5 kernel's own wrapper (every design of grid, acc, bdot and
+    dot alike, each reached only through its own wrapper)
     runs its probe's plain version on CPU tensors, on the script's and on
     seeded inputs, counting no launch."""
     fn = s5.VARIANTS[label]
@@ -508,14 +651,18 @@ def test_timers_require_cuda():
 
 def test_plain_probes_count_no_launches():
     wrappers = (*s1.VARIANTS.values(), s2.track_block_stage, s3.build_frames_vec4,
-                s4.dma_probe, *s5.VARIANTS.values())
+                s4.dma_probe, s4.dma_probe_cta, *s5.VARIANTS.values())
     before = [f.launches for f in wrappers]
     cfg = _cfg()
     for fn in s1.VARIANTS.values():
         fn("carrier", *s1.ms_args(cfg, "cpu"))
     s2.track_block_stage("load", *s2.block_args(cfg, 2, "cpu"))
     s3.build_frames_vec4(*s3.frame_args(2, 2, "cpu"))
-    s4.dma_probe("bulk", 4, *s4.probe_args(2, 2, "cpu"))
+    args = s4.probe_args(2, 2, "cpu")
+    want = s4.dma_probe_plain(*args)
+    for kn in s4.KN_SWEEP:
+        assert torch.equal(s4.dma_probe("bulk", 4, *args, ctas_per_channel=kn), want)
+    assert torch.equal(s4.dma_probe_cta(*args), want)
     inputs = s5.seeded_inputs("cpu")
     for label, fn in s5.VARIANTS.items():
         name = s5.probe_of(label)
@@ -567,10 +714,30 @@ def test_b2_variant_kernel_matches_plain_on_card(cuda_device, name, edges):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kn", s4.KN_SWEEP)
 @pytest.mark.parametrize("pattern, depth", s4.PATTERNS)
-def test_dma_probe_kernel_matches_plain_on_card(cuda_device, pattern, depth):
-    args = s4.probe_args(3, 6, cuda_device)
-    assert torch.equal(s4.dma_probe(pattern, depth, *args), s4.dma_probe_plain(*args))
+def test_dma_probe_kernel_matches_plain_on_card(cuda_device, pattern, depth, kn):
+    """Every pattern at every cluster size, at 3, 8 and 12 channels and 1, 2
+    and 64 ms, the last window ending at the capture's last byte, and
+    windows past both ends of it: bit-equal to the plain version, and two
+    launches bit-equal."""
+    for edges in ("end", "outside"):
+        for c in (3, 8, 12):
+            for r in (1, 2, 64):
+                args = s4.probe_args(c, r, cuda_device, edges)
+                got = s4.dma_probe(pattern, depth, *args, ctas_per_channel=kn)
+                assert torch.equal(got, s4.dma_probe_plain(*args)), (edges, c, r)
+                assert torch.equal(s4.dma_probe(pattern, depth, *args, ctas_per_channel=kn), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_dma_probe_first_design_matches_plain_on_card(cuda_device):
+    for edges in ("end", "outside"):
+        for c in (3, 8, 12):
+            for r in (1, 2, 64):
+                args = s4.probe_args(c, r, cuda_device, edges)
+                assert torch.equal(s4.dma_probe_cta(*args), s4.dma_probe_plain(*args)), (c, r)
     torch.cuda.synchronize()
 
 
@@ -659,7 +826,15 @@ def test_s5_library_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.gpu
-def test_s5_acc_reps_rewrite_the_same_sum_on_card(cuda_device):
+@pytest.mark.parametrize("reps", [1, 2, 3, 64])
+@pytest.mark.parametrize("label", s5.ACC_LABELS)
+def test_s5_acc_reps_rewrite_the_same_sum_on_card(cuda_device, label, reps):
+    """Each acc design (the push, B1's one barrier with parity slots, the
+    first design's two barriers) bit-equal to the plain version at 1, 2, 3
+    and 64 reps (the push's slot ring wraps from 3 on), and two launches
+    bit-equal."""
     x = s5.seeded_inputs(cuda_device)["acc"][0]
-    assert torch.equal(s5.probe_acc(x, 1), s5.probe_acc(x, s5.ACC_REPS))
+    got = s5.VARIANTS[label](x, reps)
+    assert torch.equal(got, s5.probe_acc_plain(x))
+    assert torch.equal(s5.VARIANTS[label](x, reps), got)
     torch.cuda.synchronize()
