@@ -34,16 +34,18 @@ script exits non-zero:
                 dma_probe, S5 pallas_probe): every stage, variant, load
                 pattern and construct against its plain version (bit-equal;
                 S5's tensor-core products within their TF32 bound; S4 at
-                every cluster size and its first design, S5 grid, acc, bdot
-                and dot in each design), S5's library calls against the
-                same plain versions, ptxas's resources of every S4 and S5
-                kernel (no spills), then each probe's timings (S4's
-                patterns at 1-16 CTAs per channel, its first design and
-                ``direct`` at 16 in turns; S5's designs in turns, its
-                tensor-core library calls with TF32 allowed and at the
-                default precision, each acc design's per-rep handoff) (its
-                own path: the counts are zeroed before the timings and read
-                after)
+                every cluster size and its first design, every S5 construct
+                in each design, S5 conv and onehot also at the receiver's
+                geometry), S5's library calls against the same plain
+                versions, ptxas's resources of every S4 and S5 kernel (no
+                spills), then each probe's timings (S4's patterns at 1-16
+                CTAs per channel, its first design and ``direct`` at 16 in
+                turns; S5's designs in turns, its tensor-core library calls
+                with TF32 allowed and at the default precision, each acc
+                design's per-rep handoff, conv and onehot L2-flushed and in
+                a CUDA graph at the script's shape and warm and flushed at
+                the receiver's, with their targets) (its own path: the
+                counts are zeroed before the timings and read after)
 7. main path  — run_receiver(default_config(), navigate=True,
                 device="cuda") over the reference's 37 000 ms (block
                 tracker, B2 + B1): every satellite acquired and locked,
@@ -838,11 +840,13 @@ def phase_probes(dev, log: str) -> list[dict]:
     errs = [m.check(dev) for m in probes]
     print("  every S1-S4 stage, variant and load pattern bit-equal to its plain version (S4 at "
           f"every cluster size and its first design); S5 constructs: max |kernel - plain| "
-          f"{errs[4]} (grid, each acc design at 1, 2, 3 and {s5.ACC_REPS} reps, conv, onehot "
-          "bit-equal; bdot, dot within the TF32 bound; two launches of dot, bdot and each acc "
-          "design bit-equal)")
-    print(f"  S5 library calls equal to the plain versions on the script's inputs; on seeded "
-          f"inputs max |library - plain| {s5.check_library(dev)} (TF32 allowed / default)")
+          f"{errs[4]} (grid, each acc design at 1, 2, 3 and {s5.ACC_REPS} reps, each conv and "
+          "onehot design on the script's, seeded and receiver inputs, onehot at every warp "
+          "count: bit-equal; bdot, dot within the TF32 bound; two launches of dot, bdot, each "
+          "acc design and each conv and onehot design bit-equal)")
+    print(f"  S5 library calls equal to the plain versions on the script's inputs; max |library "
+          f"- plain| {s5.check_library(dev)} (bdot, dot on seeded inputs, TF32 allowed / "
+          "default; conv, onehot at the receiver's geometry, sentinels included)")
     s4_res = s4.probe_resources(log)
     s5_res = s5.probe_resources(log)
     ptxas = {**{f"dma_probe_kernel{k}" if k != "cta" else "dma_probe_cta_kernel": r
@@ -858,8 +862,12 @@ def phase_probes(dev, log: str) -> list[dict]:
     launches = read_launches(probes=True)
     check(all(n > 0 for n in launches.values()), f"probe launches {launches}")
     # what the timed launches of dot and bdot were given
-    dyn_smem = {"dot": s5.probe_dot.smem_bytes, "bdot": s5.probe_bdot.smem_bytes}
+    dyn_smem = {"dot": s5.probe_dot.smem_bytes, "bdot": s5.probe_bdot.smem_bytes,
+                "onehot": s5.probe_onehot.smem_bytes}
     check(None not in dyn_smem.values(), f"S5: dynamic shared memory recorded {dyn_smem}")
+    # onehot's at its default warps (its warp sweep launched other counts last)
+    dyn_smem["onehot"] = s5.onehot_plan(s5.RECEIVER_CHANNELS * 2 * s5.N_TILES,
+                                        s5.TRACK_TILE).smem_bytes
     for m, r in zip(probes, res):
         m.report(r)
     print(f"  launches {launches}")
@@ -868,6 +876,7 @@ def phase_probes(dev, log: str) -> list[dict]:
     for label in s5.ACC_LABELS:
         print(f"  S5 {label} per-rep handoff: {r5[label]['step_us']:.4f} us "
               f"({s5.ACC_HANDOFF[label]})")
+    s5_targets(r5)
 
     # the bounds, at the inputs each probe timed (C = 8, r = 64)
     cfg = default_config(number_of_channels=c)
@@ -946,11 +955,45 @@ def phase_probes(dev, log: str) -> list[dict]:
             rec["ms_by_warps"] = t["ms_by_warps"]
         if name == "acc":
             rec.update(ms_reps=t["ms_reps"], us_per_rep_step=t["step_us"])
+        if name in s5.RECEIVER_PROBES:    # flushed, in a graph, and where it does real work
+            rec.update({k: t[k] for k in ("ms_cold", "graph_ms", "library_ms_cold",
+                                          "library_graph_ms")},
+                       **{case: t[case] for case in s5.RECEIVER_CASES if case in t})
         if label == "acc":                # every design's time and step beside the kept one
             rec["designs"] = {x: {"ms": r5[x]["ms"], "ms_reps": r5[x]["ms_reps"],
                                   "us_per_rep_step": r5[x]["step_us"]} for x in s5.ACC_LABELS}
         out.append(rec)
     return out
+
+
+def s5_targets(r5: dict) -> None:
+    """Print whether S5 onehot and conv met their targets: at the script's
+    shape onehot <= 2.6 us and conv within grid's launch floor (<= 2.24
+    us); at the receiver's geometry, L2 flushed, onehot <= 3.3 us (half its
+    1.65-us bound) and twice as fast as its first design, conv <= 23.5 us
+    (half its 11.74-us bound) and no slower than its library call."""
+    us = 1e3
+    one, walk = r5["onehot"], r5["onehot_walk"]
+    conv, loop = r5["conv"], r5["conv_loop"]
+    rows = [
+        ("onehot, script's shape", one["ms"] * us, 2.6, one["ms"] * us <= 2.6),
+        ("conv, script's shape", conv["ms"] * us, 2.24, conv["ms"] * us <= 2.24),
+        ("onehot, receiver's geometry, flushed", one["receiver"]["ms_cold"] * us, 3.3,
+         one["receiver"]["ms_cold"] * us <= 3.3
+         and walk["receiver"]["ms_cold"] >= 2 * one["receiver"]["ms_cold"]),
+        ("conv, receiver's geometry, flushed", conv["receiver"]["ms_cold"] * us, 23.5,
+         conv["receiver"]["ms_cold"] * us <= 23.5
+         and conv["receiver"]["ms_cold"] <= conv["receiver"]["library_ms_cold"]),
+    ]
+    for what, got, limit, met in rows:
+        print(f"  S5 target {what}: {got:.3f} us against {limit} us: {'met' if met else 'missed'}")
+    marg = {x: r5[x]["receiver"]["ms_cold_marginal"] * us for x in ("onehot", "onehot_walk",
+                                                                     "conv", "conv_loop")}
+    print(f"  S5 at the receiver's geometry, flushed: onehot_walk "
+          f"{walk['receiver']['ms_cold'] * us:.3f} us, conv_loop "
+          f"{loop['receiver']['ms_cold'] * us:.3f} us, conv's library call "
+          f"{conv['receiver']['library_ms_cold'] * us:.3f} us; flushed back to back {marg}; "
+          f"grid at the script's shape {r5['grid']['ms'] * us:.3f} us")
 
 
 def check_locked(label, tr, skip_ms: int) -> None:

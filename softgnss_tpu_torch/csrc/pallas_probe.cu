@@ -28,10 +28,16 @@
 //            design (two cluster.sync() per rep, probe_acc_sync_kernel)
 //            stay to be timed beside it (section 2).  ``reps`` repeats the
 //            step: its cost per rep is the handoff B1's cluster pays per ms;
-//   conv   — __int2float_rn, elementwise;
-//   onehot — o[c, k] = sum_w [h[c, w] == k] * b[c, w], one CTA per row c:
-//            h and b copied to shared memory, thread k owns bin k and walks
-//            w in order;
+//   conv   — __int2float_rn, elementwise, 16-byte vectors, a grid sized
+//            by the wrapper's plan (probe_conv_kernel); the first design,
+//            a grid-stride loop of 4-byte loads, is kept as
+//            probe_conv_loop_kernel (section 3);
+//   onehot — o[c, k] = sum_w [h[c, w] == k] * b[c, w], one warp per row c:
+//            each lane sums its run of columns into its own row of a
+//            per-warp table in shared memory, then lane k sums bin k over
+//            the lanes that touched it (probe_onehot_kernel); the first
+//            design, one CTA per row whose thread k walks every column, is
+//            kept as probe_onehot_walk_kernel (section 4);
 //   bdot   — batched (B, 8, K) @ (B, K, 8) on the tensor cores by hand
 //            (mma.sync.aligned.m16n8k8 TF32, float32 accumulation, rows
 //            8..15 of the m16 tile zero): batch i is one 8 x 8 output tile,
@@ -48,15 +54,18 @@
 //
 // Sums that must be bit-equal to the plain versions (acc, onehot) are
 // taken in float64 in a fixed order and rounded once; the plain versions
-// in scripts/pallas_probe.py repeat that order.  bdot and dot round their
-// inputs to TF32 (cvt.rna), so they are held to 2^-10 * sum_k |a_ik b_kj|.
+// in scripts/pallas_probe.py repeat that order (each onehot design its
+// own).  bdot and dot round their inputs to TF32 (cvt.rna), so they are
+// held to 2^-10 * sum_k |a_ik b_kj|.
 //
-// What bounds them on the H100: nothing but the launch and, inside it,
-// the longest chain of dependent loads and instructions.  The largest,
-// dot, moves 336 KB (0.1 us at 3.35 TB/s) and does 16.8 MFLOP (0.03 us at
-// 495 TF32 TFLOP/s); a launch costs microseconds.  acc's per-rep step is
-// the handoff of 64 partials to rank 0 and of the slot back, the number it
-// exists for.
+// What bounds them on the H100 at the script's shapes: nothing but the
+// launch and, inside it, the longest chain of dependent loads and
+// instructions.  The largest, dot, moves 336 KB (0.1 us at 3.35 TB/s) and
+// does 16.8 MFLOP (0.03 us at 495 TF32 TFLOP/s); a launch costs
+// microseconds.  acc's per-rep step is the handoff of 64 partials to rank
+// 0 and of the slot back, the number it exists for.  conv and onehot are
+// also run where they do real work, at B2's frame geometry and at the
+// receiver's one-hot geometry, where their bytes bound them.
 
 #include <cooperative_groups.h>
 #include <cstdint>
@@ -297,19 +306,175 @@ probe_acc_sync_kernel(const float* x, float* __restrict__ o, int reps) {
 }
 
 // --- 3. conv ---------------------------------------------------------------
+//
+// o = __int2float_rn(x), int32 -> float32, round to nearest even.  What
+// bounds it: its bytes, 8 per element (2.4 ns at the script's 1 024
+// elements, where the launch is all that remains; 11.7 us on one block of
+// B2's frames, 64 x 8 x 9 580 int32).  The first design
+// (probe_conv_loop_kernel) is a grid-stride loop of 4-byte loads over at
+// most 1 024 CTAs: at the script's shape 4 CTAs of one element per
+// thread.  This design moves 16-byte vectors: an int4 load, four
+// __int2float_rn, one float4 store, neighbouring threads on neighbouring
+// vectors.  Thread t of the grid's S threads takes vectors t, t + S, ...,
+// kConvVecs of them loaded before any is stored, so that each thread keeps
+// that many loads in flight.  The wrapper's launch plan
+// (pallas_probe.conv_plan) sizes the grid: at the script's shape one CTA
+// of 256 threads, one vector each, no second pass (grid's kernel, the
+// launch floor); at large n a few CTAs per SM.  The n % 4 elements past
+// the last whole vector are converted one by one by the first threads of
+// CTA 0.  x and o are 16-byte aligned (the entry refuses them otherwise).
+constexpr int kConvThreads = 256;
+constexpr int kConvVecs = 4;  // vectors a thread loads before it stores
 
+__global__ void __launch_bounds__(kConvThreads)
+probe_conv_kernel(const int4* __restrict__ x, float4* __restrict__ o, long long n) {
+  const long long vecs = n / 4;
+  const long long stride = static_cast<long long>(gridDim.x) * kConvThreads;
+  const long long t = static_cast<long long>(blockIdx.x) * kConvThreads + threadIdx.x;
+  for (long long i = t; i < vecs; i += kConvVecs * stride) {
+    int4 v[kConvVecs];
+#pragma unroll
+    for (int j = 0; j < kConvVecs; ++j)
+      if (i + j * stride < vecs) v[j] = x[i + j * stride];
+#pragma unroll
+    for (int j = 0; j < kConvVecs; ++j)
+      if (i + j * stride < vecs)
+        o[i + j * stride] = make_float4(__int2float_rn(v[j].x), __int2float_rn(v[j].y),
+                                        __int2float_rn(v[j].z), __int2float_rn(v[j].w));
+  }
+  if (t < n - 4 * vecs) {
+    const long long e = 4 * vecs + t;
+    reinterpret_cast<float*>(o)[e] = __int2float_rn(reinterpret_cast<const int*>(x)[e]);
+  }
+}
+
+// The first design, kept to be timed beside it
 __global__ void __launch_bounds__(256)
-probe_conv_kernel(const int* __restrict__ x, float* __restrict__ o, long long n) {
+probe_conv_loop_kernel(const int* __restrict__ x, float* __restrict__ o, long long n) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
        i += static_cast<long long>(gridDim.x) * blockDim.x)
     o[i] = __int2float_rn(x[i]);
 }
 
 // --- 4. onehot: weighted one-hot histogram per row -------------------------
+//
+// o[c, k] = sum_w [h[c, w] == k] * b[c, w] for the 32 bins k; an h outside
+// [0, 32) matches no bin (the receiver's sentinels -1 and 32 among them).
+// What bounds it: at the script's shape, (8, 256), the launch (5.3 KB
+// moved); at the receiver's one-hot geometry, (4 800, 128) -> (4 800, 32),
+// its 5.53 MB, 1.65 us at 3.35 TB/s (its 39 M compares and adds take 0.59
+// us at 67 TFLOP/s).  The first design (probe_onehot_walk_kernel) runs
+// one CTA of 256 threads per row: the row is copied to shared memory
+// behind a CTA barrier, then thread k walks all ``width`` columns for bin
+// k, one chain of ``width`` dependent float64 adds, while 224 of the 256
+// threads idle.
+//
+// This design runs one warp per row, ``warps`` rows per CTA (the wrapper's
+// launch plan, pallas_probe.onehot_plan).  Lane l owns the columns
+// [l * width / 32, (l + 1) * width / 32) and reads them straight into
+// registers as 16-byte int4 / float4 vectors: no staging copy, no CTA
+// barrier.  Pass 1: the lane sums its columns, in column order and in
+// float64, into its own row p[l][.] of the warp's table in shared memory.
+// __syncwarp.  Pass 2: lane k sums p[0..31][k] in lane order and rounds
+// once to float32.  The dependent chain is width / 32 adds and then one
+// per lane that touched bin k, against ``width`` in the first design.
+//
+// Pass 1 keeps the current run of equal bins in a register and writes an
+// entry only when the run ends (stored at the lane's first touch of the
+// bin, added to at later ones: the same float64 adds, in the same order,
+// as an add per column onto a zeroed entry); pass 2 adds only the lanes
+// that touched bin k, which lane k learns from the lanes' masks of
+// touched bins transposed across the warp by five shuffles.  What had to
+// be got right (PERF.md section 6): the table's traffic did not set the
+// time (a zeroed table read in full took as long), but learning the
+// touching lanes by a ballot per bin took ~1.3 us more than the transpose
+// at the receiver's shape.  An entry never touched would be +0.0, and no
+// partial is -0.0 (each starts as 0.0 + b), so skipping it changes no
+// bit.  A table row is kOnehotPitch = 33 doubles, so that entry (l, k)
+// lies on bank pair (l + k) mod 16 of its half-warp's access (a 64-bit
+// access is served per half-warp).  The table is warps x 32 x 33 x 8
+// bytes of dynamic shared memory (the entry raises the kernel's limit
+// above the default 48 KB once, where a plan needs it; the default plan,
+// 2 warps per CTA, takes 16.9 KB).  h and b are 16-byte aligned and width
+// is 128 * vecs_per_lane (the entry refuses anything else).
+constexpr int kOnehotPitch = kBins + 1;  // doubles per lane row of the table
+constexpr int kOnehotMaxWarps = 16;      // the launch bounds
+constexpr int kOnehotMaxVecs = 8;        // vectors per lane: width <= 1024
+constexpr int kOnehotVecs = 2;           // vectors of h and of b loaded before they are added
 
+// One column of pass 1: bin k (none outside [0, 32)) gets v.  ``run`` is
+// the bin whose sum ``acc`` holds in a register (-1: none yet),
+// ``touched`` the bins this lane has summed.
+__device__ __forceinline__ void onehot_add(double* mine, int k, float v, int& run, double& acc,
+                                           unsigned& touched) {
+  if (static_cast<unsigned>(k) >= static_cast<unsigned>(kBins)) return;
+  if (k != run) {
+    if (run >= 0) mine[run] = acc;
+    acc = (touched >> k) & 1u ? mine[k] : 0.0;
+    touched |= 1u << k;
+    run = k;
+  }
+  acc += static_cast<double>(v);
+}
+
+// The warp's 32 x 32 bit matrix transposed: lane l holds row l (bit k of
+// ``x``) and gets column l (bit j: bit l of lane j's row), by five
+// exchanges of the off-diagonal blocks between lanes l and l ^ j
+__device__ __forceinline__ unsigned transpose_bits(unsigned x, int lane) {
+#pragma unroll
+  for (int j = 16; j >= 1; j >>= 1) {
+    // the bit positions k with k & j == 0
+    const unsigned m = j == 16 ? 0x0000ffffu : j == 8 ? 0x00ff00ffu : j == 4 ? 0x0f0f0f0fu
+                     : j == 2 ? 0x33333333u : 0x55555555u;
+    const unsigned y = __shfl_xor_sync(0xffffffffu, x, j);
+    x = (lane & j) ? (x & ~m) | ((y & ~m) >> j) : (x & m) | ((y & m) << j);
+  }
+  return x;
+}
+
+__global__ void __launch_bounds__(kOnehotMaxWarps * 32)
+probe_onehot_kernel(const int4* __restrict__ h, const float4* __restrict__ b,
+                    float* __restrict__ o, int rows, int vecs_per_lane) {
+  extern __shared__ double table[];  // [warp][lane][kOnehotPitch]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (row >= rows) return;  // the whole warp: no barrier follows but the warp's own
+  double* p = table + warp * 32 * kOnehotPitch;
+  double* mine = p + lane * kOnehotPitch;
+  const long long v0 = (row * 32 + lane) * vecs_per_lane;  // this lane's first vector
+  int run = -1;
+  double acc = 0.0;
+  unsigned touched = 0;
+  for (int v = 0; v < vecs_per_lane; v += kOnehotVecs) {
+    int4 hv[kOnehotVecs];
+    float4 bv[kOnehotVecs];
+#pragma unroll
+    for (int j = 0; j < kOnehotVecs; ++j)
+      if (v + j < vecs_per_lane) {
+        hv[j] = h[v0 + v + j];
+        bv[j] = b[v0 + v + j];
+      }
+#pragma unroll
+    for (int j = 0; j < kOnehotVecs; ++j)
+      if (v + j < vecs_per_lane) {
+        onehot_add(mine, hv[j].x, bv[j].x, run, acc, touched);
+        onehot_add(mine, hv[j].y, bv[j].y, run, acc, touched);
+        onehot_add(mine, hv[j].z, bv[j].z, run, acc, touched);
+        onehot_add(mine, hv[j].w, bv[j].w, run, acc, touched);
+      }
+  }
+  if (run >= 0) mine[run] = acc;
+  const unsigned lanes = transpose_bits(touched, lane);  // the lanes that touched bin ``lane``
+  __syncwarp();  // every lane's entries written
+  double s = 0.0;
+  for (unsigned m = lanes; m; m &= m - 1) s += p[(__ffs(m) - 1) * kOnehotPitch + lane];
+  o[row * kBins + lane] = static_cast<float>(s);
+}
+
+// The first design, kept to be timed beside it
 __global__ void __launch_bounds__(256)
-probe_onehot_kernel(const int* __restrict__ h, const float* __restrict__ b,
-                    float* __restrict__ o, int width) {
+probe_onehot_walk_kernel(const int* __restrict__ h, const float* __restrict__ b,
+                         float* __restrict__ o, int width) {
   __shared__ int sh[kMaxWidth];
   __shared__ float sb[kMaxWidth];
   const long long row = static_cast<long long>(blockIdx.x) * width;
@@ -530,6 +695,8 @@ probe_dot_chain_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 int last_error() { return static_cast<int>(cudaGetLastError()); }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
 // Every entry launches on ``stream`` and returns cudaGetLastError(); the
@@ -571,21 +738,59 @@ extern "C" int sg_probe_acc_sync(const void* x, void* o, int reps, void* stream)
   return last_error();
 }
 
-// x: (n,) int32; o: (n,) float32
-extern "C" int sg_probe_conv(const void* x, void* o, long long n, void* stream) {
+// x: (n,) int32; o: (n,) float32; both 16-byte aligned; ``blocks`` CTAs
+// of kConvThreads from the wrapper's launch plan (pallas_probe.conv_plan)
+extern "C" int sg_probe_conv(const void* x, void* o, long long n, int blocks, void* stream) {
+  if (n < 0 || blocks < 1 || !aligned16(x) || !aligned16(o))
+    return static_cast<int>(cudaErrorInvalidValue);
+  probe_conv_kernel<<<blocks, kConvThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(x), static_cast<float4*>(o), n);
+  return last_error();
+}
+
+// The first conv design: x: (n,) int32; o: (n,) float32; any alignment
+extern "C" int sg_probe_conv_loop(const void* x, void* o, long long n, void* stream) {
   const long long blocks = (n + 255) / 256;
-  probe_conv_kernel<<<static_cast<int>(blocks < 1024 ? blocks : 1024), 256, 0,
-                      static_cast<cudaStream_t>(stream)>>>(static_cast<const int*>(x),
-                                                           static_cast<float*>(o), n);
+  probe_conv_loop_kernel<<<static_cast<int>(blocks < 1024 ? blocks : 1024), 256, 0,
+                           static_cast<cudaStream_t>(stream)>>>(static_cast<const int*>(x),
+                                                                static_cast<float*>(o), n);
   return last_error();
 }
 
 // h: (rows, width) int32; b: (rows, width) float32; o: (rows, 32) float32;
-// width <= 1024
+// h and b 16-byte aligned; at the wrapper's launch plan
+// (pallas_probe.onehot_plan): ``warps`` rows per CTA, ``vecs_per_lane``
+// 16-byte vectors per lane (width = 128 * vecs_per_lane), ``smem`` bytes
+// of dynamic shared memory.  Refuses a plan the kernel cannot run: no
+// row, more warps than its launch bounds, a width it does not split into
+// whole vectors per lane or that exceeds 1 024, less shared memory than
+// the warps' tables take, or an unaligned input.
 extern "C" int sg_probe_onehot(const void* h, const void* b, void* o, int rows, int width,
-                               void* stream) {
+                               int warps, int vecs_per_lane, int smem, void* stream) {
+  if (rows < 1 || warps < 1 || warps > kOnehotMaxWarps || vecs_per_lane < 1 ||
+      vecs_per_lane > kOnehotMaxVecs || width != 128 * vecs_per_lane ||
+      smem < warps * 32 * kOnehotPitch * static_cast<int>(sizeof(double)) || !aligned16(h) ||
+      !aligned16(b))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static int smem_limit = 48 * 1024;  // the kernel's dynamic shared memory limit, raised once
+  if (smem > smem_limit) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        probe_onehot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_limit = smem;
+  }
+  probe_onehot_kernel<<<(rows + warps - 1) / warps, warps * 32, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int4*>(h), static_cast<const float4*>(b), static_cast<float*>(o), rows,
+      vecs_per_lane);
+  return last_error();
+}
+
+// The first onehot design: as sg_probe_onehot, any alignment, width <= 1024
+extern "C" int sg_probe_onehot_walk(const void* h, const void* b, void* o, int rows, int width,
+                                    void* stream) {
   if (width > kMaxWidth) return static_cast<int>(cudaErrorInvalidValue);
-  probe_onehot_kernel<<<rows, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  probe_onehot_walk_kernel<<<rows, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(h), static_cast<const float*>(b), static_cast<float*>(o), width);
   return last_error();
 }

@@ -16,9 +16,12 @@ via ``dot2d`` :120).  Its counterpart here is ``csrc/pallas_probe.cu``:
   arrive), with no cluster barrier per rep; ``reps`` repeats that step,
   and ``(t(64) - t(1)) / 63`` is the cost of one rep's handoff, what B1's
   cluster pays per ms;
-* ``conv`` — int32 -> float32, round to nearest even;
+* ``conv`` — int32 -> float32, round to nearest even, (8, 128): 16-byte
+  vectors, one CTA of one vector per thread (:func:`conv_plan`);
 * ``onehot`` — ``o[c, k] = sum_w [h[c, w] == k] * b[c, w]``, (8, 256) ->
-  (8, 32);
+  (8, 32): one warp per row, each lane adding its run of columns into its
+  own row of a per-warp table in shared memory, then lane k summing bin k
+  over the lanes (:func:`onehot_plan`);
 * ``bdot`` — (4, 8, 128) @ (4, 128, 8) on the tensor cores
   (``mma.sync`` m16n8k8 TF32): ``dot``'s kernel body, one CTA per batch
   (its 8 x 8 output tile), at ``dot_plan(8, K, 8)``;
@@ -27,13 +30,15 @@ via ``dot2d`` :120).  Its counterpart here is ``csrc/pallas_probe.cu``:
   operands staged in shared memory once, K split across 8 warps
   (:func:`dot_plan`).
 
-``grid``, ``acc``, ``dot`` and ``bdot`` were redesigned for the card;
-their first kernels stay (``grid_loop``, ``acc_sync``, ``dot_chain`` and
-``bdot_chain`` in :data:`VARIANTS`), and so does B1's own handoff for
-``acc`` (``acc_parity``: one cluster barrier per rep, parity slots), each
-with its own wrapper and launch count (:func:`probe_grid_loop`,
-:func:`probe_acc_sync`, :func:`probe_acc_parity`, :func:`probe_dot_chain`,
-:func:`probe_bdot_chain`), so that one run times old and new in turns.
+Every probe was redesigned for the card; the first kernels stay
+(``grid_loop``, ``acc_sync``, ``conv_loop``, ``onehot_walk``,
+``bdot_chain`` and ``dot_chain`` in :data:`VARIANTS`), and so does B1's
+own handoff for ``acc`` (``acc_parity``: one cluster barrier per rep,
+parity slots), each with its own wrapper and launch count, so that one
+run times old and new in turns.  ``conv`` and ``onehot`` are also run
+where they do real work (:func:`receiver_inputs`): conv on one block of
+B2's frames, (64, 8, 9580) int32, and onehot at the JAX receiver's
+one-hot geometry, (4800, 128) -> (4800, 32).
 
 What "does it lower" was on the TPU is here what ptxas reports for each
 kernel (registers, shared memory, stack, spills), parsed from the kernel
@@ -44,22 +49,25 @@ Run on a CUDA card from the repository root::
     python -m softgnss_tpu_torch.scripts.pallas_probe
 
 It prints the card line and each kernel's resources, holds each kernel
-(each design of grid, acc, dot and bdot) against its plain version on the TPU
-script's own inputs (ones, arange) and on seeded random inputs, printing
-``[ok]`` or ``[FAIL]`` as the TPU script does (``grid``, ``acc``, ``conv``
-and ``onehot`` bit-equal; ``bdot`` and ``dot`` within ``2^-10 * sum_k
-|a_ik b_kj|`` per output, the TF32 rounding of both inputs, and bit-equal
-on the script's ones), holds each :data:`LIBRARY` call to the same plain
-versions, then times each kernel (the designs of grid, acc, dot and bdot
-in turns; each acc design at 1 and 64 reps), its plain version and one
-PyTorch call that computes the same function (for bdot and dot with TF32
-allowed, as the kernels compute, and at PyTorch's default precision).
+(every design) against its own plain version (:data:`PLAINS`) on the TPU
+script's own inputs (ones, arange), on seeded random inputs and, for conv
+and onehot, at the receiver's geometry, printing ``[ok]`` or ``[FAIL]``
+as the TPU script does (``grid``, ``acc``, ``conv`` and ``onehot``
+bit-equal; ``bdot`` and ``dot`` within ``2^-10 * sum_k |a_ik b_kj|`` per
+output, the TF32 rounding of both inputs, and bit-equal on the script's
+ones), holds each :data:`LIBRARY` call to the same plain versions, then
+times each kernel (a probe's designs in turns; each acc design at 1 and
+64 reps; conv's and onehot's also L2-flushed and inside a CUDA graph, and
+at the receiver's geometry), its plain version and one PyTorch call that
+computes the same function (for bdot and dot with TF32 allowed, as the
+kernels compute, and at PyTorch's default precision).
 Without a CUDA card it raises.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import re
 import sys
 from typing import NamedTuple
@@ -68,7 +76,9 @@ import numpy as np
 import torch
 
 from softgnss_tpu_torch.scripts.inputs import SEED
-from softgnss_tpu_torch.scripts.timing import TF32_OPS_PER_S, bound_ms, card, cuda_ms, require_cuda
+from softgnss_tpu_torch.scripts.timing import (TF32_OPS_PER_S, bound_ms, card, cold_ms, cuda_ms,
+                                               flushed_marginal_ms, graph_marginal_ms,
+                                               require_cuda)
 from softgnss_tpu_torch.track import megakernel as mk
 
 PROBES = ("grid", "acc", "conv", "onehot", "bdot", "dot")
@@ -234,19 +244,67 @@ probe_acc_sync.launches = 0
 
 # --- 3. conv -----------------------------------------------------------------
 
+#: threads per CTA of ``probe_conv_kernel`` and the 16-byte vectors a
+#: thread loads before it stores (csrc's kConvThreads and kConvVecs); its
+#: CTAs per SM at most, which sizes the grid at large n
+CONV_THREADS = 256
+CONV_VECS = 4
+CONV_CTAS_PER_SM = 4
+
 
 def probe_conv_plain(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32)
 
 
+class ConvPlan(NamedTuple):
+    """How ``probe_conv_kernel`` covers n elements: ``blocks`` CTAs of
+    CONV_THREADS threads; thread t of the grid converts the 16-byte
+    vectors :meth:`vectors_of` (t), CONV_VECS loaded before any is
+    stored, and threads 0 .. tail - 1 the ``tail`` = n % 4 elements after
+    the last whole vector."""
+
+    vectors: int
+    tail: int
+    blocks: int
+
+    @property
+    def threads(self) -> int:
+        return self.blocks * CONV_THREADS
+
+    def vectors_of(self, thread: int) -> range:
+        return range(thread, self.vectors, self.threads)
+
+
+def conv_plan(n: int, sms: int) -> ConvPlan:
+    """The launch plan of ``probe_conv_kernel`` for n int32 on a card of
+    ``sms`` SMs: as many CTAs as give each thread at most CONV_VECS vectors
+    (one CTA of one vector per thread at the script's 1 024 elements), and
+    no more than CONV_CTAS_PER_SM per SM (where a thread then takes its
+    vectors CONV_VECS at a time)."""
+    if n < 0 or sms < 1:
+        raise ValueError(f"probe_conv: {n} elements on {sms} SMs")
+    vectors = n // 4
+    blocks = min(-(-vectors // (CONV_THREADS * CONV_VECS)), sms * CONV_CTAS_PER_SM)
+    return ConvPlan(vectors, n % 4, max(blocks, 1))
+
+
+@functools.cache
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def probe_conv(x: torch.Tensor) -> torch.Tensor:
     """int32 -> float32 (round to nearest even): kernel ``probe_conv_kernel``
-    on a CUDA tensor, :func:`probe_conv_plain` on a CPU tensor."""
+    (16-byte vectors at :func:`conv_plan`; x contiguous and 16-byte
+    aligned, else ValueError) on a CUDA tensor, :func:`probe_conv_plain` on
+    a CPU tensor."""
     if x.device.type == "cpu":
         return probe_conv_plain(x)
     mk._require(x, "x", torch.int32, tuple(x.shape), x.device)
+    require_vec4(x, "x")
+    plan = conv_plan(x.numel(), _sms(x.device.index))
     o = _out(x.shape, torch.float32, x)
-    _launch("probe_conv", _lib().sg_probe_conv, x, o, x.numel())
+    _launch("probe_conv", _lib().sg_probe_conv, x, o, x.numel(), plan.blocks)
     probe_conv.launches += 1
     return o
 
@@ -254,12 +312,61 @@ def probe_conv(x: torch.Tensor) -> torch.Tensor:
 probe_conv.launches = 0
 
 
+def probe_conv_loop(x: torch.Tensor) -> torch.Tensor:
+    """:func:`probe_conv` by the first design's kernel
+    ``probe_conv_loop_kernel`` (a grid-stride loop of 4-byte loads; any
+    alignment) on a CUDA tensor."""
+    if x.device.type == "cpu":
+        return probe_conv_plain(x)
+    mk._require(x, "x", torch.int32, tuple(x.shape), x.device)
+    o = _out(x.shape, torch.float32, x)
+    _launch("probe_conv_loop", _lib().sg_probe_conv_loop, x, o, x.numel())
+    probe_conv_loop.launches += 1
+    return o
+
+
+probe_conv_loop.launches = 0
+
+
 # --- 4. onehot ---------------------------------------------------------------
+
+#: warps (rows) per CTA of ``probe_onehot_kernel`` by default (the fastest
+#: of the sweep at the script's shape and at the receiver's, PERF.md) and
+#: at most (its launch bounds), and the counts ``measure`` times in turns
+ONEHOT_WARPS = 2
+ONEHOT_MAX_WARPS = 16
+ONEHOT_WARP_SWEEP = (1, 2, 4, 8, 16)
+#: the widest row it takes (8 vectors per lane)
+ONEHOT_MAX_WIDTH = 1024
+#: doubles per lane row of a warp's table: 32 bins and one of padding
+_ONEHOT_PITCH = _BINS + 1
 
 
 def probe_onehot_plain(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(rows, 32) float32: ``o[c, k] = sum_w [h[c, w] == k] * b[c, w]``,
-    summed over w in order in float64 and rounded once."""
+    """(rows, 32) float32: ``o[c, k] = sum_w [h[c, w] == k] * b[c, w]`` in
+    ``probe_onehot_kernel``'s order: lane l's run of width / 32 columns
+    summed in column order in float64, then bin k's 32 lane sums in lane
+    order; rounded once.  The width is a multiple of 32."""
+    rows, width = h.shape
+    if width % 32:
+        raise ValueError(f"probe_onehot: width {width} is not 32 lanes' runs of columns")
+    cols = width // 32
+    hl = h.reshape(rows, 32, cols)
+    bl = b.to(torch.float64).reshape(rows, 32, cols)
+    bins = torch.arange(_BINS, device=h.device)
+    part = torch.zeros((rows, 32, _BINS), dtype=torch.float64, device=h.device)
+    for j in range(cols):
+        part = part + torch.where(hl[:, :, j, None] == bins, bl[:, :, j, None], 0.0)
+    s = part[:, 0]
+    for lane in range(1, 32):
+        s = s + part[:, lane]
+    return s.to(torch.float32)
+
+
+def probe_onehot_walk_plain(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(rows, 32) float32: :func:`probe_onehot_plain`'s function in the
+    first design's order, over w in column order in float64, rounded
+    once."""
     bins = torch.arange(_BINS, device=h.device)
     acc = torch.zeros((h.shape[0], _BINS), dtype=torch.float64, device=h.device)
     bd = b.to(torch.float64)
@@ -268,24 +375,106 @@ def probe_onehot_plain(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return acc.to(torch.float32)
 
 
-def probe_onehot(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """:func:`probe_onehot_plain` by kernel ``probe_onehot_kernel`` (one CTA
-    per row, width <= 1024) on CUDA tensors, the plain version on CPU
-    tensors."""
-    if h.device.type == "cpu":
-        return probe_onehot_plain(h, b)
+class OnehotPlan(NamedTuple):
+    """How ``probe_onehot_kernel`` covers (rows, width): warp w of CTA c
+    sums row :meth:`row_of` (c, w), lane l of it the columns
+    :meth:`columns_of` (l), read as ``vecs_per_lane`` 16-byte vectors.
+    Each CTA launches with ``smem_bytes`` of dynamic shared memory, a
+    table of 32 lanes x 33 doubles per warp."""
+
+    rows: int
+    width: int
+    warps: int
+    smem_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return -(-self.rows // self.warps)
+
+    @property
+    def vecs_per_lane(self) -> int:
+        return self.width // 128
+
+    def row_of(self, cta: int, warp: int) -> int | None:
+        """The row warp ``warp`` of CTA ``cta`` sums; None past the last."""
+        row = cta * self.warps + warp
+        return row if row < self.rows else None
+
+    def columns_of(self, lane: int) -> range:
+        """The columns lane ``lane`` adds into its row of the table, in order."""
+        cols = self.width // 32
+        return range(lane * cols, (lane + 1) * cols)
+
+
+def onehot_plan(rows: int, width: int, warps: int = ONEHOT_WARPS) -> OnehotPlan:
+    """The launch plan of ``probe_onehot_kernel`` for (rows, width): one
+    warp per row, ``warps`` rows per CTA (fewer where there are fewer
+    rows).  Raises ValueError on a shape the kernel does not take: no
+    row, or a width that is not a positive multiple of 128 (one 16-byte
+    vector of h and of b per lane per step) up to ONEHOT_MAX_WIDTH; or on
+    ``warps`` outside [1, ONEHOT_MAX_WARPS]."""
+    if width <= 0 or width % 128 or width > ONEHOT_MAX_WIDTH:
+        raise ValueError(f"probe_onehot: width {width} is not a multiple of 128 up to "
+                         f"{ONEHOT_MAX_WIDTH} (one 16-byte vector per lane per step)")
+    if rows < 1:
+        raise ValueError(f"probe_onehot: {rows} rows")
+    if not 1 <= warps <= ONEHOT_MAX_WARPS:
+        raise ValueError(f"probe_onehot: {warps} warps, not in [1, {ONEHOT_MAX_WARPS}]")
+    warps = min(warps, rows)
+    return OnehotPlan(rows, width, warps, warps * 32 * _ONEHOT_PITCH * 8)
+
+
+def _require_onehot(name: str, h: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
+    if h.dim() != 2:
+        raise ValueError(f"{name}: h must be (rows, width), got {tuple(h.shape)}")
     rows, width = h.shape
-    if width > 1024:
-        raise ValueError(f"probe_onehot: width {width} > 1024")
     mk._require(h, "h", torch.int32, (rows, width), h.device)
     mk._require(b, "b", torch.float32, (rows, width), h.device)
+    return rows, width
+
+
+def probe_onehot(h: torch.Tensor, b: torch.Tensor, warps: int | None = None) -> torch.Tensor:
+    """:func:`probe_onehot_plain` by kernel ``probe_onehot_kernel`` (one
+    warp per row, a per-lane table in shared memory) at
+    ``onehot_plan(rows, width, warps)`` (ONEHOT_WARPS by default; h and b
+    contiguous and 16-byte aligned, else ValueError) on CUDA tensors, the
+    plain version on CPU tensors.  ``probe_onehot.smem_bytes`` records the
+    dynamic shared memory of the last launch."""
+    if h.device.type == "cpu":
+        return probe_onehot_plain(h, b)
+    rows, width = _require_onehot("probe_onehot", h, b)
+    plan = onehot_plan(rows, width, ONEHOT_WARPS if warps is None else warps)
+    require_vec4(h, "h")
+    require_vec4(b, "b")
     o = _out((rows, _BINS), torch.float32, h)
-    _launch("probe_onehot", _lib().sg_probe_onehot, h, b, o, rows, width)
+    _launch("probe_onehot", _lib().sg_probe_onehot, h, b, o, rows, width, plan.warps,
+            plan.vecs_per_lane, plan.smem_bytes)
     probe_onehot.launches += 1
+    probe_onehot.smem_bytes = plan.smem_bytes
     return o
 
 
 probe_onehot.launches = 0
+probe_onehot.smem_bytes = None
+
+
+def probe_onehot_walk(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`probe_onehot_walk_plain` by the first design's kernel
+    ``probe_onehot_walk_kernel`` (one CTA per row, thread k walks every
+    column for bin k; width <= 1024, any alignment) on CUDA tensors, the
+    plain version on CPU tensors."""
+    if h.device.type == "cpu":
+        return probe_onehot_walk_plain(h, b)
+    rows, width = _require_onehot("probe_onehot_walk", h, b)
+    if width > ONEHOT_MAX_WIDTH:
+        raise ValueError(f"probe_onehot_walk: width {width} > {ONEHOT_MAX_WIDTH}")
+    o = _out((rows, _BINS), torch.float32, h)
+    _launch("probe_onehot_walk", _lib().sg_probe_onehot_walk, h, b, o, rows, width)
+    probe_onehot_walk.launches += 1
+    return o
+
+
+probe_onehot_walk.launches = 0
 
 
 # --- 5. bdot, 6. dot: tensor cores -------------------------------------------
@@ -481,11 +670,12 @@ probe_dot_chain.launches = 0
 
 #: every S5 kernel's own wrapper by label (``.launches`` counts its
 #: launches): ``<probe>`` the design the probe runs, ``<probe>_<design>``
-#: the first design of grid, acc, bdot and dot and B1's design of acc,
-#: kept to be timed beside it
+#: the first design of grid, acc, conv, onehot, bdot and dot and B1's
+#: design of acc, kept to be timed beside it
 VARIANTS = {"grid": probe_grid, "grid_loop": probe_grid_loop, "acc": probe_acc,
             "acc_parity": probe_acc_parity, "acc_sync": probe_acc_sync,
-            "conv": probe_conv, "onehot": probe_onehot, "bdot": probe_bdot,
+            "conv": probe_conv, "conv_loop": probe_conv_loop, "onehot": probe_onehot,
+            "onehot_walk": probe_onehot_walk, "bdot": probe_bdot,
             "bdot_chain": probe_bdot_chain, "dot": probe_dot, "dot_chain": probe_dot_chain}
 #: the designs of acc, each timed at 1 and ACC_REPS reps, and how each
 #: rep's partials reach rank 0
@@ -493,12 +683,20 @@ ACC_LABELS = ("acc", "acc_parity", "acc_sync")
 ACC_HANDOFF = {"acc": "one-sided st.async push onto rank 0's mbarrier",
                "acc_parity": "one cluster barrier per rep, parity slots",
                "acc_sync": "two cluster barriers per rep"}
+#: the probes also run where they do real work (:func:`receiver_inputs`)
+RECEIVER_PROBES = ("conv", "onehot")
 
 
 def probe_of(label: str) -> str:
-    """The probe (a key of PROBES, PLAINS, LIBRARY) the kernel ``label``
-    of VARIANTS computes."""
+    """The probe (a key of PROBES, LIBRARY) the kernel ``label`` of
+    VARIANTS computes."""
     return label.split("_")[0]
+
+
+def designs(name: str) -> list[str]:
+    """The labels of VARIANTS that compute probe ``name``, the kept design
+    first."""
+    return [label for label in VARIANTS if probe_of(label) == name]
 
 
 def kernel_of(label: str) -> str:
@@ -507,16 +705,21 @@ def kernel_of(label: str) -> str:
     return "probe_dot_kernel" if label == "bdot" else f"probe_{label}_kernel"
 
 
+#: every label's plain version: its probe's, but for onehot_walk, which
+#: sums in another order
 PLAINS = {"grid": probe_grid_plain, "acc": probe_acc_plain, "conv": probe_conv_plain,
-          "onehot": probe_onehot_plain, "bdot": probe_bdot_plain, "dot": probe_dot_plain}
+          "onehot": probe_onehot_plain, "onehot_walk": probe_onehot_walk_plain,
+          "bdot": probe_bdot_plain, "dot": probe_dot_plain}
+PLAINS |= {label: PLAINS[probe_of(label)] for label in VARIANTS if label not in PLAINS}
 #: one PyTorch call computing the same function on :func:`library_inputs`
 #: (timed beside the kernel, never called by the port)
 LIBRARY = {
     "grid": lambda x: x + 1.0,
     "acc": lambda x: x.view(_CLUSTER, _BLOCK_ROWS, _COLS).sum((0, 2))[:, None],
     "conv": lambda x: x.to(torch.float32),
-    "onehot": lambda h, b: torch.zeros((h.shape[0], _BINS), dtype=torch.float32,
-                                       device=h.device).scatter_add_(1, h.long(), b),
+    # columns 0 and 33 take what matches no bin (library_inputs' index)
+    "onehot": lambda idx, b: torch.zeros((idx.shape[0], _BINS + 2), dtype=torch.float32,
+                                         device=idx.device).scatter_add_(1, idx, b)[:, 1:_BINS + 1],
     "bdot": torch.bmm,
     "dot": lambda a, b, z: torch.addmm(z, a, b, beta=0.0, alpha=DOT_STEPS),
 }
@@ -526,9 +729,16 @@ TF32_PROBES = ("bdot", "dot")
 
 
 def library_inputs(name: str, args) -> tuple:
-    """The arguments of ``LIBRARY[name]``: the probe's inputs, and for dot
-    the bias that ``torch.addmm`` ignores at beta=0, made here, outside
-    the call that is timed."""
+    """The arguments of ``LIBRARY[name]``, made here, outside the call that
+    is timed: the probe's inputs; for dot the bias that ``torch.addmm``
+    ignores at beta=0; for onehot the index ``h.clamp(-1, 32) + 1`` in
+    place of h, so that an h outside the bins lands in column 0 or 33 of
+    the scatter's buffer and no index lies outside it (on a CUDA tensor
+    an index out of range is a device-side assert, which ends the
+    process's CUDA context)."""
+    if name == "onehot":
+        h, b = args
+        return (h.clamp(-1, _BINS) + 1).long(), b
     if name != "dot":
         return tuple(args)
     a, b = args
@@ -584,6 +794,81 @@ def seeded_inputs(device, seed: int = SEED) -> dict:
     }
 
 
+#: the receiver's geometry at default_config(), the port's own numbers;
+#: each names the JAX definition it mirrors (tests/test_torch_scripts.py
+#: holds them against it).  _BINS is tables.onehot_width
+#: (softgnss_tpu/track/tables.py:109).
+RECEIVER_CHANNELS = 8       # config.number_of_channels (softgnss_tpu/config.py:31)
+TRACK_TILE = 128            # config.track_tile (softgnss_tpu/config.py:222)
+TRACK_PACK = 2              # config.track_pack at track_pack_size = 2 (config.py:346, :382)
+N_TILES = 300               # tables.n_tiles, track_window // track_tile (tables.py:119)
+SUBDIVISION = 2             # tables.subdivision at the 0.5-chip spacing (tables.py:65)
+H_OFFSET = 2                # tables._H_OFFSET, sub-chips of margin below a tile's span (tables.py:62)
+FRAME_SHIFT = 7             # tables._frame_shift_subchips (tables.py:82)
+CHIPS_PER_SAMPLE = 1.023e6 / 38.192e6   # config.code_freq_basis / config.sampling_freq
+#: B2's frames of one block on the port's main path, (track_block_ms, C,
+#: track_window // 4) int32 (softgnss_tpu/config.py:229;
+#: softgnss_tpu_torch/track/scan.py:311).  The port's window is whole
+#: capture words, 38 320 samples (softgnss_tpu_torch/config.py:192); the
+#: JAX package rounds its own up to whole tiles, 38 400 (9 600 words,
+#: softgnss_tpu/config.py:435).
+FRAME_MS = 64
+FRAME_WORDS = 9580
+#: the one-hot indices of :func:`receiver_inputs`: the tracker's phase
+#: ramps, or uniform in [-4, 36) as in seeded_inputs
+RECEIVER_CASES = ("receiver", "uniform")
+
+
+def receiver_inputs(device, seed: int = SEED, case: str = "receiver") -> dict:
+    """conv and onehot where they do real work, from a numpy seed.
+
+    ``onehot`` at the JAX receiver's one-hot geometry: ``_correlate_onehot``
+    (softgnss_tpu/track/scan.py:199-276) computes ``u = einsum("tkw,ctk->twc",
+    onehot(h_local), bb)`` per channel every ms, so one row per (channel,
+    plane, tile): RECEIVER_CHANNELS x 2 x N_TILES = 4 800 rows of
+    TRACK_TILE lanes into _BINS bins.  Case "receiver": each (channel,
+    tile) draws a base index and a phase of lane 0 above it, in [H_OFFSET
+    - 1, H_OFFSET + FRAME_SHIFT + 1) sub-chips (the float of the ms start
+    inside its frame); lane j's index is ``ceil(base + phase + step * j)``
+    with step = TRACK_PACK * SUBDIVISION * CHIPS_PER_SAMPLE (0.107
+    sub-chips), made local to the base and clipped to [-1, 32] (scan.py
+    :241-264): ~14 bins per row.  Case "uniform": indices uniform in
+    [-4, 36) at that shape, sentinels and indices past them included.  In
+    both the I and Q planes share the tile's indices.  b: normal float32.
+
+    ``conv`` (case "receiver" only) at B2's frame geometry: full-range
+    int32 of shape (FRAME_MS, RECEIVER_CHANNELS, FRAME_WORDS)."""
+    if case not in RECEIVER_CASES:
+        raise ValueError(f"receiver_inputs: case {case!r}, not one of {RECEIVER_CASES}")
+    rng = np.random.default_rng(seed)
+    shape = (RECEIVER_CHANNELS, 2, N_TILES, TRACK_TILE)
+    b = rng.standard_normal(shape).astype(np.float32)
+    tiles = (RECEIVER_CHANNELS, 1, N_TILES, 1)
+    if case == "uniform":
+        h = rng.integers(-4, 36, tiles[:-1] + (TRACK_TILE,))
+    else:
+        base = rng.integers(0, 1 << 20, tiles)
+        phase = rng.uniform(H_OFFSET - 1, H_OFFSET + FRAME_SHIFT + 1, tiles)
+        step = TRACK_PACK * SUBDIVISION * CHIPS_PER_SAMPLE
+        h = np.clip(np.ceil(base + phase + step * np.arange(TRACK_TILE)) - base, -1, _BINS)
+    h = np.broadcast_to(h, shape)
+    rows = lambda a: torch.from_numpy(np.ascontiguousarray(a).reshape(-1, TRACK_TILE))  # noqa: E731
+    out = {"onehot": (rows(h.astype(np.int32)).to(device), rows(b).to(device))}
+    if case == "receiver":
+        x = rng.integers(-2**31, 2**31, (FRAME_MS, RECEIVER_CHANNELS, FRAME_WORDS))
+        out["conv"] = (torch.from_numpy(x.astype(np.int32)).to(device),)
+    return out
+
+
+def input_sets(device) -> dict:
+    """{name: inputs} of every set the kernels are held to their plain
+    versions on: the script's, seeded, and both receiver cases (conv and
+    onehot only)."""
+    return {"script": script_inputs(device), "seeded": seeded_inputs(device),
+            "receiver": receiver_inputs(device), "receiver-uniform": receiver_inputs(device,
+                                                                                     case="uniform")}
+
+
 def tf32_tolerance(name: str, args) -> torch.Tensor | None:
     """``TF32_REL * sum_k |a_ik b_kj|`` per output of bdot and dot (None
     for the bit-equal probes)."""
@@ -596,14 +881,15 @@ def tf32_tolerance(name: str, args) -> torch.Tensor | None:
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, args, exact: bool) -> float:
     """Raise unless ``got`` equals ``want`` bit for bit (``exact``, or a
-    bit-equal probe) or lies within the TF32 tolerance; returns the largest
-    absolute difference."""
+    bit-equal probe) or lies within the TF32 tolerance of the probe that
+    ``name`` (a label of VARIANTS, or a probe) computes; returns the
+    largest absolute difference."""
     if got.dtype != want.dtype or got.shape != want.shape:
         raise AssertionError(f"S5 {name}: {got.dtype} {tuple(got.shape)}, the plain version's "
                              f"{want.dtype} {tuple(want.shape)}")
     diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
     worst = float(diff.max())
-    tol = tf32_tolerance(name, args)
+    tol = tf32_tolerance(probe_of(name), args)
     if tol is None or exact:
         if not torch.equal(got, want):
             raise AssertionError(f"S5 {name}: differs from the plain version "
@@ -614,22 +900,38 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, args, exact: bool)
     return worst
 
 
+def onehot_scale(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum_w [h[c, w] == k] |b[c, w]|`` in float64 per output of onehot:
+    the scale of a float32 sum-order tolerance."""
+    idx, _ = library_inputs("onehot", (h, b))
+    return torch.zeros((h.shape[0], _BINS + 2), dtype=torch.float64, device=h.device).scatter_add_(
+        1, idx, b.abs().to(torch.float64))[:, 1:_BINS + 1]
+
+
 def check(device, verbose: bool = False) -> dict:
-    """Every kernel of VARIANTS (each design of grid, acc, bdot and dot)
-    against its plain version on the script's inputs (bit-equal, all
-    eleven) and on seeded inputs (bit-equal, or the TF32 bound for bdot
-    and dot), each acc design at 2, 3 and ACC_REPS reps, and two launches
-    of ``probe_dot_kernel`` (as dot and as bdot) and of each acc design
-    bit-equal to each other (their reductions have a fixed order); raises
-    on the first failure.  Returns {label: largest absolute difference}."""
+    """Every kernel of VARIANTS (each design of grid, acc, conv, onehot,
+    bdot and dot) against its own plain version, ``PLAINS[label]``, on
+    every set of :func:`input_sets`: bit-equal on the script's inputs (all
+    thirteen); on seeded inputs bit-equal, or within the TF32 bound for
+    bdot and dot; the designs of conv and onehot bit-equal at the
+    receiver's geometry (onehot in both cases, and at each warp count of
+    ONEHOT_WARP_SWEEP).  Each acc design at 2, 3 and ACC_REPS reps, and
+    two launches bit-equal to each other (their reductions have a fixed
+    order): ``probe_dot_kernel`` as dot and as bdot and each acc design on
+    seeded inputs, each design of conv and onehot at the receiver's
+    geometry.  Raises on the first failure.  Returns {label: largest
+    absolute difference}."""
     worst = {}
-    for which, inputs in (("script", script_inputs(device)), ("seeded", seeded_inputs(device))):
+    sets = input_sets(device)
+    for which, inputs in sets.items():
         for label, wrapper in VARIANTS.items():
             name = probe_of(label)
+            if name not in inputs:
+                continue
             args = inputs[name]
             try:
                 got = wrapper(*args)
-                err = compare(name, got, PLAINS[name](*args), args, exact=which == "script")
+                err = compare(label, got, PLAINS[label](*args), args, exact=which == "script")
             except (AssertionError, RuntimeError) as exc:
                 if verbose:
                     print(f"[FAIL] {label} ({which} inputs): {type(exc).__name__}: {exc}")
@@ -638,13 +940,19 @@ def check(device, verbose: bool = False) -> dict:
                 print(f"[ok]   {label} ({which} inputs): {got.reshape(-1)[:4].tolist()}, "
                       f"max |kernel - plain| {err:.3e}")
             worst[label] = max(worst.get(label, 0.0), err)
-    acc_x = seeded_inputs(device)["acc"][0]
+    h, b = sets["receiver"]["onehot"]
+    want = probe_onehot_plain(h, b)
+    for warps in ONEHOT_WARP_SWEEP:
+        compare(f"onehot at {warps} warps per CTA", probe_onehot(h, b, warps=warps), want,
+                (h, b), True)
+    acc_x = sets["seeded"]["acc"][0]
     for label in ACC_LABELS:
         for reps in (2, 3, ACC_REPS):
             compare(f"{label} at {reps} reps", VARIANTS[label](acc_x, reps),
                     probe_acc_plain(acc_x), (acc_x,), True)
-    for label in ("dot", "bdot", *ACC_LABELS):
-        args = seeded_inputs(device)[probe_of(label)]
+    for label in ("dot", "bdot", *ACC_LABELS, *(x for n in RECEIVER_PROBES for x in designs(n))):
+        name = probe_of(label)
+        args = sets["receiver" if name in RECEIVER_PROBES else "seeded"][name]
         if not torch.equal(VARIANTS[label](*args), VARIANTS[label](*args)):
             raise AssertionError(f"S5 {label}: two launches on the same inputs differ")
     torch.cuda.synchronize(device)
@@ -654,10 +962,13 @@ def check(device, verbose: bool = False) -> dict:
 def check_library(device) -> dict:
     """Each LIBRARY call against its probe's plain version, as the kernels
     are held: bit-equal on the script's inputs; on seeded inputs bdot and
-    dot within the TF32 bound with TF32 allowed.  Returns {probe: largest
-    absolute difference on seeded inputs} for bdot and dot, with TF32
-    allowed and at the default precision (the difference shows that the
-    flag took effect)."""
+    dot within the TF32 bound with TF32 allowed; at the receiver's
+    geometry conv bit-equal and onehot (a float32 scatter, both cases, the
+    sentinels and indices past them included) within 1e-5 of
+    :func:`onehot_scale`.  Returns {probe: largest absolute difference}:
+    on seeded inputs for bdot and dot, with TF32 allowed and at the
+    default precision (the difference shows that the flag took effect);
+    at the receiver's geometry for conv and onehot ({case: difference})."""
     out = {}
     for name in PROBES:
         args = script_inputs(device)[name]
@@ -672,6 +983,20 @@ def check_library(device) -> dict:
                 got = LIBRARY[name](*library_inputs(name, args))
             out.setdefault(name, {})["tf32" if allow else "default"] = compare(
                 name, got, want, args, exact=False)
+    for case in RECEIVER_CASES:
+        inputs = receiver_inputs(device, case=case)
+        for name, args in inputs.items():
+            got = LIBRARY[name](*library_inputs(name, args))
+            want = PLAINS[name](*args)
+            if name == "conv":
+                err = compare(f"library {name}", got, want, args, exact=True)
+            else:
+                diff = (got.to(torch.float64) - want.to(torch.float64)).abs()
+                err = float(diff.max())
+                if got.shape != want.shape or not bool((diff <= 1e-5 * onehot_scale(*args)).all()):
+                    raise AssertionError(f"S5 library onehot ({case} inputs): outside 1e-5 of "
+                                         f"sum |terms| (max abs diff {err:.3e})")
+            out.setdefault(name, {})[case] = err
     torch.cuda.synchronize(device)
     return out
 
@@ -698,51 +1023,115 @@ def bound(name: str, args) -> tuple[float, str]:
     return bound_ms(n_in + m * n * 4, 2 * DOT_STEPS * m * n * k, TF32_OPS_PER_S)
 
 
-def measure(device, n: int = 200) -> dict:
-    """On the script's own inputs: {label: {"ms", "ms_turns", "plain_ms",
-    "library_ms", "bound_ms", "bound_by"}} for every kernel of VARIANTS (a
-    probe's designs timed in turns: each, then each in reverse order; "ms"
-    is their mean), "library_default_ms" beside "library_ms" for bdot and
-    dot (whose "library_ms" is with TF32 allowed), dot's "ms_steps0" (the
-    launch, the staging and the reduction without the loop), bdot's
-    "ms_by_warps" ({warps: ms} at each of BDOT_WARP_SWEEP, in turns), and
-    for each acc design "ms_reps" (ms of one launch at ACC_REPS reps, the
-    designs in turns) and "step_us", the cost of one rep's handoff of the
-    partials to rank 0: (t(ACC_REPS) - t(1)) / (ACC_REPS - 1)."""
+def in_turns(fns: dict, timer) -> dict:
+    """{key: [time, time]}: ``timer(fn)`` for each ``fn`` of ``fns`` in
+    order, then in reverse order."""
+    turns = {key: [] for key in fns}
+    for key in [*fns, *reversed(fns)]:
+        turns[key].append(timer(fns[key]))
+    return turns
+
+
+def _mean(ts) -> float:
+    return float(np.mean(ts))
+
+
+def measure(device, n: int = 200, n_cold: int = 50) -> dict:
+    """{label: {...}} for every kernel of VARIANTS.  On the script's own
+    inputs: "ms", "ms_turns", "plain_ms", "library_ms", "bound_ms",
+    "bound_by" (a probe's designs timed in turns: each, then each in
+    reverse order; "ms" is their mean), "library_default_ms" beside
+    "library_ms" for bdot and dot (whose "library_ms" is with TF32
+    allowed), dot's "ms_steps0" (the launch, the staging and the reduction
+    without the loop), bdot's "ms_by_warps" ({warps: ms} at each of
+    BDOT_WARP_SWEEP, in turns), and for each acc design "ms_reps" (ms of
+    one launch at ACC_REPS reps, the designs in turns) and "step_us", the
+    cost of one rep's handoff of the partials to rank 0: (t(ACC_REPS) -
+    t(1)) / (ACC_REPS - 1).
+
+    For the designs of conv and onehot also, each in turns with the other
+    designs and the library call: "ms_cold" and "graph_ms" at the script's
+    shape (L2 flushed before each call; the marginal cost of one more call
+    inside a CUDA graph, which leaves the launch out), beside
+    "library_ms_cold" and "library_graph_ms"; and for each case of
+    RECEIVER_CASES that has the probe, under the case's name: "ms",
+    "ms_turns", "ms_cold", "ms_cold_turns", "ms_cold_marginal" (flushed,
+    back to back: :func:`flushed_marginal_ms`), "plain_ms", "library_ms",
+    "library_ms_cold", "library_ms_cold_marginal", "bound_ms", "bound_by"
+    at the receiver's geometry.
+    onehot's entry and its "receiver" also hold "ms_by_warps" and
+    "ms_cold_by_warps" at each of ONEHOT_WARP_SWEEP, in turns."""
     inputs = script_inputs(device)
+    warm = lambda fn: cuda_ms(fn, n, busy=True)               # noqa: E731
+    cold = lambda fn: cold_ms(fn, n_cold, device)             # noqa: E731
     res = {}
     for name in PROBES:
         args = inputs[name]
-        plain, lib, largs = PLAINS[name], LIBRARY[name], library_inputs(name, args)
+        lib, largs = LIBRARY[name], library_inputs(name, args)
         b_ms, b_by = bound(name, args)
-        common = {"plain_ms": cuda_ms(lambda: plain(*args), 10), "bound_ms": b_ms,
-                  "bound_by": b_by}
+        common = {"bound_ms": b_ms, "bound_by": b_by}
         with tf32_matmul(name in TF32_PROBES):
-            common["library_ms"] = cuda_ms(lambda: lib(*largs), n, busy=True)
+            common["library_ms"] = warm(lambda: lib(*largs))
         if name in TF32_PROBES:
             with tf32_matmul(False):
-                common["library_default_ms"] = cuda_ms(lambda: lib(*largs), n, busy=True)
-        labels = [label for label in VARIANTS if probe_of(label) == name]
-        turns = {label: [] for label in labels}
-        for label in [*labels, *reversed(labels)]:
-            turns[label].append(cuda_ms(lambda: VARIANTS[label](*args), n, busy=True))
+                common["library_default_ms"] = warm(lambda: lib(*largs))
+        labels = designs(name)
+        turns = in_turns({label: functools.partial(VARIANTS[label], *args) for label in labels},
+                         warm)
         for label in labels:
-            res[label] = {"ms": float(np.mean(turns[label])), "ms_turns": turns[label], **common}
+            res[label] = {"ms": _mean(turns[label]), "ms_turns": turns[label],
+                          "plain_ms": cuda_ms(lambda: PLAINS[label](*args), 10), **common}
     a, b = inputs["dot"]
-    res["dot"]["ms_steps0"] = cuda_ms(lambda: probe_dot(a, b, steps=0), n, busy=True)
+    res["dot"]["ms_steps0"] = warm(lambda: probe_dot(a, b, steps=0))
     a, b = inputs["bdot"]
-    sweep = {w: [] for w in BDOT_WARP_SWEEP}
-    for w in [*BDOT_WARP_SWEEP, *reversed(BDOT_WARP_SWEEP)]:
-        sweep[w].append(cuda_ms(lambda: probe_bdot(a, b, warps=w), n, busy=True))
-    res["bdot"]["ms_by_warps"] = {w: float(np.mean(t)) for w, t in sweep.items()}
+    sweep = in_turns({w: functools.partial(probe_bdot, a, b, warps=w) for w in BDOT_WARP_SWEEP},
+                     warm)
+    res["bdot"]["ms_by_warps"] = {w: _mean(t) for w, t in sweep.items()}
     x = inputs["acc"][0]
-    turns = {label: [] for label in ACC_LABELS}
-    for label in [*ACC_LABELS, *reversed(ACC_LABELS)]:
-        turns[label].append(cuda_ms(lambda: VARIANTS[label](x, ACC_REPS), n, busy=True))
+    turns = in_turns({label: functools.partial(VARIANTS[label], x, ACC_REPS)
+                      for label in ACC_LABELS}, warm)
     for label in ACC_LABELS:
         r = res[label]
-        r["ms_reps"] = float(np.mean(turns[label]))
+        r["ms_reps"] = _mean(turns[label])
         r["step_us"] = (r["ms_reps"] - r["ms"]) * 1e3 / (ACC_REPS - 1)
+
+    cases = {case: receiver_inputs(device, case=case) for case in RECEIVER_CASES}
+    for name in RECEIVER_PROBES:
+        labels = designs(name)
+
+        def fns(args):
+            return {**{label: functools.partial(VARIANTS[label], *args) for label in labels},
+                    "library": functools.partial(LIBRARY[name], *library_inputs(name, args))}
+
+        script = fns(inputs[name])
+        t_cold, t_graph = in_turns(script, cold), in_turns(script, graph_marginal_ms)
+        for label in labels:
+            res[label].update(ms_cold=_mean(t_cold[label]), graph_ms=_mean(t_graph[label]),
+                              library_ms_cold=_mean(t_cold["library"]),
+                              library_graph_ms=_mean(t_graph["library"]))
+        for case, case_inputs in cases.items():
+            if name not in case_inputs:
+                continue
+            args = case_inputs[name]
+            b_ms, b_by = bound(name, args)
+            calls = fns(args)
+            t_warm, t_cold = in_turns(calls, warm), in_turns(calls, cold)
+            t_marg = in_turns(calls, lambda fn: flushed_marginal_ms(fn, n_cold, device))
+            for label in labels:
+                res[label][case] = {
+                    "ms": _mean(t_warm[label]), "ms_turns": t_warm[label],
+                    "ms_cold": _mean(t_cold[label]), "ms_cold_turns": t_cold[label],
+                    "ms_cold_marginal": _mean(t_marg[label]),
+                    "plain_ms": cuda_ms(lambda: PLAINS[label](*args), 5),
+                    "library_ms": _mean(t_warm["library"]),
+                    "library_ms_cold": _mean(t_cold["library"]),
+                    "library_ms_cold_marginal": _mean(t_marg["library"]), "bound_ms": b_ms,
+                    "bound_by": b_by}
+    for r, (h, b) in ((res["onehot"], inputs["onehot"]),
+                      (res["onehot"]["receiver"], cases["receiver"]["onehot"])):
+        by_warps = {w: functools.partial(probe_onehot, h, b, warps=w) for w in ONEHOT_WARP_SWEEP}
+        r["ms_by_warps"] = {w: _mean(t) for w, t in in_turns(by_warps, warm).items()}
+        r["ms_cold_by_warps"] = {w: _mean(t) for w, t in in_turns(by_warps, cold).items()}
     return res
 
 
@@ -754,7 +1143,7 @@ def report(res: dict) -> None:
         if "library_default_ms" in r:
             lib += f" (TF32 allowed; default precision {us(r['library_default_ms'])} us)"
         turns = ", ".join(us(t) for t in r["ms_turns"])
-        print(f"S5 {label:9s}: kernel {us(r['ms'])} us (in turns: {turns}), "
+        print(f"S5 {label:11s}: kernel {us(r['ms'])} us (in turns: {turns}), "
               f"plain {us(r['plain_ms'])} us, {lib}, bound {r['bound_ms'] * 1e3:.4f} us "
               f"({r['bound_by']}) per launch [{card()}]")
     print(f"S5 dot at steps=0 (launch, staging, reduction; no mma): "
@@ -767,6 +1156,32 @@ def report(res: dict) -> None:
         print(f"S5 {label} (8-CTA cluster, {ACC_HANDOFF[label]}): {us(r['ms'])} us at 1 rep, "
               f"{us(r['ms_reps'])} us at {ACC_REPS} reps: {r['step_us']:.4f} us per rep "
               f"[{card()}]")
+    for name in RECEIVER_PROBES:
+        for label in designs(name):
+            r = res[label]
+            print(f"S5 {label:11s} at the script's shape: L2 flushed {us(r['ms_cold'])} us, "
+                  f"in a CUDA graph {us(r['graph_ms'])} us per call (library flushed "
+                  f"{us(r['library_ms_cold'])}, graph {us(r['library_graph_ms'])}) [{card()}]")
+            for case in RECEIVER_CASES:
+                if case not in r:
+                    continue
+                c = r[case]
+                print(f"S5 {label:11s} at the receiver's geometry ({case} inputs): L2 flushed "
+                      f"{us(c['ms_cold'])} us (in turns: "
+                      f"{', '.join(us(t) for t in c['ms_cold_turns'])}; back to back "
+                      f"{us(c['ms_cold_marginal'])}), warm {us(c['ms'])} us "
+                      f"(in turns: {', '.join(us(t) for t in c['ms_turns'])}), bound "
+                      f"{us(c['bound_ms'])} us ({c['bound_by']}): "
+                      f"{c['bound_ms'] / c['ms_cold']:.3f} of it flushed; plain "
+                      f"{us(c['plain_ms'])} us; library flushed {us(c['library_ms_cold'])} us "
+                      f"(back to back {us(c['library_ms_cold_marginal'])}), warm "
+                      f"{us(c['library_ms'])} us [{card()}]")
+    for where, r in (("the script's shape", res["onehot"]),
+                     ("the receiver's geometry", res["onehot"]["receiver"])):
+        by_w = ", ".join(f"{w} warps {us(r['ms_cold_by_warps'][w])} / {us(t)} us"
+                         for w, t in r["ms_by_warps"].items())
+        print(f"S5 onehot at {where} by warps per CTA (in turns, flushed / warm; the default "
+              f"is {ONEHOT_WARPS}): {by_w} [{card()}]")
 
 
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
@@ -814,15 +1229,17 @@ def main() -> int:
     print(card())
     lib = mk.load_library()
     for label, r in probe_resources(lib.log).items():
-        print(f"S5 {label:9s}: {r['registers']} registers, {r['smem']} B static shared, "
+        print(f"S5 {label:11s}: {r['registers']} registers, {r['smem']} B static shared, "
               f"{r['stack']} B stack, spills {r['spill_stores']} B stored / "
               f"{r['spill_loads']} B loaded")
     worst = check(device, verbose=True)
     print(f"worst |kernel - plain|: {worst}")
     print(f"S5 dot      : launched with {probe_dot.smem_bytes} B dynamic shared per CTA at "
           f"(32, 512) @ (512, 128); bdot with {probe_bdot.smem_bytes} B at (4, 8, 128) @ "
-          "(4, 128, 8)")
-    print(f"worst |library - plain| on seeded inputs: {check_library(device)}")
+          f"(4, 128, 8); onehot with {probe_onehot.smem_bytes} B at the last warp count checked "
+          f"({ONEHOT_WARP_SWEEP[-1]})")
+    print(f"worst |library - plain| (seeded inputs; the receiver's geometry): "
+          f"{check_library(device)}")
     report(measure(device))
     return 0
 

@@ -6,7 +6,11 @@
 * :func:`graph_marginal_ms` — the marginal device ms of one more call
   inside a CUDA graph, from graphs of ``n_lo`` and ``n_hi`` calls;
 * :func:`cold_ms` — device ms per call with the L2 cache flushed before
-  each call (:func:`flush_l2`);
+  each call (:func:`flush_l2`: none of the call's inputs in it, and no
+  dirty line to write back);
+* :func:`flushed_marginal_ms` — device ms per call after an L2 flush,
+  flush and call back to back, less the flush alone: :func:`cold_ms`
+  without the fixed cost of a call timed alone;
 * :func:`card` — the card's name and power limit as nvidia-smi gives them,
   printed beside every number the probes report;
 * :func:`bound_ms` — the least time an H100 SXM could take for a given
@@ -136,8 +140,13 @@ def _flush_buffer(device: torch.device) -> torch.Tensor:
 
 
 def flush_l2(device: torch.device) -> None:
-    """Write a buffer larger than the L2 cache, evicting what it held."""
-    _flush_buffer(torch.device(device)).fill_(1)
+    """Write a buffer larger than the L2 cache, evicting what it held, then
+    read it back, so that the lines left in the L2 are clean: a write alone
+    leaves ~50 MB of dirty lines, whose write-back the next kernel pays as
+    it evicts them (PERF.md section 6)."""
+    buf = _flush_buffer(torch.device(device))
+    buf.fill_(1)
+    buf.max()
 
 
 def cold_ms(fn, n: int, device: torch.device) -> float:
@@ -157,3 +166,24 @@ def cold_ms(fn, n: int, device: torch.device) -> float:
         torch.cuda.synchronize()
         total += start.elapsed_time(stop)
     return total / n
+
+
+def flushed_marginal_ms(fn, n: int, device: torch.device) -> float:
+    """Device ms that ``fn()`` adds after :func:`flush_l2` when the two run
+    back to back: t(flush, fn) - t(flush), each the mean of ``n`` calls
+    by :func:`cuda_ms` with the card kept busy, timed in turns (flush,
+    both, both, flush) so that a drift cancels.  :func:`cold_ms` times
+    each call alone between two events, which adds a fixed ~3.5 us on an
+    H100 (PERF.md section 6); this leaves it out, at the price of the
+    flush's own spread, a few tenths of a us."""
+    def flush():
+        flush_l2(device)
+
+    def both():
+        flush_l2(device)
+        fn()
+
+    t = {flush: [], both: []}
+    for f in (flush, both, both, flush):
+        t[f].append(cuda_ms(f, n, busy=True))
+    return (sum(t[both]) - sum(t[flush])) / 2

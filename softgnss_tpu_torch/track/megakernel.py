@@ -112,8 +112,10 @@ class KernelLibrary:
                 ("sg_probe_acc", [vp, vp, i, vp]),
                 ("sg_probe_acc_parity", [vp, vp, i, vp]),
                 ("sg_probe_acc_sync", [vp, vp, i, vp]),
-                ("sg_probe_conv", [vp, vp, ll, vp]),
-                ("sg_probe_onehot", [vp, vp, vp, i, i, vp]),
+                ("sg_probe_conv", [vp, vp, ll, i, vp]),
+                ("sg_probe_conv_loop", [vp, vp, ll, vp]),
+                ("sg_probe_onehot", [vp, vp, vp, i, i, i, i, i, vp]),
+                ("sg_probe_onehot_walk", [vp, vp, vp, i, i, vp]),
                 ("sg_probe_bdot", [vp, vp, vp, i, i, i, i, i, i, vp]),
                 ("sg_probe_bdot_chain", [vp, vp, vp, i, i, vp]),
                 ("sg_probe_dot", [vp, vp, vp, i, i, i, i, i, i, i, i, vp]),

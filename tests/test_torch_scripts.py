@@ -462,6 +462,261 @@ def test_s5_acc_plain_is_the_row_sums():
                        ints.double().view(8, 8, 128).sum((0, 2)).float())
 
 
+def _onehot_lane_order(h, b) -> np.ndarray:
+    """probe_onehot_kernel's order walked in Python: lane l adds its run of
+    width / 32 columns into its own float64 bins in column order, then
+    bin k's 32 lane sums are added in lane order; rounded once."""
+    h, b = h.numpy(), b.numpy().astype(np.float64)
+    rows, width = h.shape
+    cols = width // 32
+    out = np.zeros((rows, 32), np.float32)
+    for r in range(rows):
+        part = np.zeros((32, 32))
+        for lane in range(32):
+            for w in range(lane * cols, (lane + 1) * cols):
+                if 0 <= h[r, w] < 32:
+                    part[lane, h[r, w]] += b[r, w]
+        for k in range(32):
+            s = part[0, k]
+            for lane in range(1, 32):
+                s += part[lane, k]
+            out[r, k] = np.float32(s)
+    return out
+
+
+def _onehot_column_order(h, b) -> np.ndarray:
+    """The first design's order walked in Python: each bin over the
+    columns in order, in float64; rounded once."""
+    h, b = h.numpy(), b.numpy().astype(np.float64)
+    out = np.zeros((h.shape[0], 32), np.float32)
+    for r in range(h.shape[0]):
+        s = np.zeros(32)
+        for w in range(h.shape[1]):
+            if 0 <= h[r, w] < 32:
+                s[h[r, w]] += b[r, w]
+        out[r] = s.astype(np.float32)
+    return out
+
+
+def _order_sensitive_row():
+    """One (1, 256) row on which the two orders round apart: bin 5 holds
+    2^60 (lane 0), 100 and 100 (lane 1's columns 8, 9) and -2^60 (lane
+    31).  Column by column each 100 is lost in 2^60's ulp of 256 (sum 0);
+    lane 1's own 200 rounds 2^60 up by one ulp (sum 256)."""
+    h = torch.full((1, 256), -1, dtype=torch.int32)
+    b = torch.zeros((1, 256), dtype=torch.float32)
+    for w, v in ((0, 2.0**60), (8, 100.0), (9, 100.0), (255, -2.0**60)):
+        h[0, w], b[0, w] = 5, v
+    return h, b
+
+
+def test_s5_onehot_plains_follow_their_kernels_orders():
+    """probe_onehot_plain repeats the new kernel's order (lane runs, then
+    lanes in order) and probe_onehot_walk_plain the first design's
+    (columns in order), each equal to a Python walk of that order on the
+    script's, seeded and receiver inputs; on a row where the orders round
+    apart the two plain versions differ as their walks do."""
+    cases = [s5.script_inputs("cpu")["onehot"], s5.seeded_inputs("cpu")["onehot"],
+             *(tuple(t[:24] for t in s5.receiver_inputs("cpu", case=c)["onehot"])
+               for c in s5.RECEIVER_CASES), _order_sensitive_row()]
+    for h, b in cases:
+        np.testing.assert_array_equal(s5.probe_onehot_plain(h, b).numpy(),
+                                      _onehot_lane_order(h, b))
+        np.testing.assert_array_equal(s5.probe_onehot_walk_plain(h, b).numpy(),
+                                      _onehot_column_order(h, b))
+    h, b = _order_sensitive_row()
+    assert float(s5.probe_onehot_plain(h, b)[0, 5]) == 256.0
+    assert float(s5.probe_onehot_walk_plain(h, b)[0, 5]) == 0.0
+
+
+@pytest.mark.parametrize("label", ["onehot", "onehot_walk"])
+def test_s5_onehot_plain_exact_on_integer_weights(label):
+    """On integer weights (and the script's ones) every order sums exactly:
+    both plain versions equal the float64 bin sums, sentinels and indices
+    outside [0, 32) adding nothing."""
+    rng = np.random.default_rng(3)
+    h = torch.from_numpy(rng.integers(-4, 36, (16, 256)).astype(np.int32))
+    b = torch.from_numpy(rng.integers(-1000, 1000, (16, 256)).astype(np.float32))
+    for hh, bb in ((h, b), s5.script_inputs("cpu")["onehot"]):
+        want = np.stack([np.where(hh.numpy() == k, bb.numpy().astype(np.float64), 0.0).sum(1)
+                         for k in range(32)], 1).astype(np.float32)
+        np.testing.assert_array_equal(s5.PLAINS[label](hh, bb).numpy(), want)
+
+
+@pytest.mark.parametrize("which", ["seeded", "receiver", "receiver-uniform"])
+def test_s5_onehot_plain_within_one_rounding(which):
+    """The kernel-order sum of the onehot probe is within one float32
+    rounding of the float64 bin sums, at the script's shape and at the
+    receiver's geometry."""
+    h, b = s5.input_sets("cpu")[which]["onehot"]
+    want = torch.from_numpy(np.stack(
+        [np.where(h.numpy() == k, b.numpy().astype(np.float64), 0.0).sum(1) for k in range(32)], 1))
+    got = s5.probe_onehot_plain(h, b).double()
+    assert torch.allclose(got, want, rtol=2**-23, atol=0)
+
+
+@pytest.mark.parametrize("case", ["receiver", "uniform"])
+def test_s5_onehot_plain_against_jax_receiver_contraction(case):
+    """The port's onehot at the receiver's geometry computes the JAX
+    receiver's own contraction, ``einsum("tkw,ctk->twc", onehot(h_local),
+    bb)`` (softgnss_tpu/track/scan.py:262-272, h_local clipped to [-1, w]
+    as int8), on channel 0's first tiles, I and Q planes: within 1e-5 *
+    sum |terms|, JAX's float32 sums against the port's float64 ones."""
+    import jax.numpy as jnp
+
+    tiles = 6
+    h, b = s5.receiver_inputs("cpu", case=case)["onehot"]
+    rows = torch.cat([torch.arange(tiles), s5.N_TILES + torch.arange(tiles)])
+    h, b = h[rows], b[rows]
+    assert torch.equal(h[:tiles], h[tiles:])            # the planes share the tile's h
+    w = s5._BINS
+    h_local = jnp.clip(jnp.asarray(h[:tiles].numpy()), -1, w).astype(jnp.int8)
+    oh = (h_local[:, :, None] == jnp.arange(w, dtype=jnp.int8)[None, None, :]).astype(jnp.float32)
+    bb = jnp.asarray(b.numpy()).reshape(2, tiles, s5.TRACK_TILE)
+    u = np.asarray(jnp.einsum("tkw,ctk->twc", oh, bb, preferred_element_type=jnp.float32))
+    want = np.concatenate([u[:, :, 0], u[:, :, 1]])
+    got = s5.probe_onehot_plain(h, b).numpy()
+    err = np.abs(got.astype(np.float64) - want)
+    assert (err <= 1e-5 * s5.onehot_scale(h, b).numpy()).all(), err.max()
+    assert np.abs(want).max() > 0
+
+
+def test_s5_receiver_geometry_is_the_jax_receivers():
+    """The port's own receiver constants against the JAX package's
+    definitions at default_config() (and the port's config where it has
+    the field)."""
+    from softgnss_tpu import default_config
+    from softgnss_tpu.track import tables
+
+    cfg = default_config()
+    assert tables.onehot_width(cfg) == s5._BINS == 32
+    assert tables.n_tiles(cfg) == s5.N_TILES == 300
+    assert cfg.track_tile == s5.TRACK_TILE == 128
+    assert cfg.track_pack == s5.TRACK_PACK == 2
+    assert cfg.track_window // 4 == 9600    # whole tiles; the port's frames are whole words
+    assert cfg.track_block_ms == s5.FRAME_MS
+    assert cfg.number_of_channels == s5.RECEIVER_CHANNELS
+    assert tables.subdivision(cfg) == s5.SUBDIVISION
+    assert tables._H_OFFSET == s5.H_OFFSET
+    assert tables._frame_shift_subchips(cfg) == s5.FRAME_SHIFT
+    assert cfg.code_freq_basis / cfg.sampling_freq == s5.CHIPS_PER_SAMPLE
+    port = sgt.default_config()
+    assert (port.track_window // 4, port.track_block_ms, port.number_of_channels) == (
+        s5.FRAME_WORDS, s5.FRAME_MS, s5.RECEIVER_CHANNELS) == (9580, 64, 8)
+    assert cfg.track_window - port.track_window == 80
+
+
+def test_s5_receiver_inputs_at_the_receivers_geometry():
+    """4 800 one-hot rows of 128 lanes, I and Q rows sharing each tile's
+    indices, ~14 bins a row, every index in [-1, 32]; the uniform case at
+    the same shape in [-4, 36) with the same weights; conv as (64, 8, 9580)
+    full-range int32; both repeat from the seed."""
+    ins = s5.receiver_inputs("cpu")
+    h, b = ins["onehot"]
+    assert h.shape == b.shape == (4800, 128) and h.dtype == torch.int32
+    assert b.dtype == torch.float32
+    planes = h.view(s5.RECEIVER_CHANNELS, 2, s5.N_TILES, s5.TRACK_TILE)
+    assert torch.equal(planes[:, 0], planes[:, 1])
+    assert -1 <= int(h.min()) and int(h.max()) <= 32
+    bins = np.mean([len(set(row.tolist())) for row in h[::50]])
+    assert 13 <= bins <= 16, bins
+    # lane to lane the index steps by pack * S * chips per sample, ceil'd
+    assert set(torch.diff(h, dim=1).unique().tolist()) <= {0, 1}
+    hu, bu = s5.receiver_inputs("cpu", case="uniform")["onehot"]
+    assert (int(hu.min()), int(hu.max())) == (-4, 35) and torch.equal(bu, b)
+    planes = hu.view(s5.RECEIVER_CHANNELS, 2, s5.N_TILES, s5.TRACK_TILE)
+    assert torch.equal(planes[:, 0], planes[:, 1])
+    assert "conv" not in s5.receiver_inputs("cpu", case="uniform")
+    x = ins["conv"][0]
+    assert x.shape == (64, 8, 9580) and x.dtype == torch.int32
+    assert int(x.min()) < -2**30 and int(x.max()) > 2**30
+    again = s5.receiver_inputs("cpu")
+    assert torch.equal(again["onehot"][0], h) and torch.equal(again["conv"][0], x)
+    with pytest.raises(ValueError, match="case"):
+        s5.receiver_inputs("cpu", case="ramp")
+
+
+@pytest.mark.parametrize("rows, width, warps", [(8, 256, 8), (4800, 128, 8), (4800, 128, 2),
+                                                (13, 512, 4), (3, 1024, 16), (37, 128, 16)])
+def test_s5_onehot_plan_covers_each_row_and_column_once(rows, width, warps):
+    """probe_onehot_kernel's launch plan: the CTAs' warps take every row
+    once; the lanes take every column once, each a contiguous run in
+    order, whole 16-byte vectors; shared memory is the warps' tables; at
+    the script's shape one CTA of 8 warps."""
+    plan = s5.onehot_plan(rows, width, warps)
+    got = [plan.row_of(c, w) for c in range(plan.ctas) for w in range(plan.warps)]
+    assert [r for r in got if r is not None] == list(range(rows))
+    assert got.count(None) == plan.ctas * plan.warps - rows < plan.warps
+    cols = [c for lane in range(32) for c in plan.columns_of(lane)]
+    assert cols == list(range(width))
+    assert all(len(plan.columns_of(lane)) == 4 * plan.vecs_per_lane for lane in range(32))
+    assert plan.warps == min(warps, rows)
+    assert plan.smem_bytes == plan.warps * 32 * 33 * 8 <= 227 * 1024
+    if (rows, width) == (8, 256):
+        assert (plan.ctas, plan.warps, plan.vecs_per_lane) == (1, 8, 2)
+        assert s5.onehot_plan(rows, width) == (8, 256, s5.ONEHOT_WARPS, s5.ONEHOT_WARPS * 8448)
+    if (rows, width, warps) == (4800, 128, 8):
+        assert (plan.ctas, plan.vecs_per_lane, plan.smem_bytes) == (600, 1, 67584)
+
+
+@pytest.mark.parametrize("rows, width, warps", [(8, 64, 8), (8, 192, 8), (8, 200, 8),
+                                                (8, 0, 8), (8, 1152, 8), (0, 128, 8),
+                                                (8, 128, 0), (8, 128, 17)])
+def test_s5_onehot_plan_refuses_what_the_kernel_does_not_take(rows, width, warps):
+    """A width that is not a positive multiple of 128 up to 1 024 (whole
+    16-byte vectors per lane), no row, or a warp count outside [1, 16]."""
+    with pytest.raises(ValueError, match="probe_onehot"):
+        s5.onehot_plan(rows, width, warps)
+
+
+@pytest.mark.parametrize("n, sms", [(1024, 132), (64 * 8 * 9580, 132), (1027, 132), (3, 8),
+                                    (1 << 20, 2), (0, 132)])
+def test_s5_conv_plan_covers_each_vector_once(n, sms):
+    """probe_conv_kernel's launch plan: the grid's threads take every
+    16-byte vector once, none more than CONV_VECS per pass; the n % 4
+    tail falls to CTA 0; one CTA of one vector per thread at the script's
+    shape, CONV_CTAS_PER_SM per SM at B2's frame geometry."""
+    plan = s5.conv_plan(n, sms)
+    assert plan.vectors == n // 4 and plan.tail == n % 4 < s5.CONV_THREADS
+    seen = np.zeros(plan.vectors, np.int64)
+    for t in range(plan.threads):
+        for v in plan.vectors_of(t):
+            seen[v] += 1
+    assert (seen == 1).all()
+    assert 1 <= plan.blocks <= max(1, sms * s5.CONV_CTAS_PER_SM)
+    if plan.blocks < sms * s5.CONV_CTAS_PER_SM:     # a grid that is not capped: one pass
+        assert -(-plan.vectors // plan.threads) <= s5.CONV_VECS
+    if n == 1024:
+        assert plan.blocks == 1 and all(len(plan.vectors_of(t)) == 1 for t in range(256))
+    if n == 64 * 8 * 9580:
+        assert plan.blocks == sms * s5.CONV_CTAS_PER_SM
+    with pytest.raises(ValueError, match="probe_conv"):
+        s5.conv_plan(-1, sms)
+
+
+@pytest.mark.parametrize("case", ["receiver", "uniform"])
+def test_s5_library_onehot_takes_every_index_at_receiver_shape(case):
+    """LIBRARY["onehot"] on library_inputs' index (h clamped to [-1, 32],
+    plus one, into 34 columns) computes the plain version's function at
+    the receiver's geometry, within 1e-5 * sum |terms| of its float32
+    scatter, with no index outside its buffer; the sentinels -1 and 32 and
+    indices past them add nothing."""
+    h, b = s5.receiver_inputs("cpu", case=case)["onehot"]
+    idx, bb = s5.library_inputs("onehot", (h, b))
+    assert idx.dtype == torch.int64 and 0 <= int(idx.min()) and int(idx.max()) <= 33
+    assert bb is b
+    got = s5.LIBRARY["onehot"](idx, bb)
+    want = s5.probe_onehot_plain(h, b)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    err = (got.double() - want.double()).abs()
+    assert (err <= 1e-5 * s5.onehot_scale(h, b)).all(), float(err.max())
+    outside = torch.tensor([[-40, -4, -1, 32, 33, 36, 2**30, 0]] * 2, dtype=torch.int32)
+    ones = torch.ones(outside.shape, dtype=torch.float32)
+    got = s5.LIBRARY["onehot"](*s5.library_inputs("onehot", (outside, ones)))
+    assert torch.equal(got, s5.probe_onehot_walk_plain(outside, ones))
+    assert float(got.sum()) == 2.0 and float(got[0, 0]) == 1.0
+
+
 def test_s5_compare_and_bounds():
     """The TF32 check accepts a product rounded to TF32 and refuses a
     wrong one; each probe's bound is set by its bytes (launch-scale work)."""
@@ -489,12 +744,10 @@ def test_s5_library_computes_the_same_function(name):
     bit-equal to the plain version, shape and dtype included; on seeded
     inputs bit-equal for grid and conv, within the TF32 bound for bdot and
     dot, and within 1e-5 * sum |terms| for the float32 sums of acc and
-    onehot (whose ``scatter_add_`` takes only indices that are bins: the
-    seeded ones outside [0, 32) are wrapped into it here)."""
+    onehot (whose seeded indices in [-4, 36) reach ``scatter_add_``
+    through library_inputs' index, outside the bins included)."""
     for which in ("script", "seeded"):
         args = (s5.script_inputs("cpu") if which == "script" else s5.seeded_inputs("cpu"))[name]
-        if name == "onehot":
-            args = (args[0].remainder(32), args[1])
         got = s5.LIBRARY[name](*s5.library_inputs(name, args))
         want = s5.PLAINS[name](*args)
         if which == "script" or name in ("grid", "conv"):
@@ -580,16 +833,16 @@ def test_s5_vec4_check_refuses_sliced_views():
 
 @pytest.mark.parametrize("label", list(s5.VARIANTS))
 def test_s5_variant_takes_plain_on_cpu(label):
-    """Each S5 kernel's own wrapper (every design of grid, acc, bdot and
-    dot alike, each reached only through its own wrapper)
-    runs its probe's plain version on CPU tensors, on the script's and on
-    seeded inputs, counting no launch."""
+    """Each S5 kernel's own wrapper (every design of every probe alike,
+    each reached only through its own wrapper) runs its own plain version
+    (its probe's, onehot_walk's in its own order) on CPU tensors, on the
+    script's and on seeded inputs, counting no launch."""
     fn = s5.VARIANTS[label]
     name = s5.probe_of(label)
     assert name in s5.PROBES and fn.__name__ == f"probe_{label}"
     before = fn.launches
     for inputs in (s5.script_inputs("cpu"), s5.seeded_inputs("cpu")):
-        assert torch.equal(fn(*inputs[name]), s5.PLAINS[name](*inputs[name]))
+        assert torch.equal(fn(*inputs[name]), s5.PLAINS[label](*inputs[name]))
     assert fn.launches == before
 
 
@@ -666,7 +919,7 @@ def test_plain_probes_count_no_launches():
     inputs = s5.seeded_inputs("cpu")
     for label, fn in s5.VARIANTS.items():
         name = s5.probe_of(label)
-        assert torch.equal(fn(*inputs[name]), s5.PLAINS[name](*inputs[name]))
+        assert torch.equal(fn(*inputs[name]), s5.PLAINS[label](*inputs[name]))
     assert [f.launches for f in wrappers] == before
 
 
@@ -745,11 +998,12 @@ def test_dma_probe_first_design_matches_plain_on_card(cuda_device):
 @pytest.mark.parametrize("inputs", ["script", "seeded"])
 @pytest.mark.parametrize("label", list(s5.VARIANTS))
 def test_s5_kernel_matches_plain_on_card(cuda_device, label, inputs):
-    """Every S5 kernel, both designs of grid, bdot and dot among them."""
+    """Every S5 kernel, each design of every probe among them, against its
+    own plain version."""
     name = s5.probe_of(label)
     args = (s5.script_inputs(cuda_device) if inputs == "script"
             else s5.seeded_inputs(cuda_device))[name]
-    s5.compare(name, s5.VARIANTS[label](*args), s5.PLAINS[name](*args), args,
+    s5.compare(name, s5.VARIANTS[label](*args), s5.PLAINS[label](*args), args,
                exact=inputs == "script")
     torch.cuda.synchronize()
 
@@ -837,4 +1091,50 @@ def test_s5_acc_reps_rewrite_the_same_sum_on_card(cuda_device, label, reps):
     got = s5.VARIANTS[label](x, reps)
     assert torch.equal(got, s5.probe_acc_plain(x))
     assert torch.equal(s5.VARIANTS[label](x, reps), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label, case", [(label, case) for label in ("conv", "conv_loop", "onehot",
+                                                                     "onehot_walk")
+                                         for case in s5.RECEIVER_CASES
+                                         if case == "receiver" or label.startswith("onehot")])
+def test_s5_kernel_matches_plain_at_receiver_geometry_on_card(cuda_device, label, case):
+    """Each design of conv and onehot bit-equal to its own plain version at
+    the receiver's geometry, and two launches bit-equal; onehot at every
+    warp count of its sweep."""
+    name = s5.probe_of(label)
+    args = s5.receiver_inputs(cuda_device, case=case)[name]
+    got = s5.VARIANTS[label](*args)
+    s5.compare(label, got, s5.PLAINS[label](*args), args, exact=True)
+    assert torch.equal(s5.VARIANTS[label](*args), got)
+    if label == "onehot":
+        for warps in s5.ONEHOT_WARP_SWEEP:
+            assert torch.equal(s5.probe_onehot(*args, warps=warps), got)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_s5_conv_and_onehot_shapes_on_card(cuda_device):
+    """No quiet fallback: onehot refuses a width that is not a multiple of
+    128 and an unaligned view, which its first design takes; conv refuses
+    an unaligned view, which conv_loop takes, and converts a ragged tail
+    (n % 4 = 1, 2, 3) bit-equal."""
+    h, b = s5.seeded_inputs(cuda_device)["onehot"]
+    h192, b192 = h[:, :192].contiguous(), b[:, :192].contiguous()
+    with pytest.raises(ValueError, match="multiple of 128"):
+        s5.probe_onehot(h192, b192)
+    assert torch.equal(s5.probe_onehot_walk(h192, b192), s5.probe_onehot_walk_plain(h192, b192))
+    shifted = torch.zeros(8 * 256 + 1, dtype=torch.int32, device=cuda_device)[1:].view(8, 256)
+    shifted.copy_(h)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        s5.probe_onehot(shifted, b)
+    assert torch.equal(s5.probe_onehot_walk(shifted, b), s5.probe_onehot_walk_plain(h, b))
+    x = torch.from_numpy(np.random.default_rng(9).integers(-2**31, 2**31, 4099)
+                         .astype(np.int32)).to(cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        s5.probe_conv(x[1:])
+    assert torch.equal(s5.probe_conv_loop(x[1:]), x[1:].float())
+    for n in (1, 2, 3, 1025, 1026, 1027, 4099):
+        assert torch.equal(s5.probe_conv(x[:n]), x[:n].float()), n
     torch.cuda.synchronize()
