@@ -67,6 +67,25 @@ script exits non-zero:
                 chunks (upload, B2 + B1, readback overlapped): every output
                 bit-equal to the main path's; seconds and peak device
                 memory beside the main path's
+10b. mesh     — the distribution layer with 2 ranks sharing the one card
+                (parallel.mesh.spawn_world, gloo, every rank on cuda:0; the
+                library built above is loaded, not rebuilt): the capture
+                written to a file once, then in one world run_receiver(
+                file_name=..., mesh=...) at 1x2 shard='channel' (every
+                output and the final state bit-equal to the main path),
+                1x2 'time-exact' (absolute_sample, sample_frac, the i_p
+                signs, final ptr and code_rem_q bit-equal) and 2x1 'time'
+                (warm-up 250 ms: absolute_sample within +-1, nav-bit signs
+                agreeing > 0.99 past 50 ms, the closed-loop fix bounds);
+                acquisition with the main path's code phases and Doppler
+                bins; B2 and B1 launched on every rank, every rank's
+                tracking equal to rank 0's; track-stage seconds per rank and
+                the card's busy share over the block loops (the union of
+                the ranks' kernel spans from a CUDA-only profiler, an upper
+                bound).  Then python -m torch.distributed.run
+                --standalone --nproc-per-node 2 -m softgnss_tpu_torch.cli
+                --file <capture> --mesh 1x2: exit 0, rank 0's mean fix
+                within 1e-3 m of the channel-sharded run's
 11. front end — 'auto' at fs = 38.194 MHz (samples_per_code % 4 != 0):
                 8 channels over 2 000 ms on the per-ms tracker, locked
 12. ekf       — post_navigate(nav_filter='ekf') on the main path's tracking:
@@ -1096,14 +1115,20 @@ def device_spans(prof) -> list[tuple[float, float, str]]:
             if str(e.device_type).endswith("CUDA")]
 
 
+def merged(spans) -> list[tuple[float, float]]:
+    """The union of (start, end) spans as sorted disjoint spans."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], b))
+        else:
+            out.append((a, b))
+    return out
+
+
 def busy_us(spans) -> float:
     """Device-busy microseconds: the union of the spans."""
-    total, end = 0.0, float("-inf")
-    for a, b, _ in sorted(spans):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
+    return sum(b - a for a, b in merged((a, b) for a, b, _ in spans))
 
 
 def phase_profile(cfg, sig, main, card: str) -> dict:
@@ -1250,6 +1275,198 @@ def phase_stream(cfg, host, main, dev, card: str) -> dict:
           "the final state bit-equal to the main path")
     return {"stream_track_s": stream_s, "main_track_s": main_s, "upload_s": upload_s,
             "stream_peak_gb": peak_gb, "main_peak_gb": main.peak_gb}
+
+
+#: the mesh phase's runs: (shard, {time: n_t, channel: n_c}, navigate)
+MESH_RUNS = (("channel", (1, 2), True), ("time-exact", (1, 2), False), ("time", (2, 1), True))
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 600.0
+#: fields of a TrackResults compared across ranks and against the main path
+TRACK_FIELDS = ("absolute_sample", "sample_frac", "code_freq", "carr_freq", "i_p", "i_e", "i_l",
+                "q_e", "q_p", "q_l", "dll_discr", "dll_discr_filt", "pll_discr",
+                "pll_discr_filt")
+
+
+def loop_spans(prof) -> list[tuple[float, float]]:
+    """This process's device-busy spans in absolute ns (the host's realtime
+    clock, which every process on the host shares), from its first B2 or B1
+    launch's start to its last one's end; empty without such events."""
+    spans = [(e.start_ns(), e.end_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+             if str(e.device_type()).endswith("CUDA")]
+    loop = [(a, b) for a, b, n in spans
+            if "track_block_kernel" in n or "build_frames_kernel" in n]
+    if not loop:
+        return []
+    lo, hi = min(a for a, _ in loop), max(b for _, b in loop)
+    return merged((max(a, lo), min(b, hi)) for a, b, _ in spans if b > lo and a < hi)
+
+
+def _mesh_rank(cap_path: str, out_dir: str) -> None:
+    """One rank of the mesh phase (parallel.mesh.spawn_world, every rank on
+    cuda:0): run_receiver over the capture file for each of MESH_RUNS under
+    torch.profiler window each (CUDA activity only: the host's navigation
+    ops would swamp it); every rank writes its launches, times, device-busy
+    spans and a digest of its tracking, rank 0 its whole results."""
+    import hashlib
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from softgnss_tpu_torch import default_config
+    from softgnss_tpu_torch.parallel import make_mesh
+    from softgnss_tpu_torch.pipeline import run_receiver
+
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = default_config()
+    report = {}
+    for shard, (n_t, n_c), navigate in MESH_RUNS:
+        mesh = make_mesh({cfg.time_axis: n_t, cfg.channel_axis: n_c})
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = run_receiver(cfg, file_name=cap_path, n_ms=MAIN_MS, navigate=navigate,
+                               mesh=mesh, shard=shard, device=dev)
+        launches = read_launches()
+        tr = res.tracking
+        tr.final_state = type(tr.final_state)(*[v.cpu() for v in tr.final_state])
+        digest = hashlib.sha256()
+        for f in TRACK_FIELDS:
+            digest.update(np.ascontiguousarray(getattr(tr, f)).tobytes())
+        for v in tr.final_state:
+            digest.update(v.numpy().tobytes())
+        report[shard] = {"launches": launches, "timings_s": res.timings_s,
+                         "busy_ns": loop_spans(prof), "digest": digest.hexdigest(),
+                         "device": str(dev)}
+        if rank == 0:
+            with open(f"{out_dir}/{shard}.pkl", "wb") as f:
+                pickle.dump(res, f)
+        dist.barrier()
+    with open(f"{out_dir}/rank{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def phase_mesh(host, main, sc, card: str) -> dict:
+    """The distribution layer with 2 ranks sharing one card: the capture
+    written to a file once, then run_receiver under channel, time-exact and
+    time sharding in one gloo world, and the CLI under torch.distributed.run."""
+    import os
+    import pickle
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from softgnss_tpu_torch.parallel.mesh import spawn_world
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cap = os.path.join(tmp, "capture.bin")
+        t0 = time.perf_counter()
+        host.numpy().tofile(cap)
+        print(f"  capture written to a file: {host.numel() / 1e9:.3f} GB in "
+              f"{time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        spawn_world(_mesh_rank, MESH_RANKS, (cap, tmp), device="cuda", timeout=MESH_TIMEOUT_S)
+        world_s = time.perf_counter() - t0
+        reports = []
+        for r in range(MESH_RANKS):
+            with open(f"{tmp}/rank{r}.json") as f:
+                reports.append(json.load(f))
+        runs = {}
+        for shard, _, _ in MESH_RUNS:
+            with open(f"{tmp}/{shard}.pkl", "rb") as f:     # written by this script's rank 0
+                runs[shard] = pickle.load(f)
+
+        ref = main.tracking
+        ref_state = [v.cpu() for v in ref.final_state]
+        for shard, (n_t, n_c), _ in MESH_RUNS:
+            label = f"mesh {n_t}x{n_c} {shard}"
+            res, tr = runs[shard], runs[shard].tracking
+            for r, rep in enumerate(reports):
+                check(rep[shard]["digest"] == reports[0][shard]["digest"],
+                      f"{label}: rank {r}'s tracking differs from rank 0's")
+                ln = rep[shard]["launches"]
+                check(ln["build_frames"] > 0 and ln["track_block"] > 0,
+                      f"{label}: rank {r} launches {ln}")
+            acq = res.acquisition
+            check(np.array_equal(acq.code_phase, main.acquisition.code_phase)
+                  and np.all(np.abs(acq.carr_freq - main.acquisition.carr_freq)
+                             < main.config.acq_doppler_step_hz / 2),
+                  f"{label}: acquisition differs")
+            acq_equal = all(np.array_equal(getattr(acq, f), getattr(main.acquisition, f))
+                            for f in ("carr_freq", "code_phase", "peak_metric"))
+            if shard == "channel":
+                for f in TRACK_FIELDS + ("lock_loss_ms",):
+                    check(np.array_equal(getattr(tr, f), getattr(ref, f)),
+                          f"{label}: {f} not bit-equal to the main path")
+                for f, x, y in zip(tr.final_state._fields, tr.final_state, ref_state):
+                    check(torch.equal(x, y), f"{label}: final state {f} not bit-equal")
+                check(tr.status == ref.status, f"{label}: status differs")
+                verdict = "every output and the final state bit-equal to the main path"
+            elif shard == "time-exact":
+                for f in ("absolute_sample", "sample_frac"):
+                    check(np.array_equal(getattr(tr, f), getattr(ref, f)),
+                          f"{label}: {f} not bit-equal")
+                check(np.array_equal(np.sign(tr.i_p), np.sign(ref.i_p)), f"{label}: i_p signs")
+                for i, f in ((0, "ptr"), (2, "code_rem_q")):
+                    check(torch.equal(tr.final_state[i], ref_state[i]),
+                          f"{label}: final state {f} not bit-equal")
+                diff = max(float(np.max(np.abs(getattr(tr, f) - getattr(ref, f))))
+                           for f in ("code_freq", "carr_freq", "dll_discr_filt",
+                                     "pll_discr_filt"))
+                verdict = (f"integer observables, i_p signs, ptr and code_rem_q bit-equal; "
+                           f"largest float64 stream difference {diff:.3e}")
+            else:
+                d_abs = int(np.abs(tr.absolute_sample - ref.absolute_sample).max())
+                check(d_abs <= 1, f"{label}: absolute_sample off by {d_abs}")
+                agree = float(np.min(np.mean(np.sign(tr.i_p[:, 50:]) == np.sign(ref.i_p[:, 50:]),
+                                             axis=1)))
+                check(agree > 0.99, f"{label}: nav-bit sign agreement {agree}")
+                out["time_fix"] = check_fix(label, res, sc)
+                verdict = (f"absolute_sample within {d_abs}, nav-bit sign agreement >= "
+                           f"{agree:.5f} past 50 ms")
+            # the union of the ranks' kernel spans: an upper bound of the card's
+            # busy time, since under time slicing a kernel's span also covers
+            # the slices the card gave the other rank's context (the ranks'
+            # sums overlap: 1.69-1.89 of the window on an H100)
+            spans = [tuple(v) for rep in reports for v in rep[shard]["busy_ns"]]
+            track_s = [rep[shard]["timings_s"]["track"] for rep in reports]
+            share = "not measured (no device events)"
+            if all(rep[shard]["busy_ns"] for rep in reports):
+                window = max(b for _, b in spans) - min(a for a, _ in spans)
+                share = f"{sum(b - a for a, b in merged(spans)) / window:.4f}"
+            print(f"  [{card}] {label}, 2 ranks sharing one card: track stage "
+                  f"{', '.join(f'{t:.3f}' for t in track_s)} s per rank, card busy share "
+                  f"(union of the ranks' kernel spans, an upper bound) from the ranks' first "
+                  f"B2 launch to their last B1 end {share}; launches per rank "
+                  f"{[rep[shard]['launches'] for rep in reports]}; acquisition "
+                  f"{'bit-equal' if acq_equal else 'same code phase and Doppler bin'} to "
+                  f"the main path's; {verdict}")
+            out[shard] = {"track_s": track_s, "busy_share": share, "acq_bit_equal": acq_equal}
+        print(f"  world of {MESH_RANKS} ranks: {world_s:.3f} s (spawn, three runs)")
+
+        # the CLI under torch.distributed.run, rank 0's fix against the channel run's
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc-per-node", str(MESH_RANKS), "-m", "softgnss_tpu_torch.cli",
+               "--file", cap, "--mesh", f"1x{MESH_RANKS}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MESH_TIMEOUT_S)
+        cli_s = time.perf_counter() - t0
+        print("\n".join("  | " + ln for ln in proc.stdout.splitlines() if ln.strip()))
+        check(proc.returncode == 0,
+              f"torchrun cli: exit {proc.returncode}\n{proc.stderr[-4000:]}")
+        m = re.search(r"Mean ECEF position: (\S+) (\S+) (\S+) m", proc.stdout)
+        check(m is not None, "torchrun cli: no fix")
+        sol = runs["channel"].solutions
+        want = np.array([np.nanmean(sol.x), np.nanmean(sol.y), np.nanmean(sol.z)])
+        d = float(np.max(np.abs(np.array([float(v) for v in m.groups()]) - want)))
+        check(d <= 1e-3, f"torchrun cli: fix {m.groups()} against {want}")
+        print(f"  [{card}] {' '.join(cmd[1:])}: exit 0 in {cli_s:.3f} s, 2 ranks sharing one "
+              f"card; rank 0's mean fix within {d:.1e} m of the channel-sharded run's")
+        out["cli_s"] = cli_s
+    return out
 
 
 def phase_ekf(cfg, main, sc, card: str, save_dir: str | None = None) -> dict:
@@ -1413,6 +1630,8 @@ def main(argv=None) -> int:
     del sig
     with phase("stream"):
         phase_stream(cfg, host, main_res, dev, card)
+    with phase("mesh"):
+        phase_mesh(host, main_res, sc, card)
     del host
     with phase("front end"):
         phase_front_end(dev, card)

@@ -180,9 +180,12 @@ def _prn_block(config: ReceiverConfig, xs, sig0dc, code_fd, gold,
 
 
 def _acquire_device(config: ReceiverConfig, long_signal: torch.Tensor,
-                    bin_mask=None):
+                    bin_mask=None, prns=None):
+    """(carr_freq, code_phase, metric) of each PRN of ``prns``
+    (``config.acq_satellite_list`` by default), ``config.acq_prn_chunk``
+    PRNs per :func:`_prn_block`; ``bin_mask``: (len(prns), B) or None."""
     dev = long_signal.device
-    prn_list = np.asarray(config.acq_satellite_list, np.int64)
+    prn_list = np.asarray(config.acq_satellite_list if prns is None else prns, np.int64)
     xs, sig0dc = _baseband_ffts(config, long_signal)
     fft_n = _corr_fft_len(config)
     codes = torch.from_numpy(ca_table(config)[prn_list - 1]).to(dev)   # (P, N)
@@ -233,13 +236,16 @@ def acquire(config: ReceiverConfig, long_signal,
     bin_mask = hint_bin_mask(config, doppler_hints, hint_halfwidth_hz)
     if bin_mask is not None:
         bin_mask = torch.from_numpy(bin_mask).to(long_signal.device)
-    out = [v.cpu().numpy() for v in
-           _acquire_device(config, long_signal[:need], bin_mask)]
+    return per_prn_results(config, [v.cpu().numpy() for v in
+                                    _acquire_device(config, long_signal[:need], bin_mask)])
 
-    n = 32
-    carr_freq = np.zeros(n)
-    code_phase = np.zeros(n, np.int64)
-    peak_metric = np.zeros(n)
+
+def per_prn_results(config: ReceiverConfig, out) -> AcquisitionResults:
+    """AcquisitionResults from (carr_freq, code_phase, metric) arrays in
+    ``config.acq_satellite_list`` order."""
+    carr_freq = np.zeros(32)
+    code_phase = np.zeros(32, np.int64)
+    peak_metric = np.zeros(32)
     for i, prn in enumerate(config.acq_satellite_list):
         carr_freq[prn - 1] = out[0][i]
         code_phase[prn - 1] = out[1][i]

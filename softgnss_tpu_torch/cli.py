@@ -8,19 +8,29 @@ the golden scenario, synthesizes it on the run's device and reports the
 raises without one unless ``--cpu`` asks for the host.  ``--stream``
 tracks in pipelined time chunks from host memory (a synthesized capture
 is first brought into pinned host memory, so that its upload is what
-streams).  ``--mesh`` and ``--shard`` (multi-device tracking) are not
-ported yet (ROADMAP A.9) and exit with an error that says so.
+streams).  ``--mesh TIMExCHANNEL`` distributes the run over a
+``torch.distributed`` world, one process per rank, with ``--shard``
+choosing how tracking shards; every rank runs the chain and rank 0 alone
+prints::
+
+    torchrun --standalone --nproc-per-node 2 -m softgnss_tpu_torch.cli \
+        --synthetic --fast --cpu --mesh 1x2
+
+A ``1x1`` mesh needs no launcher.  ``--stream`` is single-device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import logging
 import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import softgnss_tpu_torch
 from softgnss_tpu_torch.config import ReceiverConfig, default_config, fast_config
@@ -89,9 +99,11 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--plot-dir", default=".", help="directory for saved plots")
     parser.add_argument("--checkpoint", help="tracking checkpoint .npz path")
     parser.add_argument("--mesh", metavar="TIMExCHANNEL",
-                        help="multi-device tracking: not ported yet (ROADMAP A.9)")
+                        help="distribute over a mesh of torch.distributed ranks, e.g. "
+                             "'1x2' or '2x4' (one process per rank: torchrun)")
     parser.add_argument("--shard", choices=["channel", "time", "time-exact"],
-                        help="multi-device sharding: not ported yet (ROADMAP A.9)")
+                        default="channel",
+                        help="tracking sharding strategy when --mesh is set")
     parser.add_argument("--stream", action="store_true",
                         help="software-pipeline tracking over time chunks "
                              "(capture upload / compute / readback overlap)")
@@ -108,19 +120,46 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _mesh(parser, args, config):
+    """(this rank's device, the mesh) of ``--mesh``; joins the process
+    group (torchrun's, or a one-process group)."""
+    from softgnss_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    try:
+        n_t, n_c = (int(v) for v in args.mesh.lower().split("x"))
+    except ValueError:
+        parser.error(f"--mesh expects TIMExCHANNEL (e.g. 2x4), got {args.mesh!r}")
+    device = initialize_distributed(device="cpu" if args.cpu else None)
+    try:
+        mesh = make_mesh({config.time_axis: n_t, config.channel_axis: n_c})
+    except ValueError as exc:
+        parser.error(f"{exc} (hint: torchrun --standalone --nproc-per-node "
+                     f"{n_t * n_c} -m softgnss_tpu_torch.cli ...)")
+    return device, mesh
+
+
 def main(argv=None) -> int:
     parser = _parser()
     args = parser.parse_args(argv)
-    if args.mesh or args.shard:
-        parser.error("--mesh / --shard: multi-device tracking is not ported to "
-                     "softgnss_tpu_torch yet (ROADMAP A.9); run on one device")
-
+    if args.stream and args.mesh:
+        parser.error("--stream is single-device (exclusive with --mesh)")
     logging.basicConfig(level=logging.DEBUG if args.verbose else logging.INFO,
                         format="%(levelname)s %(name)s: %(message)s")
-    print(BANNER)
-    device = resolve("cpu" if args.cpu else "cuda")
-
     config = build_config(args)
+    mesh = None
+    if args.mesh:
+        device, mesh = _mesh(parser, args, config)
+    else:
+        device = resolve("cpu" if args.cpu else "cuda")
+    if mesh is not None and dist.get_rank() != 0:
+        # only rank 0 prints and writes files
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _run(parser, args, config, device, mesh, writer=False)
+    return _run(parser, args, config, device, mesh, writer=True)
+
+
+def _run(parser, args, config, device, mesh, writer: bool) -> int:
+    print(BANNER)
     from softgnss_tpu_torch import io as sio
     from softgnss_tpu_torch.pipeline import run_receiver
 
@@ -149,7 +188,7 @@ def main(argv=None) -> int:
         stats = sio.probe_data(config, head)
         print(f"Probed {stats['n_samples']} samples: mean {stats['mean']:.3f}, "
               f"std {stats['std']:.2f}, clipped {100 * stats['clipped_fraction']:.2f}%")
-        if args.plot:
+        if writer and args.plot:
             from softgnss_tpu_torch import plots
 
             print(f"Probe plot saved to {plots.plot_probe(config, stats, out_dir=args.plot_dir)}")
@@ -165,11 +204,16 @@ def main(argv=None) -> int:
 
     results = run_receiver(config, signal=signal, file_name=args.file or None,
                            probe=args.probe, navigate=not args.no_nav,
-                           checkpoint=args.checkpoint, stream=args.stream,
-                           ephemerides=ephemerides, iono=iono, utc=utc, device=device)
+                           checkpoint=args.checkpoint, stream=args.stream, mesh=mesh,
+                           shard=args.shard, ephemerides=ephemerides, iono=iono, utc=utc,
+                           device=device)
     print(results.summary())
+    if results.has_fix:
+        sol = results.solutions
+        print(f"Mean ECEF position: {np.nanmean(sol.x):.4f} {np.nanmean(sol.y):.4f} "
+              f"{np.nanmean(sol.z):.4f} m")
 
-    if args.save_ephemerides and any(e is not None for e in results.ephemerides):
+    if writer and args.save_ephemerides and any(e is not None for e in results.ephemerides):
         from softgnss_tpu_torch.nav.message import save_ephemerides
 
         save_ephemerides(args.save_ephemerides, results.ephemerides,
@@ -183,7 +227,7 @@ def main(argv=None) -> int:
         print(f"3D error vs injected truth: mean {np.nanmean(err):.1f} m, "
               f"max {np.nanmax(err):.1f} m")
 
-    if args.plot:
+    if writer and args.plot:
         from softgnss_tpu_torch import plots
 
         for path in plots.plot_all(results.config, results, out_dir=args.plot_dir):

@@ -4,9 +4,9 @@ A frozen dataclass holding every knob of the reference settings object
 (reference: initialize.py:80-185) and the derived quantities the stages
 need.  Field names, defaults and derived properties are those of
 ``softgnss_tpu.config.ReceiverConfig``; the TPU layout knobs of that
-package (capture word packing, Pallas contraction and tiling, mesh axis
-names, scan unroll and correlator tile) have no meaning on the GPU and are
-left out (``convert.config_from_dict`` drops them).  Use
+package (capture word packing, Pallas contraction and tiling, scan unroll
+and correlator tile) have no meaning on the GPU and are left out
+(``convert.config_from_dict`` drops them).  Use
 :meth:`ReceiverConfig.with_options` to derive variants.
 
 Two trackers (:attr:`ReceiverConfig.tracker`): the block tracker (kernels
@@ -125,9 +125,13 @@ class ReceiverConfig:
     #: block tracker only: read each ms window straight from the capture
     #: inside the tracking kernel (B3) instead of building frames first (B2)
     mega_fused_frames: bool = False
-    #: warm-up ms per time shard (multi-device tracking, not ported yet)
+    #: mesh dimension names of sharded runs (softgnss_tpu_torch.parallel)
+    time_axis: str = "time"
+    channel_axis: str = "channel"
+    #: re-lock ms each time shard tracks before its outputs count
+    #: (parallel.track_time_sharded; clipped to [1, block - 2])
     time_shard_warmup_ms: int = 250
-    #: time-chunk size of the streamed tracker (not ported yet)
+    #: time-chunk size (ms) of the streamed tracker (parallel.stream)
     track_stream_chunk_ms: int = 4096
 
     def __post_init__(self):

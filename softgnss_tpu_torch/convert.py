@@ -31,10 +31,10 @@ from softgnss_tpu_torch.nav.solve import NavSolutions
 from softgnss_tpu_torch.track.scan import _F32_FIELDS, MsOutputs, TrackResults, TrackState
 
 #: JAX config fields that only lay work out on the TPU (capture packing,
-#: Pallas tiling, mesh axis names, scan unroll)
+#: Pallas tiling, scan unroll)
 TPU_ONLY_FIELDS = frozenset({
     "track_pack_size", "pallas_contraction", "pallas_k_tiles",
-    "time_axis", "channel_axis", "track_tile", "track_unroll"})
+    "track_tile", "track_unroll"})
 
 
 def config_from_dict(d: dict) -> ReceiverConfig:

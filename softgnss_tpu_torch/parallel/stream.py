@@ -1,6 +1,7 @@
 """Software-pipelined tracking over sequential time chunks of the capture.
 
-The port of softgnss_tpu.parallel.stream on one device.  The monolithic
+The port of softgnss_tpu.parallel.stream, on one device or, with
+``mesh=``, channel-sharded over a mesh (each rank streams its own rows).  The monolithic
 tracker moves the whole capture to the card before it tracks (1.4 GB at
 the reference workload) and brings every output back after.  Here the
 capture stays in host memory (a NumPy array, an ``np.memmap`` or a CPU
@@ -39,7 +40,11 @@ import torch
 
 from softgnss_tpu_torch.acquire.search import Channels
 from softgnss_tpu_torch.config import ReceiverConfig
-from softgnss_tpu_torch.device import resolve
+from softgnss_tpu_torch.parallel.track import (
+    channel_sharded,
+    compute_device,
+    track_channels_sharded,
+)
 from softgnss_tpu_torch.track.scan import (
     MsOutputs,
     TrackResults,
@@ -141,7 +146,7 @@ def _readback(ys: MsOutputs, ovf: torch.Tensor, device: torch.device):
 
 def track_streamed(config: ReceiverConfig, signal, channels: Channels, n_ms: int | None = None,
                    chunk_ms: int | None = None, state: TrackState | None = None,
-                   device=None) -> TrackResults:
+                   device=None, mesh=None) -> TrackResults:
     """Track ``n_ms`` milliseconds in pipelined ``chunk_ms`` time chunks
     (``config.track_stream_chunk_ms`` by default).
 
@@ -152,17 +157,24 @@ def track_streamed(config: ReceiverConfig, signal, channels: Channels, n_ms: int
     tensor lies on, and the card for anything else (raising without one);
     a CPU tensor runs on the host unless ``device`` names the card.  A
     capture in pinned host memory is uploaded straight from it; any other
-    host capture goes through two pinned staging buffers."""
+    host capture goes through two pinned staging buffers.
+
+    ``mesh``: every chunk is channel-sharded over it
+    (parallel.track.track_channels_sharded): each rank streams the chunks
+    for its own rows, and the rows are gathered at the end; every output is
+    still bit-equal to ``track``'s."""
     n_ms = int(config.ms_to_process if n_ms is None else n_ms)
     B = max(1, config.track_block_ms)
     chunk_ms = config.track_stream_chunk_ms if chunk_ms is None else chunk_ms
     src, sig_len, pinned, src_dev = _source(signal)
-    dev = resolve(device if device is not None
-                  else (src_dev if isinstance(signal, torch.Tensor) else "cuda"))
+    dev = compute_device(signal, device)
     if n_ms <= 0 or chunk_ms <= 0 or chunk_ms >= n_ms:
         # nothing to pipeline: one chunk would only re-slice the window
         sig = src if isinstance(src, torch.Tensor) else torch.from_numpy(
             np.require(src, np.int8, ["C", "W"]))
+        if mesh is not None:
+            return track_channels_sharded(config, sig, channels, mesh, n_ms=n_ms, state=state,
+                                          device=dev)
         return track(config, sig, channels, n_ms=n_ms, state=state, device=dev)
     chunk_ms = max(B, int(chunk_ms) // B * B)       # chunk starts on the block grid
     spc = config.samples_per_code
@@ -171,16 +183,34 @@ def track_streamed(config: ReceiverConfig, signal, channels: Channels, n_ms: int
     if sig_len < needed:
         raise ValueError(f"capture too short for tracking: need >= {needed} samples, "
                          f"got {sig_len}")
-
-    tables = channel_tables(channels, dev)
-    if state is None:
-        st, start_ms = initial_state(config, channels, dev), 0
-    else:
-        st = TrackState(*[torch.as_tensor(v).to(dev) for v in state])
-        start_ms = int(st.ms.max())
+    start_ms = 0 if state is None else int(torch.as_tensor(state.ms).max())
     if start_ms % B:
         raise ValueError(f"track_streamed resumes only on the {B}-ms block grid, "
                          f"got start_ms={start_ms}")
+
+    def run(chans, st, start_ms):
+        final, ys = _stream(config, src, sig_len, pinned, src_dev, dev, chans, st, start_ms,
+                            n_ms, chunk_ms)
+        return (final, MsOutputs(*[torch.from_numpy(v) for v in ys])), 0
+
+    if mesh is not None:
+        return channel_sharded(config, channels, mesh, state, dev, run)
+    st = (initial_state(config, channels, dev) if state is None
+          else TrackState(*[torch.as_tensor(v).to(dev) for v in state]))
+    final, ys = _stream(config, src, sig_len, pinned, src_dev, dev, channels, st, start_ms,
+                        n_ms, chunk_ms)
+    return TrackResults(final_state=final, prn=np.asarray(channels.prn),
+                        status=list(channels.status),
+                        **{f: v.T for f, v in zip(MsOutputs._fields, ys)})
+
+
+def _stream(config: ReceiverConfig, src, sig_len: int, pinned: bool, src_dev, dev,
+            channels: Channels, st: TrackState, start_ms: int, n_ms: int, chunk_ms: int):
+    """The pipelined chunks of :func:`track_streamed` for ``channels`` from
+    state ``st`` at absolute ms ``start_ms``: (final state, MsOutputs of
+    (n_ms, C) NumPy arrays)."""
+    spc = config.samples_per_code
+    tables = channel_tables(channels, dev)
 
     bounds = list(range(0, n_ms, chunk_ms)) + [n_ms]
     spans = list(zip(bounds[:-1], bounds[1:]))
@@ -256,6 +286,5 @@ def track_streamed(config: ReceiverConfig, signal, channels: Channels, n_ms: int
         drain_one()
 
     final = st._replace(ptr=st.ptr + prev_base, block_base=st.block_base + prev_base)
-    host = {f: np.concatenate([getattr(y, f) for y in fetched]).T for f in MsOutputs._fields}
-    return TrackResults(final_state=final, prn=np.asarray(channels.prn),
-                        status=list(channels.status), **host)
+    return final, MsOutputs(*[np.concatenate([getattr(y, f) for y in fetched])
+                              for f in MsOutputs._fields])

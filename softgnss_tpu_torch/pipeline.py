@@ -1,10 +1,13 @@
 """Receiver pipeline: probe -> acquire -> track -> lock demotion -> navigate.
 
-The port of softgnss_tpu.pipeline (single device).  The capture is loaded
-once (file or in-memory array) and moved to ``device`` in one copy;
-acquisition and tracking run there; tracking results come back as NumPy
-arrays and navigation runs on the host CPU in float64, as in the JAX
-package.  Tracking results checkpoint to .npz with the JAX package's
+The port of softgnss_tpu.pipeline.  The capture is loaded once (file or
+in-memory array) and moved to ``device`` in one copy; acquisition and
+tracking run there; tracking results come back as NumPy arrays and
+navigation runs on the host CPU in float64, as in the JAX package.  With
+``mesh=`` every rank of the mesh runs the chain with the same arguments:
+acquisition and tracking are sharded (softgnss_tpu_torch.parallel), every
+rank gets the whole result and navigates it, and rank 0 alone writes the
+checkpoint.  Tracking results checkpoint to .npz with the JAX package's
 keys, so a checkpoint from either package loads in the other.
 """
 
@@ -16,6 +19,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from softgnss_tpu_torch import io as sio
 from softgnss_tpu_torch.acquire.search import (
@@ -30,7 +34,13 @@ from softgnss_tpu_torch.convert import track_state_from_numpy, track_state_to_nu
 from softgnss_tpu_torch.device import place, resolve
 from softgnss_tpu_torch.nav.message import Ephemeris
 from softgnss_tpu_torch.nav.solve import NavSolutions, post_navigate
-from softgnss_tpu_torch.parallel.stream import track_streamed
+from softgnss_tpu_torch.parallel import (
+    acquire_sharded,
+    track_channels_sharded,
+    track_streamed,
+    track_time_exact,
+    track_time_sharded,
+)
 from softgnss_tpu_torch.profiling import StageTimer, channel_lock_loss
 from softgnss_tpu_torch.track.scan import TrackResults, track
 
@@ -172,7 +182,7 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
                  ephemerides: list | None = None, iono=None, utc=None,
                  assist_position: np.ndarray | None = None,
                  assist_tow: float | None = None, stream: bool = False,
-                 device="cuda") -> ReceiverResults:
+                 mesh=None, shard: str = "channel", device="cuda") -> ReceiverResults:
     """Run the receiver chain on ``device``.
 
     ``signal``: in-memory int8 capture (NumPy array, ``np.memmap`` or
@@ -181,7 +191,12 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
     ``stream`` only the acquisition window is, and tracking streams the
     capture up in ``config.track_stream_chunk_ms`` chunks
     (parallel.stream.track_streamed; every output equal to the monolithic
-    run's).  ``n_ms`` overrides
+    run's).  ``mesh``: a DeviceMesh (softgnss_tpu_torch.parallel.make_mesh)
+    that every rank calls this with: acquisition shards its PRN axis and
+    tracking shards per ``shard`` — 'channel' (exact), 'time' (time blocks
+    with warm-up re-lock; the capture stays on the host and each rank
+    uploads its own span) or 'time-exact' (sequential-carry time blocks);
+    ``stream`` composes with ``shard='channel'`` only.  ``n_ms`` overrides
     ``config.ms_to_process``.  ``checkpoint``: .npz tracking checkpoint,
     loaded if it exists, written after tracking otherwise.  ``channels``:
     pre-assigned tracking channels (skips acquisition).  ``navigate``:
@@ -196,6 +211,11 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
     receiver ECEF) and ``assist_tow`` (approximate GPS time of week at
     capture start) too, acquisition is Doppler-hinted from the
     ephemerides (nav.assist.predict_doppler)."""
+    if shard not in ("channel", "time", "time-exact"):
+        raise ValueError(f"shard must be 'channel', 'time', or 'time-exact', got {shard!r}")
+    if stream and mesh is not None and shard != "channel":
+        raise ValueError("stream=True composes with mesh= only for shard='channel' "
+                         "(time sharding partitions the capture itself)")
     dev = resolve(device)
     results = ReceiverResults(config=config)
     timer = StageTimer(dev, results.timings_s)
@@ -207,7 +227,8 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
             # up by fs/4: the returned config governs everything downstream
             signal, config = sio.load_capture(file_name or config.file_name, config)
         results.config = config
-    sig = signal if stream else place(signal, dev)
+    on_host = stream or (mesh is not None and shard == "time")
+    sig = signal if on_host else place(signal, dev)
 
     n_ms = int(config.ms_to_process if n_ms is None else n_ms)
     skip = config.skip_samples
@@ -252,8 +273,12 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
             hints = predict_doppler(config, ephemerides, np.asarray(assist_position),
                                     float(assist_tow))
         with timer.stage("acquire"):
-            results.acquisition = acquire(config, sig[skip: skip + acq_need],
-                                          doppler_hints=hints, device=dev)
+            if mesh is not None:
+                results.acquisition = acquire_sharded(config, sig[skip: skip + acq_need], mesh,
+                                                      doppler_hints=hints, device=dev)
+            else:
+                results.acquisition = acquire(config, sig[skip: skip + acq_need],
+                                              doppler_hints=hints, device=dev)
         if not results.acquisition.acquired.any():
             logger.warning("No GNSS signals detected, signal processing finished.")
             return results
@@ -263,10 +288,18 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
     with timer.stage("track"):
         if stream:
             results.tracking = track_streamed(config, sig, results.channels, n_ms=n_ms,
-                                              device=dev)
+                                              device=dev, mesh=mesh)
+        elif mesh is not None:
+            track_fn = {"channel": track_channels_sharded, "time": track_time_sharded,
+                        "time-exact": track_time_exact}[shard]
+            results.tracking = track_fn(config, sig, results.channels, mesh, n_ms=n_ms,
+                                        device=dev)
         else:
             results.tracking = track(config, sig, results.channels, n_ms=n_ms)
         _demote_unlocked(config, results.tracking)
         if checkpoint is not None:
-            save_tracking(checkpoint, results.tracking)
+            if mesh is None or dist.get_rank() == 0:
+                save_tracking(checkpoint, results.tracking)
+            if mesh is not None:
+                dist.barrier()
     return navigation()

@@ -1,8 +1,13 @@
-"""Stage timing and lock-quality metrics.
+"""Stage timing, trace annotations and lock-quality metrics.
 
 * :class:`StageTimer` — named wall-clock stage times (the numbers behind
   ReceiverResults.timings_s); on a CUDA device it synchronizes at both
-  ends of a stage, so a stage's time includes its device work.
+  ends of a stage, so a stage's time includes its device work.  Each stage
+  is also a ``softgnss/<name>`` range in profiler traces.
+* :func:`trace` — names a region ``softgnss/<name>`` in profiler traces
+  (``torch.profiler.record_function``),
+* :func:`profile_to` — a ``torch.profiler`` trace of a region, CPU and
+  (where there is a card) CUDA activity, written under a directory,
 * :func:`lock_metrics` / :func:`channel_lock_loss` — the per-ms tracking
   observables reduced to C/N0, phase-lock and code-rate metrics, and the
   lock-loss demotion rule (host NumPy, as in softgnss_tpu.profiling).
@@ -32,19 +37,41 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        self._sync()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
+        with trace(name):
             self._sync()
-            self.timings_s[name] = (self.timings_s.get(name, 0.0)
-                                    + time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self._sync()
+                self.timings_s[name] = (self.timings_s.get(name, 0.0)
+                                        + time.perf_counter() - t0)
 
     def report(self) -> str:
         width = max((len(k) for k in self.timings_s), default=0)
         return "\n".join(f"{k:{width}s} {v:8.3f} s"
                          for k, v in self.timings_s.items())
+
+
+@contextlib.contextmanager
+def trace(name: str):
+    """Name the enclosed region ``softgnss/<name>`` in profiler traces."""
+    with torch.profiler.record_function(f"softgnss/{name}"):
+        yield
+
+
+@contextlib.contextmanager
+def profile_to(log_dir: str):
+    """A ``torch.profiler`` trace of the enclosed region (CPU activity, and
+    CUDA activity where a card is available), written under ``log_dir`` as
+    a Chrome / TensorBoard trace (``*.pt.trace.json``); yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
 
 
 def lock_metrics(config, tracking, window_ms: int = 1000,

@@ -90,13 +90,41 @@ def test_checkpoint_written_then_reused(tmp_path, capsys):
     assert "Acquired" not in second and "Tracked 200 ms on 4 channels" in second
 
 
-def test_mesh_waits_for_multi_device(capsys):
-    for argv in (["--synthetic", "--cpu", "--mesh", "2x4"],
-                 ["--synthetic", "--cpu", "--shard", "time"]):
+def test_bare_shard_channel_runs(capsys):
+    """--shard channel without --mesh is the JAX CLI's default: it runs."""
+    assert cli.main(["--synthetic", "--fast", "--cpu", "--ms", "200", "--no-nav",
+                     "--shard", "channel"]) == 0
+    assert "Tracked 200 ms on 4 channels" in capsys.readouterr().out
+
+
+def test_mesh_1x1_runs_in_one_process(capsys):
+    """--mesh 1x1 needs no launcher (a one-process gloo group) and tracks
+    what the unsharded run tracks."""
+    argv = ["--synthetic", "--fast", "--cpu", "--ms", "200", "--no-nav"]
+    assert cli.main(argv) == 0
+    plain = capsys.readouterr().out
+    assert cli.main(argv + ["--mesh", "1x1", "--shard", "time-exact"]) == 0
+    meshed = capsys.readouterr().out
+    table = lambda s: [ln for ln in s.splitlines() if ln.startswith(("|", "Tracked"))]  # noqa: E731
+    assert table(meshed) == table(plain) and "Tracked 200 ms on 4 channels" in meshed
+
+
+def test_mesh_larger_than_the_world_is_refused(capsys):
+    with pytest.raises(SystemExit) as exc:
+        cli.main(["--synthetic", "--fast", "--cpu", "--no-nav", "--mesh", "2x4"])
+    assert exc.value.code == 2
+    assert "needs 8 ranks, but the world size is 1" in capsys.readouterr().err
+
+
+def test_stream_with_mesh_is_refused(capsys):
+    """As in the JAX CLI: --stream is single-device."""
+    for argv in (["--synthetic", "--fast", "--cpu", "--stream", "--mesh", "1x1"],
+                 ["--synthetic", "--fast", "--cpu", "--mesh", "nope"]):
         with pytest.raises(SystemExit) as exc:
             cli.main(argv)
         assert exc.value.code == 2
-        assert "ROADMAP A.9" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--stream is single-device" in err and "TIMExCHANNEL" in err
 
 
 def test_runs_on_the_card_unless_told():

@@ -3,6 +3,7 @@ softgnss_tpu_torch against softgnss_tpu on one capture, checkpoints that
 cross between the packages, and the port's device policy."""
 
 import dataclasses
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -17,7 +18,7 @@ from softgnss_tpu import pipeline as jpipe
 from softgnss_tpu.signals.synth import SatelliteSignal, synthesize_signal
 from softgnss_tpu_torch import convert
 from softgnss_tpu_torch import pipeline as tpipe
-from softgnss_tpu_torch.profiling import StageTimer
+from softgnss_tpu_torch.profiling import StageTimer, profile_to, trace
 
 torch.set_num_threads(1)
 
@@ -130,6 +131,31 @@ def test_convert_config_and_channels():
         convert.config_from_dict(dict(dataclasses.asdict(jc), bogus=1))
     ch = convert.channels_from_numpy([3, 0], [1.0e6, 0.0], [12, 0], "T-")
     assert ch.status == ["T", "-"] and ch.prn.dtype == np.int64 and len(ch) == 2
+
+
+def test_convert_carries_the_mesh_fields():
+    """config_from_dict keeps the mesh dimension names and the time-shard
+    warm-up of a JAX config."""
+    opts = dict(time_axis="t", channel_axis="ch", time_shard_warmup_ms=75)
+    tc = convert.config_from_dict(dataclasses.asdict(sg.fast_config(**opts)))
+    assert (tc.time_axis, tc.channel_axis, tc.time_shard_warmup_ms) == ("t", "ch", 75)
+    assert tc == sgt.fast_config(**opts)
+
+
+def test_profile_to_writes_the_stages(runs, tmp_path):
+    """A profile_to window around run_receiver writes one trace whose events
+    name the receiver's stages (StageTimer) and a trace() region."""
+    sig = runs[0]
+    with profile_to(str(tmp_path)):
+        with trace("probe_region"):
+            pass
+        tpipe.run_receiver(sgt.fast_config(**_OPTS), signal=sig, n_ms=200, navigate=False,
+                           device="cpu")
+    files = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"softgnss/acquire", "softgnss/track", "softgnss/probe_region"} <= names
 
 
 def test_stage_timer_accumulates():
