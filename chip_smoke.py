@@ -86,6 +86,23 @@ script exits non-zero:
                 --standalone --nproc-per-node 2 -m softgnss_tpu_torch.cli
                 --file <capture> --mesh 1x2: exit 0, rank 0's mean fix
                 within 1e-3 m of the channel-sharded run's
+10c. oracle   — the float64 NumPy oracle (softgnss_tpu_torch.oracle) against
+                the main path: every injected PRN's acquisition (cuFFT)
+                at the oracle_acquire_grid code phase and Doppler bin; the
+                block (B2 + B1), fused (B3) and per-ms (B4) routes over the
+                first 1 000 ms of all 8 channels against
+                oracle_track_channel: absolute_sample within +-1 and the
+                oracle's nav-bit signs past 50 ms, each North-star figure
+                printed (at 53 dB-Hz two closed loops of the same math part
+                by more than those bounds; ROADMAP C.8); post_navigate
+                against oracle_navigate on the main path's integer
+                observables at tests/test_oracle_parity.py's knobs and
+                bounds (fixes within 1e-3 m); then scripts.oracle_check
+                (3 satellites, 1 000 ms, each route on the North-star
+                bounds: correlators < 1e-3 relative RMS, absolute_sample
+                within +-1, carr_freq within 0.5 Hz, code_freq within 0.05
+                Hz) and scripts.parity_check at 3 and 12 channels (per-ms
+                against block and fused)
 11. front end — 'auto' at fs = 38.194 MHz (samples_per_code % 4 != 0):
                 8 channels over 2 000 ms on the per-ms tracker, locked
 12. ekf       — post_navigate(nav_filter='ekf') on the main path's tracking:
@@ -93,9 +110,19 @@ script exits non-zero:
 13. cli       — softgnss_tpu_torch.cli.main(["--synthetic", "--stream",
                 "--set", "nav_filter=ekf"]) in process at default_config():
                 exit 0, a 3D-error mean < 30 m, B2 and B1 launched
+14. scenarios — every closed loop of softgnss_tpu_torch.scripts.scenarios
+                (the JAX suite's slow scenarios: end to end, an unhealthy and
+                a killed satellite, a false lock demoted, the TOW vote,
+                45 dB-Hz, 1.5 g, constant velocity, the full orbit model,
+                +2 and -1 ppm, navigation parity with the oracle) at
+                fast_config over 37 000 ms on the card, each at its JAX
+                test's bounds, with its seconds, figures and B2 / B1
+                launches
 
 Each tracking phase zeroes every kernel's launch count just before it and
-checks the counts just after, and that B1 (or B3) ran as a cluster of
+checks the counts just after (the kernels line sums each kernel's
+launches over the main path or its route, the oracle phase and the
+scenarios), and that B1 (or B3) ran as a cluster of
 more than one CTA per channel (the size is printed with the counts).  Each kernel's record carries its time, its
 plain version's, one PyTorch call's that computes the same function where
 there is one, and its bound: the least time an H100 could take for the
@@ -1198,7 +1225,7 @@ def phase_fused(cfg, sig, main, card: str) -> dict:
     check(a.status == b.status, "fused: status differs")
     print(f"  launches {launches}; every output bit-equal to the main path")
     report_times("fused (B3)", res, card)
-    return launches
+    return launches, res
 
 
 def phase_per_ms(cfg, sig, sc, main, card: str):
@@ -1229,9 +1256,9 @@ def phase_per_ms(cfg, sig, sc, main, card: str):
     check(d_abs.max() <= ROUTE_TOL["absolute_sample"], "per-ms: absolute_sample off")
     check(max(rms.values()) < ROUTE_TOL["corr_rel_rms"], f"per-ms: correlators {rms}")
     check(d_carr < ROUTE_TOL["carr_freq_hz"], f"per-ms: carr_freq off by {d_carr}")
-    fix = check_fix("per-ms", res, sc)
+    check_fix("per-ms", res, sc)
     report_times("per-ms (B4)", res, card)
-    return launches, fix
+    return launches, res
 
 
 def phase_stream(cfg, host, main, dev, card: str) -> dict:
@@ -1469,6 +1496,115 @@ def phase_mesh(host, main, sc, card: str) -> dict:
     return out
 
 
+#: the oracle phase: ms of the main path's tracking held to the float64
+#: oracle, and the capture it reads (the acquisition window and slack)
+ORACLE_MS = 1000
+ORACLE_CAPTURE_MS = 1020
+#: parity_check's channel counts
+PARITY_CHECK_CHANNELS = (3, 12)
+
+
+def phase_oracle(cfg, host, routes, sc, dev, card: str) -> dict:
+    """The float64 NumPy oracle (softgnss_tpu_torch.oracle) against the
+    main path's acquisition (code phase and Doppler bin equal), its three
+    tracking routes over the first ORACLE_MS ms of the closed-loop capture
+    (absolute_sample within +-1 and the oracle's nav-bit signs; each
+    figure of the North-star bounds printed) and its navigation
+    (tests/test_oracle_parity.py's bounds on integer observables); then
+    scripts.oracle_check's three satellites on the North-star bounds and
+    scripts.parity_check at PARITY_CHECK_CHANNELS, which launch B1-B4 (the
+    launches returned)."""
+    from softgnss_tpu_torch.oracle import oracle_acquire_grid
+    from softgnss_tpu_torch.scripts import oracle_check, parity_check
+    from softgnss_tpu_torch.scripts.scenarios import PARITY_KNOBS, nav_parity
+
+    main = routes["block (B2 + B1)"]
+    spc = cfg.samples_per_code
+    sig = host[:ORACLE_CAPTURE_MS * spc].numpy()
+    acq = main.acquisition
+    window = sig[cfg.skip_samples: cfg.skip_samples + cfg.acquisition_ms * spc]
+    t0 = time.perf_counter()
+    for prn in sc.prns:
+        _, phase, doppler_bin, metric = oracle_acquire_grid(cfg, window, prn)
+        check(acq.code_phase[prn - 1] == phase and acq.doppler_bin[prn - 1] == doppler_bin,
+              f"oracle: PRN {prn}: acquisition at code phase {acq.code_phase[prn - 1]}, bin "
+              f"{acq.doppler_bin[prn - 1]}; the oracle's {phase}, {doppler_bin}")
+        print(f"  PRN {prn:2d}: code phase {phase} and Doppler bin {doppler_bin} "
+              f"({cfg.doppler_bin_freqs[doppler_bin]:.0f} Hz) equal to the oracle's; peak "
+              f"metric {acq.peak_metric[prn - 1]:.3f}, the oracle's {metric:.3f}")
+    acq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logs = oracle_check.oracle_logs(cfg, sig, main.channels, ORACLE_MS)
+    track_s = time.perf_counter() - t0
+    ora_signs = np.sign(np.stack([log["i_p"] for log in logs]))[:, 50:]
+    for label, res in routes.items():
+        # on this 53-dB-Hz capture two closed loops of the same math part by
+        # more than the North-star bounds (the JAX package's tracker parts from
+        # the oracle as far: ROADMAP C.8), so it is held to the +-1-sample
+        # envelope and the oracle's nav-bit signs; the bounds themselves are
+        # held on oracle_check's capture below
+        figures = oracle_check.deviation(res.tracking, logs, ORACLE_MS)
+        agree = float(np.min(np.mean(
+            np.sign(res.tracking.i_p[:, 50:ORACLE_MS]) == ora_signs, axis=1)))
+        check(figures["absolute_sample"] <= oracle_check.BOUNDS["absolute_sample"],
+              f"oracle: {label}: absolute_sample off by {figures['absolute_sample']}")
+        check(agree > 0.99, f"oracle: {label}: nav-bit sign agreement {agree}")
+        print(f"  [{card}] {label}, {len(logs)} channels x {ORACLE_MS} ms against the oracle: "
+              f"{oracle_check.describe(figures)}; worst channel "
+              f"{max(figures['per_channel_rms']):.2e}; I_P signs agree past 50 ms: >= "
+              f"{agree:.5f}")
+    print(f"  oracle host time: acquisition {acq_s:.3f} s ({len(sc.prns)} PRNs), tracking "
+          f"{track_s:.3f} s ({len(logs)} channels x {ORACLE_MS} ms)")
+    t0 = time.perf_counter()
+    nav = nav_parity(cfg.with_options(**PARITY_KNOBS), main.tracking)
+    print(f"  [{card}] post_navigate against oracle_navigate on the main path's {MAIN_MS}-ms "
+          f"integer observables ({time.perf_counter() - t0:.3f} s): {nav}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    for route, figures in oracle_check.run(dev).items():
+        print(f"  [{card}] oracle_check {route:10s}: {oracle_check.describe(figures)}")
+    for c in PARITY_CHECK_CHANNELS:
+        for label, figures in parity_check.run(c, dev).items():
+            print(f"  [{card}] parity_check {parity_check.describe(c, label, figures)}")
+    launches = read_launches()
+    blocks = -(-oracle_check.N_MS // cfg.track_block_ms) + 2 * -(-parity_check.N_MS
+                                                              // cfg.track_block_ms)
+    want = {"build_frames": blocks, "track_block": blocks, "track_block_fused": blocks,
+            "correlate_ms": oracle_check.N_MS + 2 * parity_check.N_MS}
+    check(launches == want, f"oracle: kernel launches {launches}, expected {want}")
+    print(f"  oracle_check and parity_check: {time.perf_counter() - t0:.3f} s, launches "
+          f"{launches}")
+    return launches
+
+
+def phase_scenarios(dev, card: str) -> dict:
+    """Every closed-loop scenario of softgnss_tpu_torch.scripts.scenarios
+    on the card (fast_config, 37 000 ms, the block tracker): the JAX
+    suite's bounds; each one's seconds, figures and B2 / B1 launches.
+    Returns the launches summed over the scenarios."""
+    from softgnss_tpu_torch.scripts import scenarios
+
+    cfg = scenarios.scenario_config()
+    n_segments = -(-scenarios.N_MS // cfg.track_block_ms)
+    total = dict.fromkeys(read_launches(), 0)
+    for name, fn in scenarios.SCENARIOS.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        figures = fn(device=dev)
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        want = {"build_frames": n_segments, "track_block": n_segments, "track_block_fused": 0,
+                "correlate_ms": 0}
+        check(launches == want, f"scenario {name}: kernel launches {launches}, expected {want}")
+        total = {k: total[k] + v for k, v in launches.items()}
+        shown = ", ".join(f"{k} {v:.6g}" if isinstance(v, float) else f"{k} {v}"
+                          for k, v in figures.items())
+        print(f"  [{card}] {name}: {seconds:.3f} s; B2 {launches['build_frames']}, B1 "
+              f"{launches['track_block']} launches; {shown}")
+    return total
+
+
 def phase_ekf(cfg, main, sc, card: str, save_dir: str | None = None) -> dict:
     """The EKF fix on the main path's tracking; with ``save_dir``, that
     tracking (a checkpoint either package loads) and the truth position are
@@ -1622,9 +1758,9 @@ def main(argv=None) -> int:
     with phase("profile"):
         phase_profile(cfg, sig, main_res, card)
     with phase("fused"):
-        fused_launches = phase_fused(cfg, sig, main_res, card)
+        fused_launches, fused_res = phase_fused(cfg, sig, main_res, card)
     with phase("per-ms"):
-        per_ms_launches, _ = phase_per_ms(cfg, sig, sc, main_res, card)
+        per_ms_launches, per_ms_res = phase_per_ms(cfg, sig, sc, main_res, card)
     host = torch.empty(sig.shape, dtype=sig.dtype, pin_memory=True)
     host.copy_(sig)
     del sig
@@ -1632,17 +1768,27 @@ def main(argv=None) -> int:
         phase_stream(cfg, host, main_res, dev, card)
     with phase("mesh"):
         phase_mesh(host, main_res, sc, card)
-    del host
+    with phase("oracle"):
+        oracle_launches = phase_oracle(
+            cfg, host, {"block (B2 + B1)": main_res, "fused (B3)": fused_res,
+                        "per-ms (B4)": per_ms_res}, sc, dev, card)
+    del host, fused_res, per_ms_res
     with phase("front end"):
         phase_front_end(dev, card)
     with phase("ekf"):
         phase_ekf(cfg, main_res, sc, card, args.save_tracking)
     with phase("cli"):
         phase_cli(card)
-    rec_b2["launches"] = launches["build_frames"]
-    rec_b1["launches"] = launches["track_block"]
-    rec_b3["launches"] = fused_launches["track_block_fused"]
-    rec_b4["launches"] = per_ms_launches["correlate_ms"]
+    with phase("scenarios"):
+        scenario_launches = phase_scenarios(dev, card)
+    # each kernel's launches on its paths: the main path (B2, B1), the fused
+    # (B3) and per-ms (B4) routes, the oracle phase and the scenarios
+    rec_b2["launches"] = (launches["build_frames"] + oracle_launches["build_frames"]
+                          + scenario_launches["build_frames"])
+    rec_b1["launches"] = (launches["track_block"] + oracle_launches["track_block"]
+                          + scenario_launches["track_block"])
+    rec_b3["launches"] = fused_launches["track_block_fused"] + oracle_launches["track_block_fused"]
+    rec_b4["launches"] = per_ms_launches["correlate_ms"] + oracle_launches["correlate_ms"]
     print(json.dumps({"kernels": [rec_b2, rec_b1, rec_b3, rec_b4, *rec_probes]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -36,6 +36,7 @@ class AcquisitionResults:
     carr_freq: np.ndarray   # (32,) f64, Hz; 0 if not acquired
     code_phase: np.ndarray  # (32,) i64, samples
     peak_metric: np.ndarray  # (32,) f64, first/second peak ratio
+    doppler_bin: np.ndarray  # (32,) i64, the peak's index in config.doppler_bin_freqs
 
     @property
     def acquired(self) -> np.ndarray:
@@ -106,7 +107,8 @@ def _prn_block(config: ReceiverConfig, xs, sig0dc, code_fd, gold,
 
     ``xs``: (K, B, M) mixed signal FFTs; ``code_fd``: (p, M) conjugated code
     FFTs; ``gold``: (p, 1023) chips; ``bin_mask``: optional (p, B) bool of
-    eligible Doppler bins.  Returns (carr_freq or 0, code_phase, metric)."""
+    eligible Doppler bins.  Returns (carr_freq or 0, code_phase, metric,
+    Doppler bin index)."""
     spc = config.samples_per_code
     fs = config.sampling_freq
     dev = xs.device
@@ -176,12 +178,12 @@ def _prn_block(config: ReceiverConfig, xs, sig0dc, code_fd, gold,
     fine_freq = coarse + freqs_fft[kk]
 
     carr_freq = torch.where(metric > config.acq_threshold, fine_freq, 0.0)
-    return carr_freq, code_phase.to(torch.int64), metric.to(torch.float64)
+    return carr_freq, code_phase.to(torch.int64), metric.to(torch.float64), bin_idx
 
 
 def _acquire_device(config: ReceiverConfig, long_signal: torch.Tensor,
                     bin_mask=None, prns=None):
-    """(carr_freq, code_phase, metric) of each PRN of ``prns``
+    """(carr_freq, code_phase, metric, Doppler bin) of each PRN of ``prns``
     (``config.acq_satellite_list`` by default), ``config.acq_prn_chunk``
     PRNs per :func:`_prn_block`; ``bin_mask``: (len(prns), B) or None."""
     dev = long_signal.device
@@ -241,16 +243,18 @@ def acquire(config: ReceiverConfig, long_signal,
 
 
 def per_prn_results(config: ReceiverConfig, out) -> AcquisitionResults:
-    """AcquisitionResults from (carr_freq, code_phase, metric) arrays in
-    ``config.acq_satellite_list`` order."""
+    """AcquisitionResults from (carr_freq, code_phase, metric, Doppler bin)
+    arrays in ``config.acq_satellite_list`` order."""
     carr_freq = np.zeros(32)
     code_phase = np.zeros(32, np.int64)
     peak_metric = np.zeros(32)
+    doppler_bin = np.zeros(32, np.int64)
     for i, prn in enumerate(config.acq_satellite_list):
         carr_freq[prn - 1] = out[0][i]
         code_phase[prn - 1] = out[1][i]
         peak_metric[prn - 1] = out[2][i]
-    return AcquisitionResults(carr_freq, code_phase, peak_metric)
+        doppler_bin[prn - 1] = out[3][i]
+    return AcquisitionResults(carr_freq, code_phase, peak_metric, doppler_bin)
 
 
 def assign_channels(config: ReceiverConfig, acq: AcquisitionResults) -> Channels:

@@ -28,7 +28,7 @@ def entry(device="cuda"):
 
     def step(sig: torch.Tensor):
         need = config.acquisition_ms * config.samples_per_code
-        carr, phase, metric = _acquire_device(config, sig[:need])
+        carr, phase, metric, _ = _acquire_device(config, sig[:need])
         best = int(torch.argmax(metric))
         ch = Channels(prn=np.array([best + 1]), acquired_freq=np.array([float(carr[best])]),
                       code_phase=np.array([int(phase[best])]), status=["T"])

@@ -84,6 +84,10 @@ def used() -> bool:
     return load() is not None
 
 
+#: the JAX package's name for :func:`used`
+available = used
+
+
 def unpack(raw: np.ndarray, fmt: str) -> np.ndarray | None:
     """Unpack a uint8 byte array of ``fmt`` (int4 / int2 / int1 / uint8) to
     int8 samples; None without the library."""

@@ -55,8 +55,7 @@ def acquire_sharded(config: ReceiverConfig, long_signal, mesh,
     def local():
         sig = place(long_signal[:need], device)
         bins = None if mask is None else torch.from_numpy(mask).to(sig.device)
-        carr, phase, metric = _acquire_device(config, sig, bins, prns=mine)
-        return (carr, phase, metric), 0
+        return _acquire_device(config, sig, bins, prns=mine), 0
 
     out, _ = run_together(local)
     if pos.n_c > 1:

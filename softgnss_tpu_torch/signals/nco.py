@@ -18,6 +18,7 @@ one operation at a time.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 #: carrier phase fractional bits (uint32 turns)
@@ -29,6 +30,8 @@ CODE_ONE = 1 << CODE_FRAC_BITS
 
 _TWO32 = float(2**32)
 _LOW32 = 0xFFFFFFFF
+#: radians per carrier NCO count, as the float32 the JAX package multiplies by
+_RAD_PER_COUNT = float(np.float32(2.0 * np.pi / _TWO32))
 
 
 def true_divide(x: torch.Tensor, divisor: float) -> torch.Tensor:
@@ -45,6 +48,22 @@ def wrap_u32_to_i32(x64: torch.Tensor) -> torch.Tensor:
     return (low - ((low >> 31) << 32)).to(torch.int32)
 
 
+def carrier_counts(phase0_i32, step_i32, k_i32) -> torch.Tensor:
+    """Carrier NCO phase (p0 + w*k) mod 2^32 at sample offsets ``k``, as
+    unsigned counts held in int64."""
+    return torch.bitwise_and(
+        phase0_i32.to(torch.int64) + step_i32.to(torch.int64) * k_i32.to(torch.int64),
+        _LOW32)
+
+
+def carrier_angles(phase0_i32, step_i32, k_i32) -> torch.Tensor:
+    """Carrier NCO phase angles (radians, float32, in [0, 2pi)) at sample
+    offsets ``k``: the counts times 2pi / 2^32 rounded to float32."""
+    counts = carrier_counts(phase0_i32, step_i32, k_i32)
+    return counts.to(torch.float32) * torch.full((), _RAD_PER_COUNT, dtype=torch.float32,
+                                                 device=counts.device)
+
+
 def code_step_q(code_freq_hz: torch.Tensor, sampling_freq: float) -> torch.Tensor:
     """Code NCO step in Q40 chips/sample: round(codeFreq/fs * 2^40), int64."""
     return torch.round(true_divide(code_freq_hz.to(torch.float64), sampling_freq)
@@ -54,6 +73,11 @@ def code_step_q(code_freq_hz: torch.Tensor, sampling_freq: float) -> torch.Tenso
 def chips_to_q(chips: float) -> int:
     """Host-side: exact Q40 representation of a chip count."""
     return int(round(chips * CODE_ONE))
+
+
+def q_to_chips(q) -> torch.Tensor:
+    """Q40 -> float64 chips."""
+    return true_divide(torch.as_tensor(q, dtype=torch.int64).to(torch.float64), float(CODE_ONE))
 
 
 def ceil_chip_index(phase_q: torch.Tensor) -> torch.Tensor:
@@ -78,9 +102,7 @@ def sin_turns(x: torch.Tensor) -> torch.Tensor:
 def carrier_turns(phase0_i32, step_i32, k_i32) -> torch.Tensor:
     """Carrier NCO phase (p0 + w*k mod 2^32) at sample offsets ``k``, in
     turns [0, 1), float32, from the top 23 NCO bits as an f32 mantissa."""
-    counts = torch.bitwise_and(
-        phase0_i32.to(torch.int64) + step_i32.to(torch.int64) * k_i32.to(torch.int64),
-        _LOW32)
+    counts = carrier_counts(phase0_i32, step_i32, k_i32)
     mant = ((counts >> 9) | 0x3F800000).to(torch.int32)
     return mant.view(torch.float32) - 1.0
 

@@ -38,6 +38,11 @@ def libs():
     return native.load(), jnative.load()
 
 
+def test_available_matches_jax(libs):
+    """``available()``, the JAX package's name, beside the port's ``used()``."""
+    assert native.available() is native.used() is jnative.available() is True
+
+
 @pytest.mark.parametrize("fmt", ["int4", "int2", "int1", "uint8"])
 def test_unpack_equals_jax_native(libs, fmt):
     raw = np.random.default_rng(1).integers(0, 256, size=4096).astype(np.uint8)

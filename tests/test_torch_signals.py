@@ -51,6 +51,8 @@ _NCO_CASES = {
     "carrier_step_u32": (lambda m, a: m.carrier_step_u32(a[3], _FS), "freqs"),
     "code_step_q": (lambda m, a: m.code_step_q(1.023e6 + a[3] / 1540.0, _FS), "freqs"),
     "ceil_chip_index": (lambda m, a: m.ceil_chip_index(a[5]), "q"),
+    "carrier_angles": (lambda m, a: m.carrier_angles(*a[:3]), "ints"),
+    "q_to_chips": (lambda m, a: m.q_to_chips(a[5]), "q"),
 }
 
 
