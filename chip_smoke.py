@@ -55,6 +55,10 @@ script exits non-zero:
 7b. profile   — one torch.profiler window over the main path's track
                 stage: the card's idle share, B1's and B2's share of device
                 time
+7c. fullscale — scripts.fullscale_loop's warm half on the main path's
+                capture (the main path is its cold run): one more
+                run_receiver, its tracking bit-equal to the main path's and
+                its fixes equal; cold and warm stage times side by side
 8. fused      — the same channels with mega_fused_frames=True (B3):
                 every tracking output bit-equal to the main path's
 9. per-ms     — the same channels with correlator_impl='pallas' (B4,
@@ -118,12 +122,34 @@ script exits non-zero:
                 fast_config over 37 000 ms on the card, each at its JAX
                 test's bounds, with its seconds, figures and B2 / B1
                 launches
+15. sweep     — at 12 channels of default_config() on the capture of
+                scripts.inputs.sweep_inputs: scripts.profile_track's three
+                routes (per-ms, block, fused) timed by the marginal cost
+                between 200 and 2 000 ms (the per-ms route at one rep, the
+                others at three), the fused route bit-equal to the block
+                route and the per-ms route within ROUTE_TOL of it; then
+                scripts.mega_sweep's six (track_block_ms, CTAs per channel)
+                points, each bit-equal to (64, 16) before it is timed
+                (between 256 and 2 000 ms); us per ms and Msamples/s each
+16. trace     — scripts.trace_track (12 channels, 400 ms, one
+                torch.profiler window after a profiled warm-up step) at
+                track_block_ms 64 and at the sweep's fastest block size:
+                device time per kernel and the kernel events recorded, the
+                host's ops per block, its time per block inside no op, and
+                the same call without the profiler; then
+                scripts.glue_trace (1 024 ms): us per ms by name
+17. warmup    — scripts.warmup_sweep at its JAX geometry (fast_config, 5
+                satellites, 12 000 ms): the sequential run here, then one
+                world of 4 x 2 ranks sharing the card (gloo, the library
+                built above loaded, not rebuilt) at warm-ups 25-1 000 ms,
+                every row printed; at 250 ms absolute_sample within +-1 and
+                nav-bit signs agreeing > 0.99, the mesh phase's bounds
 
 Each tracking phase zeroes every kernel's launch count just before it and
 checks the counts just after (the kernels line sums each kernel's
-launches over the main path or its route, the oracle phase and the
-scenarios), and that B1 (or B3) ran as a cluster of
-more than one CTA per channel (the size is printed with the counts).  Each kernel's record carries its time, its
+launches over the main path or its route, the fullscale, oracle,
+scenarios, sweep, trace and warmup phases), and that B1 (or B3) ran as a
+cluster of more than one CTA per channel (the size is printed with the counts).  Each kernel's record carries its time, its
 plain version's, one PyTorch call's that computes the same function where
 there is one, and its bound: the least time an H100 could take for the
 same work on this run's inputs (bytes over 3.35 TB/s, operations over 67
@@ -1697,6 +1723,196 @@ def phase_front_end(dev, card: str) -> dict:
     return launches
 
 
+def phase_fullscale(cfg, sig, sc, main, card: str) -> dict:
+    """scripts.fullscale_loop's warm half on the main path's capture, the
+    main path standing for its cold run: tracking bit-equal and fixes
+    equal (fullscale raises otherwise); cold and warm stage times."""
+    from softgnss_tpu_torch.scripts import fullscale_loop
+
+    n_segments = -(-MAIN_MS // cfg.track_block_ms)
+    reset_launches()
+    out = fullscale_loop.fullscale(cfg, sig, sc, n_ms=MAIN_MS, cold=main, device=sig.device,
+                                   report=lambda line: print(f"  [{card}] {line}"))
+    launches = read_launches()
+    want = {"build_frames": n_segments, "track_block": n_segments, "track_block_fused": 0,
+            "correlate_ms": 0}
+    check(launches == want, f"fullscale: kernel launches {launches}, expected {want}")
+    cold, warm = main.timings_s, out["warm"].timings_s
+    print(f"  [{card}] stage s, cold (the main path) / warm: "
+          + ", ".join(f"{k} {cold[k]:.3f} / {warm[k]:.3f}" for k in cold)
+          + f"; warm wall {out['warm_wall_s']:.3f} s; launches {launches}")
+    return launches
+
+
+#: the sweep phase: channels, and the per-ms route's reps (each is 2 200 ms
+#: of a route that runs ~2-3.5 ms per ms; the block routes take 3)
+SWEEP_CH = 12
+SWEEP_PER_MS_REPS = 1
+
+
+def route_launches(config, n_short: int, n_long: int, calls: int) -> dict:
+    """Kernel launches of ``calls`` tracking calls at each of the two lengths."""
+    if config.tracker == "per_ms":
+        return {"build_frames": 0, "track_block": 0, "track_block_fused": 0,
+                "correlate_ms": calls * (n_short + n_long)}
+    pairs = calls * sum(-(-n // config.track_block_ms) for n in (n_short, n_long))
+    fused = config.mega_fused_frames
+    return {"build_frames": 0 if fused else pairs, "track_block": 0 if fused else pairs,
+            "track_block_fused": pairs if fused else 0, "correlate_ms": 0}
+
+
+def phase_sweep(dev, card: str) -> tuple[dict, int]:
+    """scripts.profile_track's three routes and scripts.mega_sweep's six
+    points at SWEEP_CH channels; returns (the launches, the fastest block
+    size of the sweep)."""
+    from softgnss_tpu_torch import default_config
+    from softgnss_tpu_torch.scripts import mega_sweep, profile_track
+    from softgnss_tpu_torch.scripts.inputs import assert_bit_equal, sweep_inputs
+
+    base = default_config(number_of_channels=SWEEP_CH)
+    n_short, n_long = profile_track.N_SHORT, profile_track.N_LONG
+    inputs = sweep_inputs(base, SWEEP_CH, n_long, dev)
+    total = dict.fromkeys(read_launches(), 0)
+    outs = {}
+    for text in profile_track.DEFAULT_SPECS:
+        cfg = profile_track.spec_config(base, profile_track.parse_spec(text))
+        route = profile_track.route_name(cfg)
+        reps = SWEEP_PER_MS_REPS if cfg.tracker == "per_ms" else 3
+        reset_launches()
+        times, per_ms = profile_track.time_route(
+            cfg, inputs.signal, inputs.channels, n_short, n_long, reps,
+            check=lambda n, final, ys, text=text: outs.__setitem__((text, n), ys))
+        launches = read_launches()
+        want = route_launches(cfg, n_short, n_long, 1 + reps)
+        check(launches == want, f"sweep {route}: kernel launches {launches}, expected {want}")
+        total = {k: total[k] + v for k, v in launches.items()}
+        cut = f" (reps cut to {reps}: {n_short + n_long} ms per rep)" if reps < 3 else ""
+        print(f"  [{card}] profile_track "
+              f"{profile_track.describe(route, cfg, times, per_ms, SWEEP_CH)}{cut}")
+    for n in (n_short, n_long):
+        assert_bit_equal(f"sweep: fused against block at {n} ms", outs[("64,fused", n)]._asdict(),
+                         outs[("64", n)]._asdict())
+    a, b = outs[("1", n_long)], outs[("64", n_long)]
+    d_abs = int((a.absolute_sample - b.absolute_sample).abs().max())
+    rms = max(float(((getattr(a, f).double() - getattr(b, f).double()) ** 2).mean().sqrt()
+                    / (getattr(b, f).double() ** 2).mean().sqrt())
+              for f in ("i_p", "i_e", "i_l", "q_e", "q_p", "q_l"))
+    d_carr = float((a.carr_freq - b.carr_freq).abs().max())
+    check(d_abs <= ROUTE_TOL["absolute_sample"] and rms < ROUTE_TOL["corr_rel_rms"]
+          and d_carr < ROUTE_TOL["carr_freq_hz"],
+          f"sweep: per-ms against block: abs {d_abs}, corr rms {rms}, carr {d_carr}")
+    print(f"  fused bit-equal to block at {n_short} and {n_long} ms; per-ms against block over "
+          f"{n_long} ms: |absolute_sample| {d_abs}, correlator rel RMS {rms:.3e}, carr_freq "
+          f"{d_carr:.3e} Hz")
+
+    reset_launches()
+    n_short = mega_sweep.short_length(n_long)
+    points = mega_sweep.sweep(base, inputs.signal, inputs.channels, n_short=n_short,
+                              n_long=n_long, report=lambda line: print(f"  [{card}] {line}"))
+    launches = read_launches()
+    want = route_launches(base.with_options(track_block_ms=mega_sweep.REFERENCE[0]), n_short,
+                          n_long, 1)
+    for (block_ms, _), got in points.items():
+        if not isinstance(got, str):
+            more = route_launches(base.with_options(track_block_ms=block_ms), n_short, n_long, 4)
+            want = {k: want[k] + more[k] for k in want}
+    check(launches == want, f"sweep mega_sweep: kernel launches {launches}, expected {want}")
+    total = {k: total[k] + v for k, v in launches.items()}
+    timed = {p: v[1] for p, v in points.items() if not isinstance(v, str)}
+    check(bool(timed), "sweep: every mega_sweep point was refused")
+    fastest = min(timed, key=timed.get)
+    print(f"  mega_sweep: fastest point {fastest} at {timed[fastest] * 1e6:.3f} us per ms; "
+          f"launches {total}")
+    return total, fastest[0]
+
+
+#: the trace phase: the block size traced besides the sweep's fastest, and
+#: the reps of the same call timed without the profiler
+TRACE_BLOCK_MS = 64
+TRACE_REPS = 3
+
+
+def phase_trace(dev, fastest_block_ms: int, card: str) -> dict:
+    """scripts.trace_track at TRACE_BLOCK_MS and at the sweep's fastest
+    block size, then scripts.glue_trace."""
+    from softgnss_tpu_torch import default_config
+    from softgnss_tpu_torch.scripts import glue_trace, trace_track
+    from softgnss_tpu_torch.scripts.inputs import sweep_inputs
+
+    total = dict.fromkeys(read_launches(), 0)
+    runs = [(b, trace_track.N_MS, False) for b in dict.fromkeys((TRACE_BLOCK_MS,
+                                                                 fastest_block_ms))]
+    runs.append((glue_trace.BLOCK_MS, glue_trace.N_MS, True))
+    for block_ms, n_ms, glue in runs:
+        cfg = default_config(number_of_channels=trace_track.N_CH, correlator_impl="megakernel",
+                             track_block_ms=block_ms)
+        inputs = sweep_inputs(cfg, trace_track.N_CH, n_ms, dev, phase0=False, nav_bits=not glue)
+        reset_launches()
+        events = trace_track.capture_trace(cfg, inputs.signal, inputs.channels, n_ms)
+        bare = None if glue else trace_track.unprofiled_s(cfg, inputs.signal, inputs.channels,
+                                                          n_ms, TRACE_REPS)
+        launches = read_launches()
+        blocks = trace_track.n_blocks(cfg, n_ms)
+        calls = 2 if glue else 3 + TRACE_REPS        # a warm-up and a traced call, then untraced
+        want = {"build_frames": calls * blocks, "track_block": calls * blocks,
+                "track_block_fused": 0, "correlate_ms": 0}
+        check(launches == want, f"trace B={block_ms}: kernel launches {launches}, expected {want}")
+        total = {k: total[k] + v for k, v in launches.items()}
+        _, rows, _ = trace_track.host_summary(events)
+        for name in ("softgnss/build_frames", "softgnss/track_block"):
+            check(rows[name][1] == blocks, f"trace B={block_ms}: {rows[name][1]} {name} ranges, "
+                                           f"{blocks} blocks")
+        _, dev_rows = trace_track.device_summary(events)
+        if not dev_rows:
+            print(f"  [{card}] the profiler recorded no device time: the card's side not measured")
+        recorded = [sum(n for k, (_, n) in dev_rows.items() if kernel in k)
+                    for kernel in ("build_frames_kernel", "track_block_kernel")]
+        print(f"  B={block_ms}: the trace holds {recorded[0]} B2 and {recorded[1]} B1 kernel "
+              f"events of the traced call's {blocks} launches each")
+        lines = (glue_trace.report(events, n_ms, card=card) if glue
+                 else trace_track.report(events, cfg, n_ms, top=16, card=card, unprofiled=bare))
+        print("\n".join("  " + line for line in lines))
+    return total
+
+
+def phase_warmup(dev, card: str) -> dict:
+    """scripts.warmup_sweep at its JAX geometry: every rank of one 4 x 2
+    world on the card; at 250 ms the mesh phase's bounds."""
+    from softgnss_tpu_torch.pipeline import run_receiver
+    from softgnss_tpu_torch.scenario import build_scenario, synthesize_scenario
+    from softgnss_tpu_torch.scripts import warmup_sweep as ws
+
+    cfg = ws.sweep_config()
+    sc = build_scenario(cfg, n_sats=ws.N_SATS)
+    sig = synthesize_scenario(sc, ws.N_MS + cfg.acquisition_ms + 2, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    base = run_receiver(cfg, signal=sig, n_ms=ws.N_MS, navigate=False, device=dev)
+    seq_s = time.perf_counter() - t0
+    total = read_launches()
+    check_locked("warmup: sequential", base.tracking, 500)
+    t0 = time.perf_counter()
+    rows, ranks = ws.sweep(cfg, sig, base.channels, base.tracking, n_ms=ws.N_MS, device=dev.type)
+    world_s = time.perf_counter() - t0
+    for r, ln in enumerate(ranks):
+        check(ln["build_frames"] > 0 and ln["track_block"] == ln["build_frames"],
+              f"warmup: rank {r} launches {ln}")
+        total = {k: total[k] + ln[k] for k in total}
+    check([row["warmup"] for row in rows] == list(ws.WARMUPS), f"warmup: rows {rows}")
+    print(f"  [{card}] {ws.N_TIME} x {ws.N_CHANNEL} ranks sharing the card, {ws.N_MS} ms of "
+          f"{ws.N_SATS} satellites; sequential run {seq_s:.3f} s; world {world_s:.3f} s (spawn, "
+          f"{len(rows)} warm-ups)")
+    print("  " + ws.HEADER)
+    for row in rows:
+        print("  " + ws.format_row(row))
+    row = next(r for r in rows if r["warmup"] == 250)
+    check(row["max_das"] <= 1 and 100.0 - row["bit_err_pct"] > 99.0,
+          f"warmup: at 250 ms {row}")
+    print(f"  at 250 ms: absolute_sample within {row['max_das']:.0f}, nav-bit signs agree "
+          f"{1 - row['bit_err_pct'] / 100:.5f} past {ws.SKIP_MS} ms; launches {total}")
+    return total
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1757,6 +1973,8 @@ def main(argv=None) -> int:
         main_res, launches, _ = phase_main(cfg, sig, sc, card)
     with phase("profile"):
         phase_profile(cfg, sig, main_res, card)
+    with phase("fullscale"):
+        fullscale_launches = phase_fullscale(cfg, sig, sc, main_res, card)
     with phase("fused"):
         fused_launches, fused_res = phase_fused(cfg, sig, main_res, card)
     with phase("per-ms"):
@@ -1781,14 +1999,20 @@ def main(argv=None) -> int:
         phase_cli(card)
     with phase("scenarios"):
         scenario_launches = phase_scenarios(dev, card)
+    with phase("sweep"):
+        sweep_launches, fastest_block_ms = phase_sweep(dev, card)
+    with phase("trace"):
+        trace_launches = phase_trace(dev, fastest_block_ms, card)
+    with phase("warmup"):
+        warmup_launches = phase_warmup(dev, card)
     # each kernel's launches on its paths: the main path (B2, B1), the fused
-    # (B3) and per-ms (B4) routes, the oracle phase and the scenarios
-    rec_b2["launches"] = (launches["build_frames"] + oracle_launches["build_frames"]
-                          + scenario_launches["build_frames"])
-    rec_b1["launches"] = (launches["track_block"] + oracle_launches["track_block"]
-                          + scenario_launches["track_block"])
-    rec_b3["launches"] = fused_launches["track_block_fused"] + oracle_launches["track_block_fused"]
-    rec_b4["launches"] = per_ms_launches["correlate_ms"] + oracle_launches["correlate_ms"]
+    # (B3) and per-ms (B4) routes, and the fullscale, oracle, scenarios,
+    # sweep, trace and warmup phases
+    paths = (launches, fused_launches, per_ms_launches, fullscale_launches, oracle_launches,
+             scenario_launches, sweep_launches, trace_launches, warmup_launches)
+    for rec, wrapper in ((rec_b2, "build_frames"), (rec_b1, "track_block"),
+                         (rec_b3, "track_block_fused"), (rec_b4, "correlate_ms")):
+        rec["launches"] = sum(p[wrapper] for p in paths)
     print(json.dumps({"kernels": [rec_b2, rec_b1, rec_b3, rec_b4, *rec_probes]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

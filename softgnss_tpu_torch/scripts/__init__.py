@@ -6,10 +6,17 @@ CUDA card as ``python -m softgnss_tpu_torch.scripts.<name>``:
   time per launch;
 * ``mega_vmem_bisect`` (S2) — B1 stage by stage; us per ms of each stage;
 * ``builder_time`` (S3) — B2 and its 16-byte variant, L2 cold and warm;
-* ``dma_probe`` (S4) — direct, ``cp.async`` and TMA bulk window loads.
+* ``dma_probe`` (S4) — direct, ``cp.async`` and TMA bulk window loads;
+* ``profile_track``, ``mega_sweep`` — the routes' marginal us per ms, and
+  the block route's by block size and CTAs per channel;
+* ``trace_track``, ``glue_trace`` — a ``torch.profiler`` trace of one
+  block-route call, per kernel, per host op and per block;
+* ``fullscale_loop`` — the reference closed loop, cold and warm;
+* ``warmup_sweep`` — time sharding's warm-up against a sequential run.
 
-Each holds its kernels bit-equal to their plain PyTorch versions before
-it times them, and prints every number beside nvidia-smi's card name and
-power limit.  ``timing`` holds the shared timers and ``inputs`` the
-shared synthetic inputs and the bit-equality check.
+Each holds its kernels (or routes) bit-equal to their plain PyTorch
+versions (or to each other) before it times them, and prints every number
+beside nvidia-smi's card name and power limit.  ``timing`` holds the
+shared timers and ``inputs`` the shared synthetic inputs and the
+bit-equality check.
 """
