@@ -42,6 +42,7 @@ import tempfile
 import time
 import warnings
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -98,6 +99,8 @@ class KernelLibrary:
         for name, args in (
                 ("sg_build_frames", [vp, ll, vp, vp, i, i, i, ll, vp]),
                 ("sg_build_frames_vec4", [vp, ll, vp, vp, i, i, i, ll, vp]),
+                ("sg_build_frames_bulk", [vp, ll, vp, vp, i, i, i, ll] + [i] * 6 + [vp]),
+                ("sg_build_frames_direct", [vp, ll, vp, vp, i, i, i, ll, i, i, vp]),
                 ("sg_track_block", block),
                 ("sg_track_block_stage", [i] + block),
                 ("sg_track_block_fused", [vp, ll] + block),
@@ -192,6 +195,216 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 # --- B2: frames builder ----------------------------------------------------
 
+#: the bulk design's plan at the reference front end, 8 channels
+#: (:func:`frames_plan`): about FRAMES_CTAS_PER_SM CTAs per SM over a
+#: 64-ms block, each staging the hull of its columns once for every
+#: channel (FRAMES_UNION) by bulk copies of about FRAMES_PART_W words,
+#: FRAMES_THREADS threads per CTA; chosen by ``scripts.builder_time``'s plan
+#: sweep (PERF.md section 6)
+FRAMES_CTAS_PER_SM = 1
+FRAMES_PART_W = 1024
+FRAMES_THREADS = 256
+FRAMES_UNION = True
+#: SMs of an H100 SXM: B4's plan spreads the channels' CTAs over them, and
+#: B2's plan takes it by default (its wrapper passes the card's count)
+SMS = 132
+#: dynamic shared memory a CTA can use on an H100 (csrc/build_frames.cu
+#: kMaxSmem), and the bulk copies (mbarriers) of one hull (kMaxParts)
+MAX_SMEM = 232_448
+MAX_PARTS = 16
+MAX_THREADS = 1024
+#: the narrowest column group a plan makes (words), and the most ms a launch
+#: takes (the grid's second dimension)
+MIN_GROUP_W = 1024
+MAX_R = 65_535
+#: device names of B2's kernels (the bulk design, then the first), as a
+#: profiler shows them: match a kernel event by :func:`is_frames_kernel`
+FRAMES_KERNELS = ("build_frames_bulk_kernel", "build_frames_kernel")
+
+
+def is_frames_kernel(name: str) -> bool:
+    """Whether a profiler's kernel name is one of B2's kernels."""
+    return any(k in name for k in FRAMES_KERNELS)
+
+
+class FramesPlan(NamedTuple):
+    """A launch of the bulk design: one CTA of ``threads`` threads per ms and
+    column group of ``group_w`` words (``groups`` of them) with a staging
+    buffer of ``buf_w`` words in ``smem_bytes`` of dynamic shared memory;
+    ``union``: the hull of the channels' source words for the group staged
+    once when it fits the buffer, by bulk copies of about ``part_w`` words
+    (else each channel's columns on their own)."""
+    union: bool
+    groups: int
+    group_w: int
+    buf_w: int
+    part_w: int
+    threads: int
+    smem_bytes: int
+
+
+def frames_smem(n_ch: int, buf_w: int) -> int:
+    """Dynamic shared memory of a launch (csrc/build_frames.cu bulk_smem):
+    the staging buffer, MAX_PARTS mbarriers and the starts."""
+    return 4 * buf_w + 8 * MAX_PARTS + 8 * n_ch
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def frames_plan(r: int, n_ch: int, win_w: int, spc_w: int, *, union: bool = FRAMES_UNION,
+                ctas_per_sm: float = FRAMES_CTAS_PER_SM, part_w: int = FRAMES_PART_W,
+                threads: int = FRAMES_THREADS, spread_w: int | None = None,
+                n_sm: int = SMS) -> FramesPlan:
+    """The launch plan of B2's bulk design for ``r`` ms of ``n_ch`` frames
+    of ``win_w`` words, ``spc_w`` words per ms, on a card of ``n_sm`` SMs:
+    the window cut into column groups (multiples of 4 words, at least
+    MIN_GROUP_W unless the window is narrower) so that the ``r`` x groups
+    CTAs make ``ctas_per_sm`` per SM as near as whole groups allow.  With
+    ``union`` the buffer holds a group's hull for starts up to
+    ``spread_w`` words apart (default a code period and a quarter: the
+    channels' code phases lie within one, and a quarter more leaves room
+    for their drift apart), else each channel's columns of a group side by
+    side; either is cut to what a CTA's shared memory holds, one channel's
+    columns at least (a wider hull then takes the channels in rounds).
+    Raises ValueError for an empty shape, more than MAX_R ms, threads not a
+    multiple of 32 up to 1024, parts under 16 words, or a group whose
+    columns do not fit a CTA's shared memory."""
+    r, n_ch, win_w, spc_w, part_w, threads = map(int, (r, n_ch, win_w, spc_w, part_w, threads))
+    if r <= 0 or n_ch <= 0 or win_w <= 0:
+        raise ValueError(f"build_frames: empty shape r={r}, C={n_ch}, win_w={win_w}")
+    if r > MAX_R:
+        raise ValueError(f"build_frames: r={r} ms in one launch, at most {MAX_R}")
+    if part_w < 16:
+        raise ValueError(f"build_frames: part_w={part_w}: at least 16 words")
+    if threads % 32 or not 32 <= threads <= MAX_THREADS:
+        raise ValueError(f"build_frames: threads={threads}: a multiple of 32 up to "
+                         f"{MAX_THREADS}")
+    if not ctas_per_sm > 0 or n_sm < 1:
+        raise ValueError(f"build_frames: ctas_per_sm={ctas_per_sm}, n_sm={n_sm}")
+    widest = max(1, win_w // MIN_GROUP_W)
+    want = min(max(1, round(ctas_per_sm * n_sm / r)), widest)
+    group_w = _round4(-(-win_w // want))
+    stride = _round4(min(group_w, win_w) + 8)
+    room = (MAX_SMEM - frames_smem(n_ch, 0)) // 16 * 4
+    if room < stride:
+        raise ValueError(f"build_frames: {frames_smem(n_ch, stride)} B of shared memory for "
+                         f"{n_ch} channels and {group_w}-word groups: past the {MAX_SMEM} B a "
+                         "CTA has")
+    spread = spc_w + spc_w // 4 if spread_w is None else int(spread_w)
+    buf_w = _round4(spread + group_w + 8) if union else n_ch * stride
+    buf_w = max(min(buf_w, room), stride)
+    return FramesPlan(bool(union), -(-win_w // group_w), group_w, buf_w, part_w, threads,
+                      frames_smem(n_ch, buf_w))
+
+
+class FramesWrite(NamedTuple):
+    """Frame (j, ``d``)'s columns [g_lo, g_hi) as a CTA writes them in step
+    ``step``, from the span [v0, v1) of source words staged at buffer word
+    ``off`` + ``lead``: ``head`` words one by one up to the first 16-byte
+    aligned destination word, ``n4`` int4s built at shift ``sh``, then the
+    ``tail`` words one by one."""
+    step: int
+    d: int
+    v0: int
+    v1: int
+    lead: int
+    off: int
+    head: int
+    n4: int
+    tail: int
+    sh: int
+
+
+class FramesCopy(NamedTuple):
+    """One bulk copy of a CTA: ``bytes`` from capture word ``copy_w`` (a
+    16-byte boundary: up to 3 words before the capture, its end up to 3
+    past it) into buffer word ``off``, landed before the writes of step
+    ``step`` (the round's; a hull has one step)."""
+    step: int
+    off: int
+    copy_w: int
+    bytes: int
+
+
+class FramesUnit(NamedTuple):
+    """CTA (g, j) of the bulk design: columns [g_lo, g_hi) of ms ``j``'s
+    frames; ``hull``: the channels' hull staged once (else channel by
+    channel in rounds); its copies and writes."""
+    j: int
+    g: int
+    g_lo: int
+    g_hi: int
+    hull: bool
+    copies: tuple
+    writes: tuple
+
+
+def _span(cap_lead: int, n_words: int, lo: int, hi: int) -> tuple:
+    """(v0, v1, lead, copy_w, bytes) of source words [lo, hi)
+    (csrc/build_frames.cu span_of)."""
+    v0 = max(lo, 0)
+    v1 = max(min(hi, n_words), v0)
+    if v1 == v0:
+        return v0, v1, 0, 0, 0
+    lead = (cap_lead + v0) % 4
+    return v0, v1, lead, v0 - lead, 4 * (_round4(cap_lead + v1) - cap_lead - (v0 - lead))
+
+
+def _write(step: int, d: int, span: tuple, off: int, dst0: int, sd: int, g_lo: int,
+           g_hi: int) -> FramesWrite:
+    """csrc/build_frames.cu write_cols."""
+    length = g_hi - g_lo
+    head = min((4 - (dst0 + g_lo) % 4) % 4, length)
+    n4 = (length - head) // 4
+    return FramesWrite(step, d, *span[:3], off, head, n4, length - head - 4 * n4,
+                       (sd + g_lo + head - span[0] + span[2]) % 4)
+
+
+def frames_walk(plan: FramesPlan, starts, n_words: int, cap_lead: int, r: int, win_w: int,
+                spc_w: int) -> list[FramesUnit]:
+    """Every CTA of one launch of the bulk design, as the kernel computes
+    them on the card from ``starts`` (C word offsets of ms 0) over a
+    capture of ``n_words`` words whose first word lies ``cap_lead`` words
+    (0-3) past a 16-byte boundary: csrc/build_frames.cu
+    ``build_frames_bulk_kernel``, ``span_of`` and ``write_cols`` line for
+    line, in Python integers.  The wrapper never calls it (the starts stay
+    on the card); the CPU tests replay it against
+    :func:`build_frames_plain`."""
+    st = [int(s) for s in starts]
+    n_ch = len(st)
+    units = []
+    for j in range(r):
+        base = j * spc_w
+        for g in range(plan.groups):
+            g_lo, g_hi = g * plan.group_w, min((g + 1) * plan.group_w, win_w)
+            h_lo, h_hi = min(st) + base + g_lo, max(st) + base + g_hi
+            copies, writes = [], []
+            hull = plan.union and h_hi - h_lo + 8 <= plan.buf_w
+            if hull:
+                span = _span(cap_lead, n_words, h_lo, h_hi)
+                parts = max(1, min(-(-span[4] // 4 // plan.part_w), MAX_PARTS))
+                pb = -(-(span[4] // parts) // 16) * 16
+                for k in range(parts):
+                    n_b = max(min(pb, span[4] - k * pb), 0)
+                    if n_b:
+                        copies.append(FramesCopy(0, k * pb // 4, span[3] + k * pb // 4, n_b))
+                writes = [_write(0, d, span, 0, (j * n_ch + d) * win_w, st[d] + base, g_lo, g_hi)
+                          for d in range(n_ch)]
+            else:
+                stride = _round4(g_hi - g_lo + 8)
+                per_round = plan.buf_w // stride
+                for rnd, c0 in enumerate(range(0, n_ch, per_round)):
+                    for c in range(c0, min(c0 + per_round, n_ch)):
+                        span = _span(cap_lead, n_words, st[c] + base + g_lo, st[c] + base + g_hi)
+                        if span[4]:
+                            copies.append(FramesCopy(rnd, (c - c0) * stride, span[3], span[4]))
+                        writes.append(_write(rnd, c, span, (c - c0) * stride,
+                                             (j * n_ch + c) * win_w, st[c] + base, g_lo, g_hi))
+            units.append(FramesUnit(j, g, g_lo, g_hi, hull, tuple(copies), tuple(writes)))
+    return units
+
 
 def build_frames_plain(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int,
                        win_w: int, spc_w: int) -> torch.Tensor:
@@ -205,16 +418,31 @@ def build_frames_plain(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int,
     return torch.where(inside, cap_words[idx.clamp(0, cap_words.shape[0] - 1)], 0)
 
 
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """The card's SM count, queried once per device."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def build_frames(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int,
-                 win_w: int, spc_w: int) -> torch.Tensor:
+                 win_w: int, spc_w: int, *, plan: FramesPlan | None = None) -> torch.Tensor:
     """Per-ms frames of every channel, (r, C, win_w) int32 (see
     :func:`build_frames_plain`).  ``cap_words``: (L,) int32 little-endian
-    word view of the int8 capture; ``starts_w``: (C,) int64 word offsets
-    of millisecond 0.  Kernel B2 (csrc/build_frames.cu) on CUDA tensors."""
+    word view of the int8 capture (4-byte aligned; any 16-byte lead);
+    ``starts_w``: (C,) int64 word offsets of millisecond 0.  Kernel B2's
+    bulk design (csrc/build_frames.cu ``build_frames_bulk_kernel``) on
+    CUDA tensors, at ``plan`` (default :func:`frames_plan` at the card's SM
+    count); ``plan`` is ignored for CPU tensors."""
     if cap_words.device.type == "cpu":
         return build_frames_plain(cap_words, starts_w, r, win_w, spc_w)
-    frames = _launch_frames("build_frames", load_library().lib.sg_build_frames, cap_words,
-                            starts_w, r, win_w, spc_w)
+    dev = cap_words.device
+    if plan is None:
+        plan = frames_plan(r, starts_w.shape[0], win_w, spc_w,
+                           n_sm=sm_count(dev.index if dev.index is not None
+                                         else torch.cuda.current_device()))
+    frames = _launch_frames("build_frames", load_library().lib.sg_build_frames_bulk, cap_words,
+                            starts_w, r, win_w, spc_w, int(plan.union), plan.group_w, plan.buf_w,
+                            plan.part_w, plan.threads, plan.smem_bytes)
     build_frames.launches += 1
     return frames
 
@@ -223,10 +451,11 @@ build_frames.launches = 0
 
 
 def _launch_frames(name: str, entry, cap_words, starts_w, r: int, win_w: int,
-                   spc_w: int) -> torch.Tensor:
+                   spc_w: int, *plan) -> torch.Tensor:
     """Check the inputs of :func:`build_frames`, allocate the frames and
     call ``entry`` (a C entry point that takes the arguments of
-    ``sg_build_frames``) on the current stream."""
+    ``sg_build_frames``, with ``plan``'s integers before the stream) on the
+    current stream."""
     dev = cap_words.device
     c = starts_w.shape[0]
     _require(cap_words, "cap_words", torch.int32, (cap_words.shape[0],), dev)
@@ -234,7 +463,7 @@ def _launch_frames(name: str, entry, cap_words, starts_w, r: int, win_w: int,
     frames = torch.empty((r, c, win_w), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = entry(_ptr(cap_words), cap_words.shape[0], _ptr(starts_w), _ptr(frames), r, c,
-                   win_w, spc_w, _stream(dev))
+                   win_w, spc_w, *plan, _stream(dev))
     _check(rc, name)
     return frames
 

@@ -32,16 +32,13 @@ import torch
 
 from softgnss_tpu_torch.config import ReceiverConfig
 from softgnss_tpu_torch.signals.nco import carrier_turns, chips_to_q, sin_turns
-from softgnss_tpu_torch.track.megakernel import _check, _ptr, _require, _stream, load_library
+from softgnss_tpu_torch.track.megakernel import SMS, _check, _ptr, _require, _stream, load_library
 from softgnss_tpu_torch.track.scan import _correlate_gather
 
 #: samples one 16-byte copy brings
 VECTOR = 16
 #: samples each thread correlates per pass: one 32-bit word
 SAMPLES_PER_THREAD = 4
-#: SMs of an H100 SXM: the plan spreads the channels' CTAs over them, one
-#: CTA per SM where the channels allow
-SMS = 132
 #: CTAs per channel at most (the kernel's limit)
 MAX_CTAS_PER_CHANNEL = 64
 #: the kernel's launch bounds, and the vectors its shared buffer holds

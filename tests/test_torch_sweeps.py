@@ -353,6 +353,25 @@ def test_summaries_of_a_fixed_event_list():
     assert outside == 100.0 - 20.0 - 10.0
 
 
+#: the bulk design's device name as a profiler shows it
+BULK_NAME = ("void (anonymous namespace)::build_frames_bulk_kernel<true>(int const*, long long, "
+             "long long const*, int*, int, int, int, long long, int, int)")
+
+
+def test_summaries_name_the_bulk_frames_kernel():
+    """The fixed event list with B2's event under the bulk design's name:
+    the device summary keeps it, and it counts as B2 (mk.is_frames_kernel),
+    as chip_smoke.py's shares and loop spans read it; B1 never does."""
+    events = [dict(e, name=BULK_NAME) if e["name"] == "build_frames_kernel" else e
+              for e in FIXED_EVENTS]
+    total, dev = tt.device_summary(events)
+    assert total == 798.0 and dev[BULK_NAME] == [8.0, 1]
+    assert sum(n for name, (_, n) in dev.items() if mk.is_frames_kernel(name)) == 1
+    assert sum(us for name, (us, _) in dev.items() if mk.is_frames_kernel(name)) == 8.0
+    assert mk.is_frames_kernel("build_frames_kernel") and mk.is_frames_kernel(BULK_NAME)
+    assert not mk.is_frames_kernel("track_block_kernel")
+
+
 def test_glue_aggregate_matches_the_jax_formula():
     assert gt.aggregate(FIXED_EVENTS) == _jax_glue_aggregate(FIXED_EVENTS)
     assert gt.aggregate(FIXED_EVENTS)["track_block_kernel"] == 790.0
@@ -547,4 +566,4 @@ def test_trace_records_the_kernels_on_card(cuda_device):
     _, dev = tt.device_summary(events)
     blocks = tt.n_blocks(cfg, 200)
     assert sum(n for name, (_, n) in dev.items() if "track_block_kernel" in name) == blocks
-    assert sum(n for name, (_, n) in dev.items() if "build_frames_kernel" in name) == blocks
+    assert sum(n for name, (_, n) in dev.items() if mk.is_frames_kernel(name)) == blocks
