@@ -24,6 +24,7 @@ import torch
 
 from softgnss_tpu_torch.config import ReceiverConfig
 from softgnss_tpu_torch.device import place
+from softgnss_tpu_torch.profiling import trace
 from softgnss_tpu_torch.signals.ca import ca_table, gold_codes
 from softgnss_tpu_torch.signals.nco import carrier_sin_cos, carrier_step_u32
 
@@ -158,11 +159,12 @@ def _prn_block(config: ReceiverConfig, xs, sig0dc, code_fd, gold,
     nfft = config.acq_fine_fft
     n_dec = -(-fine_n // decim)
     pad = n_dec * decim - fine_n
-    chip_idx = torch.from_numpy(_fine_chip_indices(config)).to(dev)
-    freqs_np = np.fft.fftfreq(nfft, 1.0 / (fs / decim))
-    band_mask = torch.from_numpy(np.abs(freqs_np) <= config.acq_fine_band_hz).to(dev)
-    freqs_fft = torch.from_numpy(freqs_np).to(dev)
-    bins = torch.tensor(config.doppler_bin_freqs, dtype=torch.float64, device=dev)
+    with trace("acquire.tables"):
+        chip_idx = torch.from_numpy(_fine_chip_indices(config)).to(dev)
+        freqs_np = np.fft.fftfreq(nfft, 1.0 / (fs / decim))
+        band_mask = torch.from_numpy(np.abs(freqs_np) <= config.acq_fine_band_hz).to(dev)
+        freqs_fft = torch.from_numpy(freqs_np).to(dev)
+        bins = torch.tensor(config.doppler_bin_freqs, dtype=torch.float64, device=dev)
     coarse = bins[bin_idx]
 
     start = torch.clamp(code_phase, 0, sig0dc.shape[0] - fine_n)
@@ -190,9 +192,10 @@ def _acquire_device(config: ReceiverConfig, long_signal: torch.Tensor,
     prn_list = np.asarray(config.acq_satellite_list if prns is None else prns, np.int64)
     xs, sig0dc = _baseband_ffts(config, long_signal)
     fft_n = _corr_fft_len(config)
-    codes = torch.from_numpy(ca_table(config)[prn_list - 1]).to(dev)   # (P, N)
-    code_fd = torch.conj(torch.fft.fft(codes.to(torch.complex64), n=fft_n))
-    gold = torch.from_numpy(gold_codes()[prn_list - 1].astype(np.float32)).to(dev)
+    with trace("acquire.tables"):
+        codes = torch.from_numpy(ca_table(config)[prn_list - 1]).to(dev)   # (P, N)
+        code_fd = torch.conj(torch.fft.fft(codes.to(torch.complex64), n=fft_n))
+        gold = torch.from_numpy(gold_codes()[prn_list - 1].astype(np.float32)).to(dev)
 
     chunk = min(config.acq_prn_chunk, len(prn_list))
     outs = []
@@ -238,8 +241,10 @@ def acquire(config: ReceiverConfig, long_signal,
     bin_mask = hint_bin_mask(config, doppler_hints, hint_halfwidth_hz)
     if bin_mask is not None:
         bin_mask = torch.from_numpy(bin_mask).to(long_signal.device)
-    return per_prn_results(config, [v.cpu().numpy() for v in
-                                    _acquire_device(config, long_signal[:need], bin_mask)])
+    out = _acquire_device(config, long_signal[:need], bin_mask)
+    with trace("acquire.wait"):         # the first copy waits for the search
+        host = [v.cpu().numpy() for v in out]
+    return per_prn_results(config, host)
 
 
 def per_prn_results(config: ReceiverConfig, out) -> AcquisitionResults:

@@ -41,7 +41,7 @@ from softgnss_tpu_torch.parallel import (
     track_time_exact,
     track_time_sharded,
 )
-from softgnss_tpu_torch.profiling import StageTimer, channel_lock_loss
+from softgnss_tpu_torch.profiling import StageTimer, channel_lock_loss, trace
 from softgnss_tpu_torch.track.scan import TrackResults, track
 
 logger = logging.getLogger(__name__)
@@ -123,7 +123,7 @@ class ReceiverResults:
         elif self.tracking is not None:
             lines.append("PVT: navigation solution not computed")
         for stage, dt in self.timings_s.items():
-            lines.append(f"  {stage:12s} {dt:8.2f} s")
+            lines.append(f"  {stage:14s} {dt:8.3f} s")
         return "\n".join(lines)
 
 
@@ -251,7 +251,8 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
         with timer.stage("track"):
             results.tracking = load_tracking(checkpoint)
             if results.tracking.lock_loss_ms is None:
-                _demote_unlocked(config, results.tracking)
+                with trace("track.demote"):
+                    _demote_unlocked(config, results.tracking)
         return navigation()
 
     # --- acquisition (reference: initialize.py:481-492) --------------------
@@ -296,7 +297,8 @@ def run_receiver(config: ReceiverConfig, signal=None, file_name: str | None = No
                                         device=dev)
         else:
             results.tracking = track(config, sig, results.channels, n_ms=n_ms)
-        _demote_unlocked(config, results.tracking)
+        with trace("track.demote"):
+            _demote_unlocked(config, results.tracking)
         if checkpoint is not None:
             if mesh is None or dist.get_rank() == 0:
                 save_tracking(checkpoint, results.tracking)

@@ -5,7 +5,9 @@
   ends of a stage, so a stage's time includes its device work.  Each stage
   is also a ``softgnss/<name>`` range in profiler traces.
 * :func:`trace` — names a region ``softgnss/<name>`` in profiler traces
-  (``torch.profiler.record_function``),
+  (``torch.profiler.record_function``); inside a stage it also adds the
+  region's host seconds to the stage's timer under ``name`` (the
+  ``<stage>.<part>`` spans), without synchronizing the device,
 * :func:`profile_to` — a ``torch.profiler`` trace of a region, CPU and
   (where there is a card) CUDA activity, written under a directory,
 * :func:`lock_metrics` / :func:`channel_lock_loss` — the per-ms tracking
@@ -16,6 +18,7 @@
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import time
 from dataclasses import dataclass, field
 
@@ -23,9 +26,15 @@ import numpy as np
 import torch
 
 
+#: the StageTimer whose stage runs now in this context, or None
+_CURRENT: contextvars.ContextVar = contextvars.ContextVar("softgnss_stage_timer",
+                                                          default=None)
+
+
 @dataclass
 class StageTimer:
-    """Accumulates named stage wall times on ``device``."""
+    """Accumulates named stage wall times on ``device``, and the host times
+    of the :func:`trace` regions that run inside a stage."""
 
     device: torch.device | str = "cpu"
     timings_s: dict = field(default_factory=dict)
@@ -35,29 +44,38 @@ class StageTimer:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    def _add(self, name: str, seconds: float) -> None:
+        self.timings_s[name] = self.timings_s.get(name, 0.0) + seconds
+
     @contextlib.contextmanager
     def stage(self, name: str):
-        with trace(name):
+        self.timings_s.setdefault(name, 0.0)     # a stage's key before its parts
+        with torch.profiler.record_function(f"softgnss/{name}"):
             self._sync()
+            token = _CURRENT.set(self)
             t0 = time.perf_counter()
             try:
                 yield
             finally:
+                _CURRENT.reset(token)
                 self._sync()
-                self.timings_s[name] = (self.timings_s.get(name, 0.0)
-                                        + time.perf_counter() - t0)
-
-    def report(self) -> str:
-        width = max((len(k) for k in self.timings_s), default=0)
-        return "\n".join(f"{k:{width}s} {v:8.3f} s"
-                         for k, v in self.timings_s.items())
+                self._add(name, time.perf_counter() - t0)
 
 
 @contextlib.contextmanager
 def trace(name: str):
-    """Name the enclosed region ``softgnss/<name>`` in profiler traces."""
+    """Name the enclosed region ``softgnss/<name>`` in profiler traces;
+    inside a :meth:`StageTimer.stage`, add its host seconds to that timer's
+    ``timings_s[name]``.  Never waits for the device: a span holds what the
+    host did in the region, not the device work queued behind it."""
+    timer = _CURRENT.get()
     with torch.profiler.record_function(f"softgnss/{name}"):
-        yield
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if timer is not None:
+                timer._add(name, time.perf_counter() - t0)
 
 
 @contextlib.contextmanager

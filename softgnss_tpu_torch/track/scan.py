@@ -44,6 +44,7 @@ import torch
 from softgnss_tpu_torch.acquire.search import Channels
 from softgnss_tpu_torch.config import ReceiverConfig
 from softgnss_tpu_torch.device import place
+from softgnss_tpu_torch.profiling import trace
 from softgnss_tpu_torch.signals.nco import (
     CODE_ONE,
     carrier_step_u32,
@@ -305,7 +306,10 @@ def track_segments(config: ReceiverConfig, words, state: TrackState, code_pads,
     version) that takes the word view and the (C,) frame word offsets in
     place of frames and frame starts.  ``words``: the capture's int32 word
     view (:func:`capture_words`).
-    Returns (final_state, MsOutputs of (n_ms, C) leaves, (C,) overflow)."""
+    Returns (final_state, MsOutputs of (n_ms, C) leaves, (C,) overflow).
+    ``track_segments.calls`` counts calls and ``track_segments.segments``
+    the segments they issued (lead, full and tail); the loop is the
+    ``track.loop`` span (profiling.trace)."""
     spc = config.samples_per_code
     spc_w = spc // 4
     win_w = config.track_window // 4
@@ -334,17 +338,24 @@ def track_segments(config: ReceiverConfig, words, state: TrackState, code_pads,
     parts, ovfs = [], []
     plan = ([("lead", phase, lead)] if lead else []) + [("block", 0, B)] * n_full \
         + ([("block", 0, r_tail)] if r_tail else [])
-    for kind, p0, r in plan:
-        if kind == "lead":   # finish the grid block a resumed run stopped in
-            base = st.block_base
-        else:
-            base = st.ptr - pre
-            st = st._replace(block_base=base)
-        st, ys, ovf = segment(st, base, p0, r)
-        parts.append(ys)
-        ovfs.append(ovf)
+    track_segments.calls += 1
+    track_segments.segments += len(plan)
+    with trace("track.loop"):
+        for kind, p0, r in plan:
+            if kind == "lead":   # finish the grid block a resumed run stopped in
+                base = st.block_base
+            else:
+                base = st.ptr - pre
+                st = st._replace(block_base=base)
+            st, ys, ovf = segment(st, base, p0, r)
+            parts.append(ys)
+            ovfs.append(ovf)
     ys = MsOutputs(*[torch.cat(leaf) for leaf in zip(*parts)])
     return st, ys, torch.stack(ovfs).amax(0)
+
+
+track_segments.calls = 0
+track_segments.segments = 0
 
 
 def track_ms(config: ReceiverConfig, signal, state: TrackState, code_pads, carr_basis,
@@ -413,8 +424,10 @@ def track(config: ReceiverConfig, signal, channels: Channels,
         state = TrackState(*[torch.as_tensor(v).to(dev) for v in state])
         start_ms = int(state.ms.max())
     final, ys, ovf = track_on_device(config, signal, tables, state, n_ms, start_ms)
-    _check_overflow(ovf)
-    host = {f: getattr(ys, f).cpu().numpy().T for f in MsOutputs._fields}
+    with trace("track.wait"):           # the first sync: the queued blocks drain
+        _check_overflow(ovf)
+    with trace("track.to_host"):
+        host = {f: getattr(ys, f).cpu().numpy().T for f in MsOutputs._fields}
     return TrackResults(final_state=final, prn=np.asarray(channels.prn),
                         status=list(channels.status), **host)
 

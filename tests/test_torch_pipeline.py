@@ -61,7 +61,8 @@ def test_whole_slice_matches(runs):
     assert "L" in port.tracking.status                     # demotion exercised
     np.testing.assert_array_equal(port.tracking.lock_loss_ms, ref.tracking.lock_loss_ms)
     assert _summary_lines(port) == _summary_lines(ref)
-    assert set(port.timings_s) == {"acquire", "track"}
+    assert set(port.timings_s) == {"acquire", "acquire.tables", "acquire.wait", "track",
+                                   "track.loop", "track.wait", "track.to_host", "track.demote"}
     for k in ref.probe:
         np.testing.assert_array_equal(port.probe[k], ref.probe[k], err_msg=k)
     # tracking itself: the gather-lineage tolerances on the locked channels
@@ -144,7 +145,8 @@ def test_convert_carries_the_mesh_fields():
 
 def test_profile_to_writes_the_stages(runs, tmp_path):
     """A profile_to window around run_receiver writes one trace whose events
-    name the receiver's stages (StageTimer) and a trace() region."""
+    name the receiver's stages (StageTimer), their parts (the program's
+    trace() spans) and a trace() region."""
     sig = runs[0]
     with profile_to(str(tmp_path)):
         with trace("probe_region"):
@@ -156,6 +158,9 @@ def test_profile_to_writes_the_stages(runs, tmp_path):
     with open(files[0]) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"softgnss/acquire", "softgnss/track", "softgnss/probe_region"} <= names
+    parts = ("acquire.tables", "acquire.wait", "track.loop", "track.wait", "track.to_host",
+             "track.demote")
+    assert {f"softgnss/{p}" for p in parts} <= names
 
 
 def test_stage_timer_accumulates():
@@ -164,4 +169,3 @@ def test_stage_timer_accumulates():
         with t.stage("a"):
             pass
     assert set(t.timings_s) == {"a"} and t.timings_s["a"] >= 0.0
-    assert "a" in t.report()
