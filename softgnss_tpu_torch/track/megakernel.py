@@ -20,8 +20,12 @@ replaces, what bounds it on the H100 and its design.
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
 version (``*_plain``, same module) for CPU tensors, and for nothing else:
-a CUDA tensor either launches the kernel or raises.  ``wrapper.launches``
-counts kernel launches.  The kernels are compiled at first use with
+a CUDA tensor either launches the kernel or raises.  B1 and B3 also have
+an entry on the stacked state (:func:`track_block_stacked`,
+:func:`track_block_fused_stacked`: CUDA tensors only, into buffers the
+caller made), which the block loop issues and captures in a CUDA graph.
+``wrapper.launches`` counts kernel launches, a graph's replays included.
+The kernels are compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with
 a plain C interface under ``softgnss_tpu_torch/_build/<source hash>/``
 (one ``nvcc -c`` per source, all started together, then one link) and
@@ -56,10 +60,19 @@ from softgnss_tpu_torch.signals.nco import (
     sin_turns,
 )
 from softgnss_tpu_torch.track.scan import (
+    _F32_FIELDS,
+    OUT_F32,
+    OUT_F64,
+    STATE_F64,
+    STATE_I64,
+    BlockOut,
     MsOutputs,
+    Stack,
     TrackState,
     _correlate_gather,
     _filters_and_outputs,
+    ms_outputs,
+    unstack_state,
 )
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -617,53 +630,69 @@ def _kernel_params(config: ReceiverConfig, r: int, c: int, win: int, kn: int):
     return hf, hi
 
 
-_I64_FIELDS = ("ptr", "code_rem_q", "ms", "carr_phase")
-_F64_FIELDS = ("carr_freq", "code_freq", "carr_nco", "carr_err", "code_nco", "code_err")
-_F32_FIELDS = ("acc_i_e", "acc_i_p", "acc_i_l", "acc_q_e", "acc_q_p", "acc_q_l",
-               "fll_ip", "fll_qp")
-_OUT_F64 = ("sample_frac", "code_freq", "carr_freq", "dll_discr", "dll_discr_filt",
-            "pll_discr", "pll_discr_filt")
-_OUT_F32 = ("i_p", "i_e", "i_l", "q_e", "q_p", "q_l")
-
-
-def _launch_block(name: str, launch, dev, fb0, state: TrackState, code_pads,
-                  carr_basis, active, config: ReceiverConfig, r: int, kn: int, threads: int):
-    """Check the common inputs of B1/B3, stack the state, call ``launch``
-    (the C entry point, given the trailing common arguments) at ``kn``
-    CTAs per channel of ``threads`` threads and unpack (state, MsOutputs
-    of (r, C) leaves, (C,) overflow)."""
+def _launch_stacked(name: str, launch, dev, fb0, s_in: Stack, s_out: Stack, out: BlockOut,
+                    code_pads, carr_basis, active, config: ReceiverConfig, r: int, kn: int,
+                    threads: int) -> None:
+    """Check the common inputs of B1/B3 and call ``launch`` (the C entry
+    point, given the trailing common arguments) at ``kn`` CTAs per channel
+    of ``threads`` threads: it reads the stacked state ``s_in`` and writes
+    ``s_out`` and ``out``.  Launches only: nothing waits for the card."""
     c = fb0.shape[0]
     _require(fb0, "fb0", torch.int64, (c,), dev)
     _require(code_pads, "code_pads", torch.float32, (c, 1025), dev)
     _require(carr_basis, "carr_basis", torch.float64, (c,), dev)
     _require(active, "active", torch.bool, (c,), dev)
-    si = torch.stack([getattr(state, f).to(torch.int64) for f in _I64_FIELDS])
-    sf = torch.stack([getattr(state, f) for f in _F64_FIELDS])
-    sa = torch.stack([getattr(state, f) for f in _F32_FIELDS])
-    _require(sf, "state (float64 leaves)", torch.float64, (6, c), dev)
-    _require(sa, "state (float32 leaves)", torch.float32, (8, c), dev)
-    si_o, sf_o, sa_o = torch.empty_like(si), torch.empty_like(sf), torch.empty_like(sa)
-    abs_sample = torch.empty((r, c), dtype=torch.int64, device=dev)
-    of64 = torch.empty((len(_OUT_F64), r, c), dtype=torch.float64, device=dev)
-    of32 = torch.empty((len(_OUT_F32), r, c), dtype=torch.float32, device=dev)
-    ovf = torch.empty(c, dtype=torch.int64, device=dev)
+    for s, which in ((s_in, "state"), (s_out, "state out")):
+        _require(s.si, f"{which} (int64 leaves)", torch.int64, (len(STATE_I64), c), dev)
+        _require(s.sf, f"{which} (float64 leaves)", torch.float64, (len(STATE_F64), c), dev)
+        _require(s.sa, f"{which} (float32 leaves)", torch.float32, (len(_F32_FIELDS), c), dev)
+    _require(out.abs_sample, "absolute_sample", torch.int64, (r, c), dev)
+    _require(out.of64, "float64 outputs", torch.float64, (len(OUT_F64), r, c), dev)
+    _require(out.of32, "float32 outputs", torch.float32, (len(OUT_F32), r, c), dev)
+    _require(out.ovf, "overflow", torch.int64, (c,), dev)
     hf, hi = _kernel_params(config, r, c, config.track_window, kn)
     with torch.cuda.device(dev):
         # a bool tensor is one byte of 0 or 1 per channel: the kernel reads it as is
         rc = launch(_ptr(fb0), _ptr(code_pads), _ptr(carr_basis), _ptr(active),
-                    _ptr(si), _ptr(sf), _ptr(sa), _ptr(si_o), _ptr(sf_o), _ptr(sa_o),
-                    _ptr(abs_sample), _ptr(of64), _ptr(of32), _ptr(ovf), kn, threads, hf, hi,
-                    _stream(dev))
+                    _ptr(s_in.si), _ptr(s_in.sf), _ptr(s_in.sa), _ptr(s_out.si), _ptr(s_out.sf),
+                    _ptr(s_out.sa), _ptr(out.abs_sample), _ptr(out.of64), _ptr(out.of32),
+                    _ptr(out.ovf), kn, threads, hf, hi, _stream(dev))
     _check(rc, f"{name} ({kn} CTAs per channel, {threads} threads each)")
-    leaves = dict(zip(_I64_FIELDS, si_o))
-    leaves["carr_phase"] = leaves["carr_phase"].to(torch.int32)
-    leaves.update(zip(_F64_FIELDS, sf_o))
-    leaves.update(zip(_F32_FIELDS, sa_o))
-    leaves["block_base"] = state.block_base
-    outs = dict(zip(_OUT_F64, of64))
-    outs.update(zip(_OUT_F32, of32))
-    outs["absolute_sample"] = abs_sample
-    return (TrackState(**leaves), MsOutputs(**outs), ovf)
+
+
+def _launch_block(name: str, launch, dev, fb0, state: TrackState, code_pads,
+                  carr_basis, active, config: ReceiverConfig, r: int, kn: int, threads: int):
+    """:func:`_launch_stacked` on ``state`` stacked into new buffers;
+    returns (state, MsOutputs of (r, C) leaves, (C,) overflow)."""
+    c = fb0.shape[0]
+    si = torch.stack([getattr(state, f).to(torch.int64) for f in STATE_I64])
+    sf = torch.stack([getattr(state, f) for f in STATE_F64])
+    sa = torch.stack([getattr(state, f) for f in _F32_FIELDS])
+    s_out = Stack(torch.empty_like(si), torch.empty_like(sf), torch.empty_like(sa))
+    out = BlockOut(torch.empty((r, c), dtype=torch.int64, device=dev),
+                   torch.empty((len(OUT_F64), r, c), dtype=torch.float64, device=dev),
+                   torch.empty((len(OUT_F32), r, c), dtype=torch.float32, device=dev),
+                   torch.empty(c, dtype=torch.int64, device=dev))
+    _launch_stacked(name, launch, dev, fb0, Stack(si, sf, sa), s_out, out, code_pads,
+                    carr_basis, active, config, r, kn, threads)
+    return (unstack_state(s_out, state.block_base),
+            ms_outputs(out.abs_sample, out.of64, out.of32), out.ovf)
+
+
+def _b1_launch(frames, fb0, config: ReceiverConfig, r: int, ctas_per_channel, threads_per_cta):
+    """(C entry, CTAs per channel, threads per CTA) of B1 over ``frames``."""
+    _check_launch_size(ctas_per_channel, threads_per_cta)
+    dev = frames.device
+    _require(frames, "frames", torch.int32, (r, fb0.shape[0], config.track_window // 4), dev)
+    kn, threads = launch_size(dev, False, fb0.shape[0], config.track_window, ctas_per_channel,
+                              threads_per_cta)
+    lib = load_library().lib
+    return (lambda *a: lib.sg_track_block(_ptr(frames), *a)), kn, threads
+
+
+def _counted(wrapper, kn: int) -> None:
+    wrapper.launches += 1
+    wrapper.ctas_per_channel = kn
 
 
 def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
@@ -681,21 +710,30 @@ def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
     if frames.device.type == "cpu":
         return track_block_plain(frames, fb0, state, code_pads, carr_basis,
                                  active, config, r)
-    dev = frames.device
-    _require(frames, "frames", torch.int32,
-             (r, fb0.shape[0], config.track_window // 4), dev)
-    kn, threads = launch_size(dev, False, fb0.shape[0], config.track_window, ctas_per_channel,
-                              threads_per_cta)
-    lib = load_library().lib
-    out = _launch_block("track_block", lambda *a: lib.sg_track_block(_ptr(frames), *a),
-                        dev, fb0, state, code_pads, carr_basis, active, config, r, kn, threads)
-    track_block.launches += 1
-    track_block.ctas_per_channel = kn
+    launch, kn, threads = _b1_launch(frames, fb0, config, r, ctas_per_channel, threads_per_cta)
+    out = _launch_block("track_block", launch, frames.device, fb0, state, code_pads, carr_basis,
+                        active, config, r, kn, threads)
+    _counted(track_block, kn)
     return out
 
 
 track_block.launches = 0
 track_block.ctas_per_channel = None
+
+
+def track_block_stacked(frames, fb0, s_in: Stack, s_out: Stack, out: BlockOut, code_pads,
+                        carr_basis, active, config: ReceiverConfig, r: int, *,
+                        ctas_per_channel: int | None = None,
+                        threads_per_cta: int | None = None) -> None:
+    """:func:`track_block` on the stacked state (CUDA tensors only): B1
+    reads ``s_in`` and writes ``s_out`` and ``out`` (scan.Stack,
+    scan.BlockOut of ``r`` ms).  It launches and allocates nothing else,
+    so a CUDA graph can capture it once B1's size was chosen
+    (scan.track_segments); counted on ``track_block``."""
+    launch, kn, threads = _b1_launch(frames, fb0, config, r, ctas_per_channel, threads_per_cta)
+    _launch_stacked("track_block", launch, frames.device, fb0, s_in, s_out, out, code_pads,
+                    carr_basis, active, config, r, kn, threads)
+    _counted(track_block, kn)
 
 
 # --- B3: fused block tracker -----------------------------------------------
@@ -708,6 +746,21 @@ def track_block_fused_plain(cap_words, starts_w, state: TrackState, code_pads,
                                 config.samples_per_code // 4)
     return track_block_plain(frames, 4 * starts_w, state, code_pads, carr_basis,
                              active, config, r)
+
+
+def _b3_launch(cap_words, starts_w, config: ReceiverConfig, ctas_per_channel, threads_per_cta):
+    """(C entry, CTAs per channel, threads per CTA) of B3 over ``cap_words``."""
+    _check_launch_size(ctas_per_channel, threads_per_cta)
+    dev = cap_words.device
+    c = starts_w.shape[0]
+    _require(cap_words, "cap_words", torch.int32, (cap_words.shape[0],), dev)
+    _require(starts_w, "starts_w", torch.int64, (c,), dev)
+    kn, threads = launch_size(dev, True, c, config.track_window, ctas_per_channel,
+                              threads_per_cta)
+    lib = load_library().lib
+    n_words = cap_words.shape[0]
+    return ((lambda *a: lib.sg_track_block_fused(_ptr(cap_words), n_words, _ptr(starts_w), *a)),
+            kn, threads)
 
 
 def track_block_fused(cap_words, starts_w, state: TrackState, code_pads, carr_basis,
@@ -723,22 +776,26 @@ def track_block_fused(cap_words, starts_w, state: TrackState, code_pads, carr_ba
     if cap_words.device.type == "cpu":
         return track_block_fused_plain(cap_words, starts_w, state, code_pads,
                                        carr_basis, active, config, r)
-    dev = cap_words.device
-    c = starts_w.shape[0]
-    _require(cap_words, "cap_words", torch.int32, (cap_words.shape[0],), dev)
-    _require(starts_w, "starts_w", torch.int64, (c,), dev)
-    kn, threads = launch_size(dev, True, c, config.track_window, ctas_per_channel,
-                              threads_per_cta)
-    lib = load_library().lib
-    n_words = cap_words.shape[0]
-    out = _launch_block(
-        "track_block_fused",
-        lambda *a: lib.sg_track_block_fused(_ptr(cap_words), n_words, _ptr(starts_w), *a),
-        dev, 4 * starts_w, state, code_pads, carr_basis, active, config, r, kn, threads)
-    track_block_fused.launches += 1
-    track_block_fused.ctas_per_channel = kn
+    launch, kn, threads = _b3_launch(cap_words, starts_w, config, ctas_per_channel,
+                                     threads_per_cta)
+    out = _launch_block("track_block_fused", launch, cap_words.device, 4 * starts_w, state,
+                        code_pads, carr_basis, active, config, r, kn, threads)
+    _counted(track_block_fused, kn)
     return out
 
 
 track_block_fused.launches = 0
 track_block_fused.ctas_per_channel = None
+
+
+def track_block_fused_stacked(cap_words, starts_w, s_in: Stack, s_out: Stack, out: BlockOut,
+                              code_pads, carr_basis, active, config: ReceiverConfig, r: int, *,
+                              ctas_per_channel: int | None = None,
+                              threads_per_cta: int | None = None) -> None:
+    """:func:`track_block_fused` on the stacked state, as
+    :func:`track_block_stacked` is :func:`track_block`."""
+    launch, kn, threads = _b3_launch(cap_words, starts_w, config, ctas_per_channel,
+                                     threads_per_cta)
+    _launch_stacked("track_block_fused", launch, cap_words.device, 4 * starts_w, s_in, s_out,
+                    out, code_pads, carr_basis, active, config, r, kn, threads)
+    _counted(track_block_fused, kn)

@@ -13,7 +13,8 @@ as int8.
   does.  For each segment :func:`megakernel.build_frames` (B2) cuts the
   per-ms, per-channel frames and :func:`megakernel.track_block` (B1) runs
   the milliseconds, loop filters included — or
-  :func:`megakernel.track_block_fused` (B3) does both in one kernel.
+  :func:`megakernel.track_block_fused` (B3) does both in one kernel.  On
+  the card a call's full blocks after the first replay one CUDA graph.
 * **Per-ms tracker** (:func:`track_ms`), for any front end: each
   millisecond computes the NCO steps and block length in torch,
   launches :func:`pallas_kernel.correlate_ms` (B4) on the capture itself,
@@ -34,6 +35,7 @@ code, float32 correlator sums and float64 loop filters
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -110,6 +112,103 @@ class MsOutputs(NamedTuple):
     dll_discr_filt: torch.Tensor
     pll_discr: torch.Tensor
     pll_discr_filt: torch.Tensor
+
+
+#: TrackState as kernel B1 reads and writes it (csrc/track_block.cu): (4, C)
+#: int64 rows (carr_phase widened), (6, C) float64 rows and the (8, C)
+#: float32 rows of _F32_FIELDS; block_base stays apart
+STATE_I64 = ("ptr", "code_rem_q", "ms", "carr_phase")
+STATE_F64 = ("carr_freq", "code_freq", "carr_nco", "carr_err", "code_nco", "code_err")
+#: B1's outputs beside absolute_sample (r, C): (7, r, C) float64 and (6, r,
+#: C) float32 planes
+OUT_F64 = ("sample_frac", "code_freq", "carr_freq", "dll_discr", "dll_discr_filt",
+           "pll_discr", "pll_discr_filt")
+OUT_F32 = ("i_p", "i_e", "i_l", "q_e", "q_p", "q_l")
+
+
+class Stack(NamedTuple):
+    """A TrackState stacked as B1 reads and writes it (STATE_I64, STATE_F64,
+    _F32_FIELDS rows); ``flat``: the byte buffer the three share, if any."""
+
+    si: torch.Tensor
+    sf: torch.Tensor
+    sa: torch.Tensor
+    flat: torch.Tensor | None = None
+
+
+class BlockOut(NamedTuple):
+    """A segment's outputs as B1 writes them: absolute_sample (r, C), the
+    OUT_F64 and OUT_F32 planes and the (C,) overflow; ``flat``: the byte
+    buffer the first three share, if any."""
+
+    abs_sample: torch.Tensor
+    of64: torch.Tensor
+    of32: torch.Tensor
+    ovf: torch.Tensor
+    flat: torch.Tensor | None = None
+
+
+def _packed(parts, lead: tuple, device):
+    """(buffer, views): one uint8 buffer of shape ``lead + (bytes,)`` holding,
+    at each leading index, the (shape, dtype) ``parts`` back to back, and a
+    view of shape ``lead + shape`` of each part."""
+    sizes = [math.prod(shape) * dtype.itemsize for shape, dtype in parts]
+    flat = torch.empty((*lead, sum(sizes)), dtype=torch.uint8, device=device)
+    views, off = [], 0
+    for (shape, dtype), n in zip(parts, sizes):
+        views.append(flat[..., off:off + n].view(dtype).view(*lead, *shape))
+        off += n
+    return flat, views
+
+
+def _out_parts(r: int, c: int) -> list:
+    return [((r, c), torch.int64), ((len(OUT_F64), r, c), torch.float64),
+            ((len(OUT_F32), r, c), torch.float32)]
+
+
+def new_stack(c: int, device) -> Stack:
+    flat, views = _packed([((len(STATE_I64), c), torch.int64),
+                           ((len(STATE_F64), c), torch.float64),
+                           ((len(_F32_FIELDS), c), torch.float32)], (), device)
+    return Stack(*views, flat=flat)
+
+
+def new_block_out(r: int, c: int, device) -> BlockOut:
+    flat, views = _packed(_out_parts(r, c), (), device)
+    return BlockOut(*views, torch.empty(c, dtype=torch.int64, device=device), flat=flat)
+
+
+#: the dtype of each TrackState leaf
+_STATE_DTYPES = {**dict.fromkeys(TrackState._fields, torch.int64), "carr_phase": torch.int32,
+                 **dict.fromkeys(STATE_F64, torch.float64),
+                 **dict.fromkeys(_F32_FIELDS, torch.float32)}
+
+
+def stack_state(state: TrackState, s: Stack) -> Stack:
+    """Write ``state`` into ``s``; a leaf of another dtype than
+    TrackState's raises ValueError (the stack would cast it)."""
+    bad = [f for f, v in zip(TrackState._fields, state) if v.dtype != _STATE_DTYPES[f]]
+    if bad:
+        raise ValueError(f"state leaves {bad}: expected {[_STATE_DTYPES[f] for f in bad]}")
+    torch.stack([getattr(state, f).to(torch.int64) for f in STATE_I64], out=s.si)
+    torch.stack([getattr(state, f) for f in STATE_F64], out=s.sf)
+    torch.stack([getattr(state, f) for f in _F32_FIELDS], out=s.sa)
+    return s
+
+
+def unstack_state(s: Stack, block_base: torch.Tensor) -> TrackState:
+    leaves = dict(zip(STATE_I64, s.si))
+    leaves["carr_phase"] = leaves["carr_phase"].to(torch.int32)
+    leaves.update(zip(STATE_F64, s.sf))
+    leaves.update(zip(_F32_FIELDS, s.sa))
+    return TrackState(block_base=block_base, **leaves)
+
+
+def ms_outputs(abs_sample, of64, of32) -> MsOutputs:
+    """MsOutputs of B1's outputs (views; the planes on axis -3)."""
+    outs = dict(zip(OUT_F64, of64.unbind(-3)))
+    outs.update(zip(OUT_F32, of32.unbind(-3)))
+    return MsOutputs(absolute_sample=abs_sample, **outs)
 
 
 @dataclass
@@ -295,6 +394,99 @@ def capture_words(signal: torch.Tensor) -> torch.Tensor:
     return sig.view(torch.int32)
 
 
+def _kernel_entry(build, block):
+    """The stacked launcher of the main path's kernel wrappers: megakernel's
+    ``track_block_stacked`` where (build, block) is (build_frames,
+    track_block), ``track_block_fused_stacked`` where it is (None,
+    track_block_fused), with the keyword options ``block`` may carry (a
+    ``functools.partial``); None for anything else."""
+    from softgnss_tpu_torch.track import megakernel as mk
+
+    kw = {}
+    if isinstance(block, functools.partial) and not block.args:
+        block, kw = block.func, block.keywords
+    entry = {(mk.build_frames, mk.track_block): mk.track_block_stacked,
+             (None, mk.track_block_fused): mk.track_block_fused_stacked}.get((build, block))
+    return entry and functools.partial(entry, **kw)
+
+
+def _through(block, block_base: torch.Tensor):
+    """``block`` (a state in, a state out) as a stacked launcher, with the
+    signature of megakernel.track_block_stacked."""
+    def entry(src, starts, s_in: Stack, s_out: Stack, out: BlockOut, *args):
+        st, ys, ovf = block(src, starts, unstack_state(s_in, block_base), *args)
+        stack_state(st, s_out)
+        out.abs_sample.copy_(ys.absolute_sample)
+        torch.stack([getattr(ys, f) for f in OUT_F64], out=out.of64)
+        torch.stack([getattr(ys, f) for f in OUT_F32], out=out.of32)
+        out.ovf.copy_(ovf)
+
+    return entry
+
+
+class _GraphPool:
+    """Per CUDA device, kept across calls: the side stream the block graphs
+    are captured on, the pool of their memory and the event after the last
+    replay from it.  The pool is that of ``anchor``, a graph of one fill
+    captured once and never replayed: while it lives, torch's allocators
+    keep the pool, so that each capture reuses the memory the last one's
+    graph held, and asks the card for none."""
+
+    def __init__(self, index: int):
+        self.side = torch.cuda.Stream(index)
+        self.anchor = torch.cuda.CUDAGraph()
+        with torch.cuda.device(index), torch.cuda.stream(self.side):
+            self.anchor.capture_begin(capture_error_mode="thread_local")
+            torch.zeros(1, device=torch.device("cuda", index))
+            self.anchor.capture_end()
+        self.id = self.anchor.pool()
+        self.last = None
+
+
+_GRAPH_POOLS: dict = {}
+
+
+class _BlockGraph:
+    """``step`` captured once in a CUDA graph on ``device``'s side stream,
+    from its pool (:class:`_GraphPool`).  :meth:`replay` launches it on the
+    current stream and counts its kernels on their wrappers' ``launches``
+    (the capture itself launches nothing)."""
+
+    def __init__(self, step, device):
+        from softgnss_tpu_torch.track import megakernel as mk
+
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        if index not in _GRAPH_POOLS:
+            _GRAPH_POOLS[index] = _GraphPool(index)
+        self.pool = _GRAPH_POOLS[index]
+        wrappers = (mk.build_frames, mk.track_block, mk.track_block_fused)
+        before = [w.launches for w in wrappers]
+        self.stream = torch.cuda.current_stream(index)
+        self.graph = torch.cuda.CUDAGraph()
+        self.pool.side.wait_stream(self.stream)
+        with torch.cuda.device(index), torch.cuda.stream(self.pool.side):
+            self.graph.capture_begin(pool=self.pool.id, capture_error_mode="thread_local")
+            try:
+                step()
+            finally:
+                self.graph.capture_end()
+        self.counts = [(w, w.launches - n) for w, n in zip(wrappers, before) if w.launches != n]
+        for w, n in self.counts:
+            w.launches -= n
+        if self.pool.last is not None:     # the pool's last graph may still run elsewhere
+            self.stream.wait_event(self.pool.last)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for w, n in self.counts:
+            w.launches += n
+
+    def done(self) -> None:
+        """Mark the pool's memory free once the replays issued so far end."""
+        self.pool.last = torch.cuda.Event()
+        self.pool.last.record(self.stream)
+
+
 def track_segments(config: ReceiverConfig, words, state: TrackState, code_pads,
                   carr_basis, active, n_ms: int, start_ms: int,
                   build, block):
@@ -306,12 +498,24 @@ def track_segments(config: ReceiverConfig, words, state: TrackState, code_pads,
     version) that takes the word view and the (C,) frame word offsets in
     place of frames and frame starts.  ``words``: the capture's int32 word
     view (:func:`capture_words`).
+
+    Every segment runs one step on the state stacked as B1 reads it
+    (:class:`Stack`), kept in buffers made before the first segment.  On
+    CUDA tensors with the main path's kernel wrappers (``block`` may carry
+    keyword options) the step launches their stacked entries
+    (:func:`_kernel_entry`); anything else (CPU tensors, the plain
+    versions) runs through ``block`` itself.  A full block's step writes
+    its outputs at a block counter kept on the device.  Where the kernel
+    wrappers run at least two full blocks, the first runs eagerly, the step
+    is captured once in a CUDA graph (:class:`_BlockGraph`) and every other
+    full block is a replay of it; the graph is dropped at the end of the
+    call, and nothing returned lies in its memory.
     Returns (final_state, MsOutputs of (n_ms, C) leaves, (C,) overflow).
-    ``track_segments.calls`` counts calls and ``track_segments.segments``
-    the segments they issued (lead, full and tail); the loop is the
-    ``track.loop`` span (profiling.trace)."""
-    spc = config.samples_per_code
-    spc_w = spc // 4
+    ``track_segments.calls`` counts calls, ``.segments`` the segments they
+    issued (lead, full and tail) and ``.graph_blocks`` the full blocks
+    issued by graph replays; the loop is the ``track.loop`` span
+    (profiling.trace) and a capture the ``track.capture`` span inside it."""
+    spc_w = config.samples_per_code // 4
     win_w = config.track_window // 4
     pre = config.track_frame_pre
     B = max(1, config.track_block_ms)
@@ -319,43 +523,85 @@ def track_segments(config: ReceiverConfig, words, state: TrackState, code_pads,
     lead = min(B - phase, n_ms) if phase else 0
     n_full = (n_ms - lead) // B
     r_tail = n_ms - lead - n_full * B
+    dev, c = words.device, state.ptr.shape[0]
 
-    def segment(st, base, p0: int, r: int):
+    block_base = state.block_base.clone()     # the frame anchor of the segment in progress
+    s_in, s_out = stack_state(state, new_stack(c, dev)), new_stack(c, dev)
+    entry = _kernel_entry(build, block) if dev.type == "cuda" else None
+    graphed = entry is not None and n_full >= 2
+    entry = entry or _through(block, block_base)
+    ys = new_block_out(n_ms, c, dev)          # ys.ovf: the largest overflow so far
+    ys.ovf.zero_()
+
+    def segment(p0: int, r: int, out: BlockOut):
         # frame (j, c) starts at word base//4 + (p0+j)*spc/4: a function of
         # the absolute ms, so a resumed run rebuilds the same frames
-        start_w = torch.div(base, 4, rounding_mode="floor") + p0 * spc_w
+        start_w = torch.div(block_base, 4, rounding_mode="floor")
+        if p0:
+            start_w = start_w + p0 * spc_w
         # inactive channels' pointers freeze: keep their (never read)
         # frames on an active channel's span
         any_act = torch.where(active, start_w, 0).max()
         start_w = torch.where(active, start_w, any_act)
         if build is None:
-            return block(words, start_w, st, code_pads, carr_basis, active, config, r)
-        frames = build(words, start_w, r, win_w, spc_w)
-        return block(frames, 4 * start_w, st, code_pads, carr_basis, active,
-                     config, r)
+            entry(words, start_w, s_in, s_out, out, code_pads, carr_basis, active, config, r)
+        else:
+            entry(build(words, start_w, r, win_w, spc_w), 4 * start_w, s_in, s_out, out,
+                  code_pads, carr_basis, active, config, r)
+        s_in.flat.copy_(s_out.flat)
+        torch.maximum(ys.ovf, out.ovf, out=ys.ovf)
 
-    st = state
-    parts, ovfs = [], []
-    plan = ([("lead", phase, lead)] if lead else []) + [("block", 0, B)] * n_full \
-        + ([("block", 0, r_tail)] if r_tail else [])
+    def place(out: BlockOut, at: int, r: int):
+        ys.abs_sample[at:at + r].copy_(out.abs_sample)
+        ys.of64[:, at:at + r].copy_(out.of64)
+        ys.of32[:, at:at + r].copy_(out.of32)
+
     track_segments.calls += 1
-    track_segments.segments += len(plan)
+    track_segments.segments += (lead > 0) + n_full + (r_tail > 0)
     with trace("track.loop"):
-        for kind, p0, r in plan:
-            if kind == "lead":   # finish the grid block a resumed run stopped in
-                base = st.block_base
-            else:
-                base = st.ptr - pre
-                st = st._replace(block_base=base)
-            st, ys, ovf = segment(st, base, p0, r)
-            parts.append(ys)
-            ovfs.append(ovf)
-    ys = MsOutputs(*[torch.cat(leaf) for leaf in zip(*parts)])
-    return st, ys, torch.stack(ovfs).amax(0)
+        if lead:     # finish the grid block a resumed run stopped in
+            out = new_block_out(lead, c, dev)
+            segment(phase, lead, out)
+            place(out, 0, lead)
+        if n_full:
+            blk = new_block_out(B, c, dev)
+            hist, (h_abs, h64, h32) = _packed(_out_parts(B, c), (n_full,), dev)
+            k = torch.zeros(1, dtype=torch.int64, device=dev)
+
+            def full_block():
+                torch.sub(s_in.si[0], pre, out=block_base)
+                segment(0, B, blk)
+                hist.index_copy_(0, k, blk.flat[None])
+                k.add_(1)
+
+            full_block()          # eagerly: it also warms every path a capture records
+            step = full_block
+            if graphed:
+                with trace("track.capture"):
+                    graph = _BlockGraph(full_block, dev)
+                step = graph.replay
+            for _ in range(n_full - 1):
+                step()
+            if graphed:
+                graph.done()
+                track_segments.graph_blocks += n_full - 1
+                del graph, step
+            rows = slice(lead, lead + n_full * B)
+            ys.abs_sample[rows].view(n_full, B, c).copy_(h_abs)
+            ys.of64[:, rows].view(len(OUT_F64), n_full, B, c).copy_(h64.transpose(0, 1))
+            ys.of32[:, rows].view(len(OUT_F32), n_full, B, c).copy_(h32.transpose(0, 1))
+        if r_tail:
+            torch.sub(s_in.si[0], pre, out=block_base)
+            out = new_block_out(r_tail, c, dev)
+            segment(0, r_tail, out)
+            place(out, n_ms - r_tail, r_tail)
+    return (unstack_state(s_in, block_base), ms_outputs(ys.abs_sample, ys.of64, ys.of32),
+            ys.ovf)
 
 
 track_segments.calls = 0
 track_segments.segments = 0
+track_segments.graph_blocks = 0
 
 
 def track_ms(config: ReceiverConfig, signal, state: TrackState, code_pads, carr_basis,

@@ -56,9 +56,11 @@ def _readings(timings=JOBS, tr=None):
 
 @pytest.fixture
 def counters(monkeypatch):
-    """Three tracking calls of two blocks each in this process."""
+    """Three tracking calls of two blocks each in this process, the second
+    block of each a graph replay."""
     monkeypatch.setattr(scan.track_segments, "calls", 3)
     monkeypatch.setattr(scan.track_segments, "segments", 6)
+    monkeypatch.setattr(scan.track_segments, "graph_blocks", 3)
 
 
 def read(name, r):
@@ -81,6 +83,44 @@ def test_a_span_reader_takes_the_mean_over_the_jobs(name):
     key = SPANS[name]
     assert read(name, _readings()) == pytest.approx((JOBS[0][key] + JOBS[1][key]) / 2)
     assert read(name, _readings(timings=[])) is None
+
+
+def test_graph_share_entry_is_the_reader_beside_it():
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entry = next(m for m in bench["per_layer"] if m["name"] == "track_graph_share")
+    mod = registry.metric("track_graph_share")
+    assert (mod.LAYER, mod.UNIT, mod.MOVES) == (entry["layer"], entry["unit"], entry["moves"])
+    assert entry["moves"] == "capture_rate" and "workloads" not in entry
+    assert entry["source"] == "program_span" and entry["better"] == "higher"
+    assert bench["per_layer"][-1] is entry
+
+
+@pytest.mark.parametrize("graph_blocks,want", [(3, 50.0), (0, 0.0)])
+def test_graph_share_reads_the_counters(counters, monkeypatch, graph_blocks, want):
+    """The replayed blocks over every segment, 0 where nothing was replayed
+    (the CPU), with or without a trace."""
+    monkeypatch.setattr(scan.track_segments, "graph_blocks", graph_blocks)
+    assert read("track_graph_share", _readings()) == pytest.approx(want)
+    assert read("track_graph_share", _readings(tr=_trace())) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("calls,segments", [(0, 0), (2, 0)])
+def test_graph_share_reads_nothing_without_a_call(counters, monkeypatch, calls, segments):
+    monkeypatch.setattr(scan.track_segments, "calls", calls)
+    monkeypatch.setattr(scan.track_segments, "segments", segments)
+    assert read("track_graph_share", _readings()) is None
+
+
+def test_graph_share_reads_nothing_on_a_program_without_the_counter(counters, monkeypatch):
+    """The parent's tree counts calls and segments but not graph blocks; an
+    older one has no counters, and a run may have no program at all."""
+    monkeypatch.delattr(scan.track_segments, "graph_blocks")
+    assert read("track_graph_share", _readings()) is None
+    for attr in ("calls", "segments"):
+        monkeypatch.delattr(scan.track_segments, attr)
+    assert read("track_graph_share", _readings()) is None
+    monkeypatch.setitem(sys.modules, "softgnss_tpu_torch.track.scan", None)
+    assert read("track_graph_share", _readings()) is None
 
 
 def test_host_time_per_block(counters):

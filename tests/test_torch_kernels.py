@@ -40,15 +40,15 @@ def test_build_frames_zero_fill():
     np.testing.assert_array_equal(frames.numpy(), want)
 
 
-def _scenario(device, n_ch: int = 3):
+def _scenario(device, n_ch: int = 3, ms: int = 100, seed: int = 4):
     """Three satellites on ``n_ch`` channels (each satellite on every third
-    channel), the second channel idle."""
+    channel), the second channel idle; an ``ms``-long capture."""
     cfg = sgt.fast_config(number_of_channels=n_ch, track_block_ms=16)
     sats = [SatelliteSignal(prn=p, doppler_hz=d, delay_samples=float(s), phase0=ph,
                             amplitude=2.0, nav_bits=(1, -1, -1, 1))
             for p, d, s, ph in ((5, 1200.0, 333, 0.4), (11, -2500.0, 1777, 2.1),
                                 (20, 400.0, 40, 5.0))]
-    sig = synthesize_signal(cfg, sats, 100, noise_std=4.0, seed=4, device=device)
+    sig = synthesize_signal(cfg, sats, ms, noise_std=4.0, seed=seed, device=device)
     on = [sats[i % 3] for i in range(n_ch)]
     ch = Channels(prn=np.asarray([s.prn for s in on]),
                   acquired_freq=np.asarray([cfg.intermediate_freq + s.doppler_hz for s in on]),
@@ -385,3 +385,87 @@ def test_correlate_ms_in_a_cuda_graph_on_card(cuda_device):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, want)
+
+
+#: the block routes whose full blocks replay a CUDA graph on the card
+GRAPH_ROUTES = {"B2+B1": (mk.build_frames, mk.track_block), "B3": (None, mk.track_block_fused)}
+
+
+def _calls(cfg, sig, ch, build, block, calls):
+    """``scan.track_segments`` over ``calls`` ms, each call resuming the
+    last: [(final state, outputs, overflow)] of each call, on the card."""
+    words = scan.capture_words(sig)
+    tables = scan.channel_tables(ch, sig.device)
+    st, start, out = scan.initial_state(cfg, ch, sig.device), 0, []
+    for n in calls:
+        st, ys, ovf = scan.track_segments(cfg, words, st, *tables, n, start, build, block)
+        out.append((st, ys, ovf))
+        start += n
+    return out
+
+
+def _leaves(calls) -> list:
+    return [v for st, ys, ovf in calls for v in (*st, *ys, ovf)]
+
+
+def _assert_bit_equal(got, want):
+    names = [f"call {i}: {f}" for i in range(len(got))
+             for f in scan.TrackState._fields + scan.MsOutputs._fields + ("overflow",)]
+    for name, a, b in zip(names, _leaves(got), _leaves(want), strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(GRAPH_ROUTES))
+def test_graph_route_is_bit_equal_to_the_eager_route_on_card(cuda_device, route):
+    """Full blocks replayed from a CUDA graph against the same kernels
+    issued block by block (the wrapper wrapped, so that no graph engages):
+    every output leaf, the final state and the overflow of a first call (2
+    full blocks and a 5-ms tail) and a resumed one (an 11-ms lead, 7 full
+    blocks, a 7-ms tail), an idle channel among four; each kernel launch
+    counted once per segment either way."""
+    cfg, sig, ch = _scenario(cuda_device, 4, ms=200)
+    build, block = GRAPH_ROUTES[route]
+
+    def eager(*args, **kwargs):
+        return block(*args, **kwargs)
+
+    runs = {}
+    for label, fn in (("graph", block), ("eager", eager)):
+        before = (scan.track_segments.graph_blocks, block.launches)
+        runs[label] = _calls(cfg, sig, ch, build, fn, (37, 130))
+        torch.cuda.synchronize()
+        runs[label + " counts"] = (scan.track_segments.graph_blocks - before[0],
+                                   block.launches - before[1])
+    assert runs["graph counts"] == (1 + 6, 3 + 9)
+    assert runs["eager counts"] == (0, 3 + 9)
+    assert all(int(ovf.max()) == 0 for _, _, ovf in runs["graph"])
+    _assert_bit_equal(runs["graph"], runs["eager"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", sorted(GRAPH_ROUTES))
+def test_graph_results_survive_the_next_call_on_card(cuda_device, route):
+    """Two calls on different captures back to back: the first call's
+    outputs and state, kept on the card, are unchanged by the second (no
+    alias of a graph's memory, no stale pointer), and each call is
+    bit-equal to the eager route's; the second capture takes no new memory
+    from the card."""
+    build, block = GRAPH_ROUTES[route]
+
+    def eager(*args, **kwargs):
+        return block(*args, **kwargs)
+
+    scenes = [_scenario(cuda_device, 4, ms=200, seed=seed) for seed in (4, 9)]
+    first = _calls(*scenes[0], build, block, (130,))
+    kept = [v.clone() for v in _leaves(first)]
+    reserved = torch.cuda.memory_reserved()
+    second = _calls(*scenes[1], build, block, (130,))
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_reserved() == reserved     # the capture reused the pool's memory
+    for a, b in zip(_leaves(first), kept, strict=True):
+        assert torch.equal(a, b)
+    _assert_bit_equal(first, _calls(*scenes[0], build, eager, (130,)))
+    _assert_bit_equal(second, _calls(*scenes[1], build, eager, (130,)))
+    assert not torch.equal(first[0][1].i_p, second[0][1].i_p)

@@ -1,7 +1,8 @@
 """The port's spans and counters inside a job: ``trace()`` regions inside a
 ``StageTimer`` stage land in ``timings_s`` as ``<stage>.<part>`` host times
-without waiting for the device, and ``track_segments`` counts its calls and
-the segments they issue."""
+without waiting for the device, and ``track_segments`` counts its calls,
+the segments they issue and, on the card, the blocks graph replays issue
+(none on the CPU)."""
 
 import numpy as np
 import pytest
@@ -28,9 +29,13 @@ def job():
     sats = [SatelliteSignal(prn=12, doppler_hz=2100.0, delay_samples=777.0),
             SatelliteSignal(prn=29, doppler_hz=-3300.0, delay_samples=3001.0)]
     sig = synthesize_signal(cfg, sats, 320, noise_std=2.0, seed=42, device="cpu")
-    calls, segments = track_segments.calls, track_segments.segments
+    before = _counters()
     res = run_receiver(cfg, signal=sig, n_ms=200, navigate=False, device="cpu")
-    return cfg, sig, res, (track_segments.calls - calls, track_segments.segments - segments)
+    return cfg, sig, res, tuple(a - b for a, b in zip(_counters(), before))
+
+
+def _counters():
+    return track_segments.calls, track_segments.segments, track_segments.graph_blocks
 
 
 def test_a_job_holds_each_stage_and_its_parts(job):
@@ -50,7 +55,7 @@ def test_the_parts_of_a_stage_fit_inside_it(job, stage):
 def test_a_job_counts_one_call_and_its_segments(job):
     cfg = job[0]
     assert cfg.track_block_ms == 64
-    assert job[3] == (1, 4)                                 # 64, 64, 64, then 8
+    assert job[3] == (1, 4, 0)                      # 64, 64, 64, then 8; no graph on the CPU
 
 
 @pytest.mark.parametrize("first_ms,then_ms,segments", [
@@ -63,11 +68,12 @@ def test_the_counters_follow_the_plan(job, first_ms, then_ms, segments):
     got = []
     state = None
     for n in (first_ms, then_ms):
-        calls, segs = track_segments.calls, track_segments.segments
+        before = _counters()
         out = track(cfg, sig, res.channels, n_ms=n, state=state, device="cpu")
         state = out.final_state
-        assert track_segments.calls - calls == 1
-        got.append(track_segments.segments - segs)
+        calls, segs, graph_blocks = (a - b for a, b in zip(_counters(), before))
+        assert (calls, graph_blocks) == (1, 0)
+        got.append(segs)
     assert tuple(got) == segments
 
 
