@@ -24,7 +24,9 @@ a CUDA tensor either launches the kernel or raises.  B1 and B3 also have
 an entry on the stacked state (:func:`track_block_stacked`,
 :func:`track_block_fused_stacked`: CUDA tensors only, into buffers the
 caller made), which the block loop issues and captures in a CUDA graph.
-``wrapper.launches`` counts kernel launches, a graph's replays included.
+``wrapper.launches`` counts kernel launches, a graph's replays included;
+``build_frames.ragged_rows`` counts the frames B2 wrote that start or end
+off a 16-byte line (:func:`ragged_rows`).
 The kernels are compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with
 a plain C interface under ``softgnss_tpu_torch/_build/<source hash>/``
@@ -457,10 +459,26 @@ def build_frames(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int,
                             starts_w, r, win_w, spc_w, int(plan.union), plan.group_w, plan.buf_w,
                             plan.part_w, plan.threads, plan.smem_bytes)
     build_frames.launches += 1
+    build_frames.ragged_rows += ragged_rows(frames.data_ptr(), r * starts_w.shape[0], win_w)
     return frames
 
 
 build_frames.launches = 0
+build_frames.ragged_rows = 0
+
+
+def ragged_rows(base: int, rows: int, win_w: int) -> int:
+    """Of ``rows`` frames of ``win_w`` words laid end to end from byte
+    address ``base``, how many start or end off a 16-byte line.  B2
+    writes such a frame's words before its first and after its last line
+    edge one by one (the scalar head and tail of ``write_cols``), and B1
+    stages its windows through the lines it shares with its neighbours
+    (``span_of``'s offset and rounded end).  None where the window is
+    whole int4s on an aligned buffer (38 192 samples a ms: 9 580 words);
+    every frame at 4 110 words (16 367.6 samples a ms)."""
+    row = 4 * win_w
+    return sum((base + k * row) % 16 != 0 or (base + (k + 1) * row) % 16 != 0
+               for k in range(rows))
 
 
 def _launch_frames(name: str, entry, cap_words, starts_w, r: int, win_w: int,

@@ -154,24 +154,37 @@ def test_a_hull_past_the_buffer_takes_the_channels_in_rounds(buf_w):
         assert max(w.step for w in u.writes) == -(-n_ch // per_round) - 1
 
 
+def _giove16():
+    """The front end of SoftGNSS's second data set: fs 16.3676 MHz, IF
+    4.1304 MHz (gnss_bench/configs/giove16.json)."""
+    return sgt.default_config(sampling_freq=16_367_600.0, intermediate_freq=4_130_400.0)
+
+
 @pytest.mark.parametrize("union", [True, False], ids=["union", "per-channel"])
-@pytest.mark.parametrize("name", ["default", "fast"])
+@pytest.mark.parametrize("name", ["default", "fast", "giove16"])
 def test_walk_at_the_receivers_geometry(name, union):
-    """One 64-ms block of 8 channels at the reference (9 580-word windows)
-    and the fast front end (1 033 words: not whole int4s) at the default
-    plan, a capture 4 bytes past a 16-byte boundary: the plain frames,
+    """One 64-ms block of 8 channels at the reference (9 580-word windows),
+    the fast front end (1 033 words: not whole int4s) and the 16.3676-MHz
+    one (4 110 words, 4 092 a ms) at the default plan, a capture 4 bytes
+    past a 16-byte boundary: the plain frames,
     each word once; with union every CTA stages the hull of its columns
     once, in parts of about part_w words laid end to end, without it each
-    channel's columns."""
-    cfg = sgt.default_config() if name == "default" else sgt.fast_config()
+    channel's columns.  Words are written one by one (a scalar head or
+    tail) in exactly the frames that ragged_rows counts: none at the
+    reference, every frame at the other two."""
+    cfg = {"default": sgt.default_config, "fast": sgt.fast_config,
+           "giove16": _giove16}[name]()
     r, n_ch = 64, 8
     win_w, spc_w = cfg.track_window // 4, cfg.samples_per_code // 4
     cap, starts = _inputs(r, n_ch, win_w, spc_w, 7)
     plan = mk.frames_plan(r, n_ch, win_w, spc_w, union=union)
-    assert plan.groups == (2 if name == "default" else 1)
+    assert plan.groups == (1 if name == "fast" else 2)
     got, count, units = _replay(plan, cap, starts, 1, r, win_w, spc_w)
     np.testing.assert_array_equal(got, _plain(cap, starts, r, win_w, spc_w))
     assert np.all(count == 1)
+    ragged = {u.j * n_ch + w.d for u in units for w in u.writes if w.head or w.tail}
+    assert len(ragged) == mk.ragged_rows(0, r * n_ch, win_w)
+    assert len(ragged) == (0 if name == "default" else r * n_ch)
     for u in units:
         assert u.hull == union
         h_lo = starts.min() + u.j * spc_w + u.g_lo
@@ -241,13 +254,28 @@ def test_cpu_wrappers_take_the_plain_version_and_count_no_launch():
     """On CPU tensors B2 and its first design run the plain version (a plan
     is ignored) and count no launch."""
     args = s3.frame_args(3, 4, "cpu", edges=True, lead=3)
-    before = (mk.build_frames.launches, s3.build_frames_word.launches)
+    before = (mk.build_frames.launches, mk.build_frames.ragged_rows,
+              s3.build_frames_word.launches)
     want = mk.build_frames_plain(*args)
     plan = mk.frames_plan(4, 3, args[3], args[4], union=False)
     assert torch.equal(mk.build_frames(*args), want)
     assert torch.equal(mk.build_frames(*args, plan=plan), want)
     assert torch.equal(s3.build_frames_word(*args), want)
-    assert (mk.build_frames.launches, s3.build_frames_word.launches) == before
+    assert (mk.build_frames.launches, mk.build_frames.ragged_rows,
+            s3.build_frames_word.launches) == before
+
+
+@pytest.mark.parametrize("base, rows, win_w, want", [
+    (0, 512, 9580, 0), (512, 512, 9580, 0), (0, 512, 4110, 512), (0, 1, 4110, 1),
+    (0, 4, 1033, 4), (0, 3, 4, 0), (8, 3, 4, 3), (4, 2, 3, 2)],
+    ids=["ref38", "ref38_at_512", "giove16", "giove16_one", "fast", "whole_int4s",
+         "base_off_a_line", "base_and_rows_off"])
+def test_ragged_rows_counts_the_frames_off_a_line(base, rows, win_w, want):
+    """A frame is ragged when its first or its end byte is off a 16-byte
+    line: at 4 110 words every frame is (one starts on a line and ends 8
+    bytes past one, the next the other way round); at 9 580 none is.  A
+    frame whose bytes are not whole lines leaves every frame ragged."""
+    assert mk.ragged_rows(base, rows, win_w) == want
 
 
 def test_s3_frame_args_keep_the_words_at_every_lead():
@@ -296,11 +324,12 @@ def cuda_device():
 @pytest.mark.parametrize("lead", [0, 1, 2, 3], ids=lambda v: f"lead{4 * v}")
 def test_bulk_kernel_matches_plain_on_card(cuda_device, lead, union):
     """The bulk kernel bit-equal to the plain version at r = 64, 1 and 8,
-    C = 1, 8 and 12, the reference and the fast geometry, frames past both
-    capture ends, small parts (many per hull), one and many column groups,
-    a buffer too small for the hull (rounds), one wide enough for the
-    edge starts and the default plan."""
-    for cfg in (sgt.default_config(), sgt.fast_config()):
+    C = 1, 8 and 12, the reference, the fast and the 16.3676-MHz geometry
+    (ragged_rows counting no frame at the first, every frame at the other
+    two), frames past both capture ends, small parts (many per hull), one
+    and many column groups, a buffer too small for the hull (rounds), one
+    wide enough for the edge starts and the default plan."""
+    for cfg in (sgt.default_config(), sgt.fast_config(), _giove16()):
         for r, n_ch in ((64, 8), (1, 12), (8, 1), (8, 12)):
             args = s3.frame_args(n_ch, r, cuda_device, edges=n_ch > 1, lead=lead, config=cfg)
             want = mk.build_frames_plain(*args)
@@ -310,7 +339,10 @@ def test_bulk_kernel_matches_plain_on_card(cuda_device, lead, union):
                 plan = mk.frames_plan(r, n_ch, args[3], args[4], union=union, part_w=part_w,
                                       ctas_per_sm=per_sm, spread_w=spread_w,
                                       n_sm=mk.sm_count(0))
+                before = mk.build_frames.ragged_rows
                 assert torch.equal(mk.build_frames(*args, plan=plan), want), (r, n_ch, plan)
+                assert mk.build_frames.ragged_rows - before == (
+                    0 if cfg.track_window % 16 == 0 else r * n_ch)
     torch.cuda.synchronize()
 
 

@@ -424,7 +424,8 @@ def test_graph_route_is_bit_equal_to_the_eager_route_on_card(cuda_device, route)
     every output leaf, the final state and the overflow of a first call (2
     full blocks and a 5-ms tail) and a resumed one (an 11-ms lead, 7 full
     blocks, a 7-ms tail), an idle channel among four; each kernel launch
-    counted once per segment either way."""
+    counted once per segment either way, and B2's frames (1 033 words: none
+    whole 16-byte lines) on ``build_frames.ragged_rows`` once each."""
     cfg, sig, ch = _scenario(cuda_device, 4, ms=200)
     build, block = GRAPH_ROUTES[route]
 
@@ -433,13 +434,16 @@ def test_graph_route_is_bit_equal_to_the_eager_route_on_card(cuda_device, route)
 
     runs = {}
     for label, fn in (("graph", block), ("eager", eager)):
-        before = (scan.track_segments.graph_blocks, block.launches)
+        before = (scan.track_segments.graph_blocks, block.launches,
+                  mk.build_frames.ragged_rows)
         runs[label] = _calls(cfg, sig, ch, build, fn, (37, 130))
         torch.cuda.synchronize()
         runs[label + " counts"] = (scan.track_segments.graph_blocks - before[0],
-                                   block.launches - before[1])
-    assert runs["graph counts"] == (1 + 6, 3 + 9)
-    assert runs["eager counts"] == (0, 3 + 9)
+                                   block.launches - before[1],
+                                   mk.build_frames.ragged_rows - before[2])
+    rows = (37 + 130) * 4 if build is not None else 0
+    assert runs["graph counts"] == (1 + 6, 3 + 9, rows)
+    assert runs["eager counts"] == (0, 3 + 9, rows)
     assert all(int(ovf.max()) == 0 for _, _, ovf in runs["graph"])
     _assert_bit_equal(runs["graph"], runs["eager"])
 
