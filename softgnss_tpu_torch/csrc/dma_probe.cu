@@ -46,7 +46,7 @@
 // partials in shared memory; ONE cluster barrier at the end of the launch,
 // rank 0 reads the kN ranks' partials through distributed shared memory in
 // rank order and writes sums, and a last barrier keeps the peers resident
-// while it reads.  The per-ms cluster barrier B1 pays is what S5 ``acc``
+// while it reads.  B1's per-ms handoff of the partials is what S5 ``acc``
 // measures, not this probe.
 //
 // The launch plan (kN, threads per CTA, chunk, slot bytes, dynamic shared

@@ -23,11 +23,11 @@
 //            stores its partial into rank 0's shared memory by st.async,
 //            completing on rank 0's mbarrier, and a consumer warp of rank
 //            0 frees the slot with a remote mbarrier arrive: no cluster
-//            barrier per rep.  B1's own pattern (one cluster barrier per
+//            barrier per rep.  B1's former handoff (one cluster barrier per
 //            rep, parity slots, probe_acc_parity_kernel) and the first
 //            design (two cluster.sync() per rep, probe_acc_sync_kernel)
 //            stay to be timed beside it (section 2).  ``reps`` repeats the
-//            step: its cost per rep is the handoff B1's cluster pays per ms;
+//            step: its cost per rep is a handoff a cluster pays per ms;
 //   conv   — __int2float_rn, elementwise, 16-byte vectors, a grid sized
 //            by the wrapper's plan (probe_conv_kernel); the first design,
 //            a grid-stride loop of 4-byte loads, is kept as
@@ -133,7 +133,7 @@ probe_grid_loop_kernel(const float* __restrict__ x, float* __restrict__ o) {
 //                             A producer/consumer ring: one cluster barrier
 //                             at the start (the mbarriers initialised),
 //                             none per rep;
-//   probe_acc_parity_kernel — B1's pattern (track_block.cu): each rank
+//   probe_acc_parity_kernel — B1's former handoff: each rank
 //                             writes its partials into its own slot of the
 //                             rep's parity, ONE cluster barrier per rep,
 //                             rank 0 reads the ranks' slots through DSMEM;
@@ -724,7 +724,7 @@ extern "C" int sg_probe_acc(const void* x, void* o, int reps, void* stream) {
   return last_error();
 }
 
-// B1's design (one cluster barrier per rep, parity slots); as sg_probe_acc
+// B1's former handoff (one cluster barrier per rep, parity slots); as sg_probe_acc
 extern "C" int sg_probe_acc_parity(const void* x, void* o, int reps, void* stream) {
   probe_acc_parity_kernel<<<kCluster, kBlockRows * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(o), reps);

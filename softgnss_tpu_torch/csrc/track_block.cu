@@ -22,9 +22,9 @@
 // recurrence is sequential (each ms's NCO rates come from the last ms's
 // filters), and one ms of one channel is only ~38k samples (~90 ops
 // each).  Spread over a cluster the sample loop shrinks as 1/kN; what
-// stays is the step every ms pays in series: the CTA reduction, one
-// cluster barrier, the DSMEM read of the partials and the single-thread
-// float64 filters (atan, sqrt, divides).
+// stays is the step every ms pays in series: the CTA reduction, the
+// handoff of the ranks' partials and the float64 filters (atan, sqrt,
+// divides) up to the next ms's NCO steps.
 //
 // Design.  Channel c is the cluster of CTAs c*kN .. c*kN + kN-1 (a 1-D
 // grid of C*kN CTAs, cluster dimension kN, launched by cudaLaunchKernelEx);
@@ -40,23 +40,38 @@
 //     and ms j is summed.
 //   * Reduction in a fixed order: float64 per thread, warp shuffles, then
 //     lane f < 6 of warp 0 sums f over the CTA's warps in order into this
-//     rank's 6-double partial, kept in the slot of the ms's parity; ONE
-//     cluster barrier per ms; then lane f reads the kN partials through DSMEM
-//     (map_shared_rank) in rank order 0..kN-1, and each sum is rounded once
-//     to float32.
-//   * Every rank's thread 0 runs the float64 filters itself: the ranks have
-//     the same inputs and code (built with -fmad=false), so they carry the
-//     same loop state and nothing is broadcast.  The parity slots keep a
-//     fast rank from overwriting partials a slow rank still reads: no rank
-//     passes ms j+1's barrier before every rank has read ms j's partials.
-//     Only rank 0 writes the per-ms outputs and the final state; one last
-//     cluster barrier keeps shared memory alive while peers read it.
+//     rank's 6-double partial.
+//   * Handoff by a one-sided all-to-all push, no cluster barrier per ms:
+//     every rank keeps an inbox in its own shared memory, ``part[2][kN][6]``
+//     (slot j & 1) with one mbarrier per slot.  Warp 0 stores the partial
+//     into row ``rank`` of every rank's slot (st.async, 16 bytes a store,
+//     the bytes completing on that rank's slot barrier); each rank arms its
+//     own slot for kN*48 bytes and waits on it by parity, and lane f sums
+//     f over the rows in rank order 0..kN-1, rounded once to float32.  A
+//     peer pushes ms j+2 into slot j & 1 only after this rank pushed ms
+//     j+1, which it does only after reading ms j there: the slots need no
+//     barrier.  One cluster barrier after the barriers' set-up, and one at
+//     the end, keep each rank's shared memory alive while peers push.
+//   * The float64 filters run as two chains side by side, each by the
+//     same operations in the same order as one thread would (built with
+//     -fmad=false): warp 0 takes the carrier, its lanes 0 and 1 the PLL's
+//     and the FLL's atan as one instruction stream, lane 0 the NCO update
+//     and the next ms's carrier step; warp 1's lane 0 the code: the DLL's
+//     magnitudes and divide, the next ms's code step and block length
+//     (``blk`` from a float64 quotient corrected by exact int64 products).
+//     Both warps sum the inbox themselves, so they share no barrier but
+//     the CTA's at the top of the next ms (and, for the carrier-aided DLL
+//     alone, a named barrier that hands warp 1 the new carrier frequency).
+//     Every rank runs the filters itself: the ranks have the same inputs
+//     and code, so they carry the same loop state and nothing is broadcast.
+//     Only rank 0 writes the per-ms outputs and the final state.
 //   * Inactive channels: the whole cluster takes the early exit (rank 0
-//     writes the frozen state and the zeros); no rank waits at a barrier
-//     the others skipped.
+//     writes the frozen state and the zeros); no rank waits on a peer that
+//     skipped.
 // kN = 1 is the one-CTA design of the first port: no cluster, each thread
 // loads its bytes straight from global memory (B3 prefetching the next
-// window into L2), two CTA barriers per ms.  Threads per CTA are a launch
+// window into L2), two CTA barriers per ms; warps 0 and 1 sum the CTA's
+// warps themselves and run the same two filter chains.  Threads per CTA are a launch
 // argument (up to 512); the code table lives in shared memory.
 //
 // B3, the fused block tracker, is the same kernel reading each ms window
@@ -72,8 +87,8 @@
 // Stage ablation (the counterpart of scripts/mega_vmem_bisect.py's
 // ``kern``, which built B1 stage by stage on the TPU): ``kStage`` strips
 // the sample loop at compile time.  kFilters runs no sample loop (the
-// per-ms blk/o step, the barriers, the filter step and the output
-// writes); kLoad adds the staging and the sample loads, summed into i_p;
+// per-ms blk/o step, the barriers and the push, the filter step and the
+// output writes); kLoad adds the staging and the sample loads, summed into i_p;
 // kCarrier adds the carrier NCO and both sin_turns, I/Q sums into i_p and
 // q_p; kFull is B1.  Every stage but kFull runs open loop: the filters run
 // and are written out, but the state keeps its block-input carr_freq and
@@ -157,8 +172,35 @@ __device__ __forceinline__ long long floor_div(long long a, long long b) {
   return q;
 }
 
+// floor_div(a, b), the same integer, without the emulated int64 division
+// where a and b are exact in float64 and b > 0 (a code step always is):
+// the float64 quotient's floor is the true floor or one above it, and one
+// exact int64 product decides which
+__device__ __forceinline__ long long floor_div_pos(long long a, long long b) {
+  constexpr long long kExact = 1LL << 53;
+  if (b <= 0 || b >= kExact || a >= kExact || a <= -kExact) return floor_div(a, b);
+  long long q = static_cast<long long>(floor(static_cast<double>(a) / static_cast<double>(b)));
+  if (q * b > a) --q;
+  return q;
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the shared::cluster address of ``p``'s counterpart in CTA ``rank``
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, unsigned rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+
+// arm the current phase of a local mbarrier of count 1: expect ``bytes``
+// and arrive
+__device__ __forceinline__ void arm(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
 }
 
 __device__ __forceinline__ void wait_bar(uint64_t* bar, uint32_t parity) {
@@ -205,15 +247,33 @@ __device__ __forceinline__ Span span_of(const int8_t* win8, int lo, int hi) {
 // empty span only arrives, so the phase still completes)
 __device__ __forceinline__ void start_bulk(const Span& s, unsigned char* buf, uint64_t* bar) {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");  // after the reads of the last use
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-               "r"(s.bytes)
-               : "memory");
+  arm(bar, static_cast<uint32_t>(s.bytes));
   if (s.bytes > 0)
     asm volatile(
         "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
         " [%0], [%1], %2, [%3];"
         ::"r"(smem_addr(buf)), "l"(s.base), "r"(s.bytes), "r"(smem_addr(bar))
         : "memory");
+}
+
+constexpr unsigned kAll = 0xffffffffu;
+constexpr uint32_t kRowBytes = 6 * sizeof(double);  // one rank's partial of one ms
+
+// One rank's inbox: row q of slot s holds rank q's partial of the ms j
+// with j & 1 == s; bar[s] completes once all kN rows have landed.
+template <int kN>
+struct __align__(16) Inbox {
+  double part[2][kN][6];
+  uint64_t bar[2];
+};
+
+// store (lo, hi) at the shared::cluster address ``dst`` (16-byte aligned),
+// the 16 bytes completing on the mbarrier at ``bar`` in the same CTA
+__device__ __forceinline__ void push2(uint32_t dst, double lo, double hi, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b64 [%0], {%1, %2}, [%3];"
+      ::"r"(dst), "l"(__double_as_longlong(lo)), "l"(__double_as_longlong(hi)), "r"(bar)
+      : "memory");
 }
 
 // State layouts (stride n_ch):
@@ -227,8 +287,10 @@ __device__ __forceinline__ void start_bulk(const Span& s, unsigned char* buf, ui
 // build_frames.cu.  kFused = true: ``src`` is the capture's (n_words,) int32
 // word view and frame (j, c) starts at word starts_w[c] + j*spc/4.
 // ``active`` is a (n_ch,) bool tensor: one byte of 0 or 1 per channel.
+// (launch bounds with a minimum of one CTA per SM: without it ptxas caps
+// the one-CTA instantiations at 64 registers and spills)
 template <bool kFused, int kStage, int kN>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 track_block_kernel(const int32_t* __restrict__ src, long long n_words,
                    const long long* __restrict__ starts_w,
                    const long long* __restrict__ fb0,
@@ -272,12 +334,12 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
   extern __shared__ __align__(128) unsigned char stage[];  // kStaged: two slots of p.slot bytes
   __shared__ float pad[kPad];
   __shared__ double red[6][kMaxWarps];
-  __shared__ double part[2][6];  // this rank's partial of ms j, in slot j & 1
-  __shared__ double tot[6];      // the six sums of ms j, before rounding
+  __shared__ Inbox<kN> box;  // kN > 1: every rank's partial of ms j, in slot j & 1
   __shared__ __align__(8) uint64_t bars[2];
   __shared__ long long s_rem, s_step;
   __shared__ unsigned int s_cp, s_w;
   __shared__ int s_o, s_blk;
+  __shared__ double s_cfreq;  // ms j's carrier frequency, for the carrier-aided DLL
 
   for (int i = tid; i < kPad; i += n_thr) pad[i] = code_pads[c * kPad + i];
 
@@ -307,26 +369,44 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
     return span_of(src8 + 4 * w0, max(lo_r, lo), min(hi_r, src_hi(w0, lo)));
   };
 
-  if constexpr (kStaged) {
-    if (tid == 0) {
+  if (tid == 0) {
+    if constexpr (kStaged) {
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bars)) : "memory");
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bars + 1)) : "memory");
+    }
+    if constexpr (kN > 1) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(box.bar)) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(box.bar + 1))
+                   : "memory");
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      for (int s = 0; s < 2 && s < p.r; ++s) arm(box.bar + s, kN * kRowBytes);  // ms 0 and 1
+    }
+    if constexpr (kStaged) {
       for (int j = 0; j < 2 && j < p.r; ++j) start_bulk(span_at(j), stage + j * p.slot, bars + j);
     }
   }
+  // every rank's inbox armed before a peer pushes into it
+  if constexpr (kN > 1) cg::this_cluster().sync();
 
-  // loop state, live in thread 0 only
-  long long ptr = 0, rem = 0, ms = 0, bad_max = 0;
+  // The loop state.  The carrier's lives in thread 0; the code's in the
+  // code thread (warp 1's lane 0, or thread 0 where the CTA is one warp);
+  // the accumulators in lane f < 6 of warps 0 .. code_warp; the FLL's last
+  // prompt in every lane of warp 0.
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = n_thr >> 5;
+  const int code_warp = n_warps > 1 ? 1 : 0;
+  const bool code_thread = tid == 32 * code_warp;
+  long long ptr = 0, rem = 0, ms = 0, bad_max = 0, fb = 0, ms0 = 0;
   unsigned int cp = 0;
   double carr_freq = 0, code_freq = 0, carr_nco = 0, carr_err = 0,
          code_nco = 0, code_err = 0;
-  float acc[6] = {0, 0, 0, 0, 0, 0}, fll_ip = 0, fll_qp = 0;
+  float acc = 0, fll_ip = 0, fll_qp = 0;
   const double cb = carr_basis[c];
-  if (tid == 0) {
+  if (warp <= code_warp) {
     ptr = si_in[c];
     rem = si_in[n_ch + c];
-    ms = si_in[2 * n_ch + c];
+    ms0 = ms = si_in[2 * n_ch + c];
     cp = static_cast<unsigned int>(si_in[3 * n_ch + c]);
     carr_freq = sf_in[c];
     code_freq = sf_in[n_ch + c];
@@ -334,29 +414,33 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
     carr_err = sf_in[3 * n_ch + c];
     code_nco = sf_in[4 * n_ch + c];
     code_err = sf_in[5 * n_ch + c];
-    for (int f = 0; f < 6; ++f) acc[f] = sa_in[f * n_ch + c];
+    if (lane < 6) acc = sa_in[lane * n_ch + c];
     fll_ip = sa_in[6 * n_ch + c];
     fll_qp = sa_in[7 * n_ch + c];
+    fb = fb0[c];
   }
+  // the NCO steps of ms j, for every thread: the carrier's from thread 0,
+  // the code's (and the overflow check) from the code thread
+  auto carrier_steps = [&]() {
+    s_cp = cp;
+    s_w = static_cast<unsigned int>(__double2ll_rn(carr_freq / p.fs * 4294967296.0));
+  };
+  auto code_steps = [&](int j) {
+    const long long step = __double2ll_rn(code_freq / p.fs * 1099511627776.0);
+    const long long blk = floor_div_pos(p.code_len_q - rem + step - 1, step);
+    const long long o = ptr - (fb + static_cast<long long>(j) * p.spc);
+    long long bad = -o;
+    if (o + blk - p.win > bad) bad = o + blk - p.win;
+    if (bad > bad_max) bad_max = bad;
+    s_rem = rem;
+    s_step = step;
+    s_o = static_cast<int>(o);
+    s_blk = static_cast<int>(blk);
+  };
+  if (tid == 0) carrier_steps();  // r > 0: the launch skips an empty block
+  if (code_thread) code_steps(0);
 
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = n_thr >> 5;
   for (int j = 0; j < p.r; ++j) {
-    if (tid == 0) {
-      const long long step = __double2ll_rn(code_freq / p.fs * 1099511627776.0);
-      const long long blk = floor_div(p.code_len_q - rem + step - 1, step);
-      const long long o = ptr - (fb0[c] + static_cast<long long>(j) * p.spc);
-      long long bad = -o;
-      if (o + blk - p.win > bad) bad = o + blk - p.win;
-      if (bad > bad_max) bad_max = bad;
-      s_rem = rem;
-      s_step = step;
-      s_cp = cp;
-      s_w = static_cast<unsigned int>(__double2ll_rn(carr_freq / p.fs * 4294967296.0));
-      s_o = static_cast<int>(o);
-      s_blk = static_cast<int>(blk);
-    }
     __syncthreads();
     const long long rem_j = s_rem, step = s_step;
     const unsigned int cp_j = s_cp, w = s_w;
@@ -438,138 +522,162 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
     }
     __syncthreads();
 
-    // lane f < 6 of warp 0: sum f of this CTA's warps in order; in a
-    // cluster that is this rank's partial, and after the barrier lane f
-    // sums the kN ranks' partials in rank order
-    if (tid < 6) {
-      double v = 0.0;
+    if (warp > code_warp) continue;  // the other warps wait at the next ms's barrier
+    const int slot = j & 1;
+    const long long o_idx = static_cast<long long>(j) * n_ch + c;
+    // lane f < 6: sum f of this CTA's warps in order (this rank's partial)
+    double v = 0.0;
+    if (kN == 1 || warp == 0) {
+      if (lane < 6) {
 #pragma unroll
-      for (int i = 0; i < kMaxWarps; ++i)
-        if (i < n_warps) v += red[tid][i];
-      if constexpr (kN > 1) part[j & 1][tid] = v;
-      else tot[tid] = v;
-    }
-    if constexpr (kStaged) {  // every thread has read slot j & 1: refill it with ms j + 2
-      if (tid == 0 && j + 2 < p.r) start_bulk(span_at(j + 2), stage + (j & 1) * p.slot, bars + (j & 1));
+        for (int i = 0; i < kMaxWarps; ++i)
+          if (i < n_warps) v += red[lane][i];
+      }
     }
     if constexpr (kN > 1) {
-      cg::cluster_group cluster = cg::this_cluster();
-      cluster.sync();  // every rank's partial of ms j is written
-      if (tid < 6) {
-        double v = 0.0;
-#pragma unroll
-        for (int q = 0; q < kN; ++q) v += *cluster.map_shared_rank(&part[j & 1][tid], q);
-        tot[tid] = v;
+      if (warp == 0) {
+        // push: lane l < 30 stores sums 2i, 2i + 1 (i = l % 3) into row
+        // ``rank`` of ranks l/3 and l/3 + 10's inboxes
+        const int i = lane % 3;
+        const double lo = __shfl_sync(kAll, v, 2 * i);
+        const double hi = __shfl_sync(kAll, v, 2 * i + 1);
+        if (lane < 30)
+          for (int q = lane / 3; q < kN; q += 10)
+            push2(cluster_addr(&box.part[slot][rank][2 * i], q), lo, hi,
+                  cluster_addr(box.bar + slot, q));
+        if constexpr (kStaged) {  // every thread has read slot j & 1: refill it with ms j + 2
+          if (lane == 0 && j + 2 < p.r) start_bulk(span_at(j + 2), stage + slot * p.slot, bars + slot);
+        }
       }
     }
-    __syncwarp();
-
-    if (tid == 0) {
-      float s[6];
-      for (int f = 0; f < 6; ++f) s[f] = static_cast<float>(tot[f]);
-      // s = (i_e, i_p, i_l, q_e, q_p, q_l)
-      float a[6];
-      bool upd = true;
-      if (p.pdi_ms > 1) {
-        for (int f = 0; f < 6; ++f) a[f] = acc[f] + s[f];
-        upd = (ms % p.pdi_ms) == (p.pdi_ms - 1);
-      } else {
-        for (int f = 0; f < 6; ++f) a[f] = s[f];
+    // while the partials are in flight: what needs no filter
+    if (tid == 0) cp = cp_j + w * static_cast<unsigned int>(blk);
+    if (code_thread) {
+      ptr += blk;
+      rem = rem_j + step * blk - p.code_len_q;
+      ms += 1;
+      if (rank == 0) {
+        abs_sample[o_idx] = ptr;
+        of64[o_idx] = static_cast<double>(rem) / static_cast<double>(step);
       }
+    }
+    if constexpr (kN > 1) {  // every rank's partial of ms j, summed in rank order
+      wait_bar(box.bar + slot, static_cast<uint32_t>((j >> 1) & 1));
+      v = 0.0;
+      if (lane < 6) {
+#pragma unroll
+        for (int q = 0; q < kN; ++q) v += box.part[slot][q][lane];
+      }
+      // slot j & 1 is read; the pushes of ms j + 2 come after this rank's of ms j + 1
+      if (warp == 0 && lane == 0 && j + 2 < p.r) arm(box.bar + slot, kN * kRowBytes);
+    }
 
-      // Costas PLL (reference: tracking.py:221-235)
-      const double ip64 = a[1], qp64 = a[4];
-      double cerr = (ip64 != 0.0) ? atan(qp64 / ip64) : 0.0;
-      cerr = cerr / kTwoPi;
-      double cnco = carr_nco + p.pll_a * (cerr - carr_err) + cerr * p.pll_b;
-      if (p.fll_on) {
+    // lane f: sum f rounded once, s = (i_e, i_p, i_l, q_e, q_p, q_l); a, the
+    // sums the filters take (accumulated over pdi_ms), in every lane
+    const float sf = static_cast<float>(v);
+    const float af = p.pdi_ms > 1 ? acc + sf : sf;
+    float a[6];
+#pragma unroll
+    for (int f = 0; f < 6; ++f) a[f] = __shfl_sync(kAll, af, f);
+    // filters update this ms, or hold between the every-pdi_ms updates
+    const bool upd = p.pdi_ms <= 1 || ((ms0 + j) % p.pdi_ms) == (p.pdi_ms - 1);
+
+    if (warp == 0) {
+      // Costas PLL and FLL assist (reference: tracking.py:221-235): lane 0
+      // takes the PLL's atan and lane 1 the FLL's, as one instruction stream
+      double t = 0.0;
+      if (lane == 0 || (lane == 1 && p.fll_on)) {
+        const double ip64 = a[1], qp64 = a[4];
         const double ipp = fll_ip, qpp = fll_qp;
-        const double cross = ipp * qp64 - qpp * ip64;
-        const double dot = ipp * ip64 + qpp * qp64;
-        double ferr = (dot != 0.0) ? atan(cross / dot) : 0.0;
-        ferr = ferr / p.fll_div;
-        cnco = cnco + p.fll_gain * ferr;
+        const double num = lane == 0 ? qp64 : ipp * qp64 - qpp * ip64;  // FLL: cross
+        const double den = lane == 0 ? ip64 : ipp * ip64 + qpp * qp64;  // FLL: dot
+        t = (den != 0.0) ? atan(num / den) : 0.0;
+        t = t / (lane == 0 ? kTwoPi : p.fll_div);
       }
-      double cfreq = cb + cnco;
-
-      // DLL (reference: tracking.py:237-251)
-      const double ie64 = a[0], qe64 = a[3], il64 = a[2], ql64 = a[5];
-      const double e_mag = sqrt(ie64 * ie64 + qe64 * qe64);
-      const double l_mag = sqrt(il64 * il64 + ql64 * ql64);
-      double derr = (e_mag + l_mag > 0.0) ? (e_mag - l_mag) / (e_mag + l_mag) : 0.0;
-      double dnco = code_nco + p.dll_a * (derr - code_err) + derr * p.dll_b;
-      double dfreq = p.code_freq_basis - dnco;
-      if (p.aided) dfreq = dfreq + p.aid_ratio * (cfreq - p.intermediate_freq);
-
-      if (p.pdi_ms > 1) {
-        if (upd) {
-          for (int f = 0; f < 6; ++f) acc[f] = 0.f;
-          fll_ip = a[1];
-          fll_qp = a[4];
-        } else {  // hold filters between the every-K updates
+      const double ferr = __shfl_sync(kAll, t, 1);
+      if (lane == 0) {
+        double cerr = t;
+        double cnco = carr_nco + p.pll_a * (cerr - carr_err) + cerr * p.pll_b;
+        if (p.fll_on) cnco = cnco + p.fll_gain * ferr;
+        double cfreq = cb + cnco;
+        s_cfreq = cfreq;
+        if (!upd) {
           cerr = carr_err;
           cnco = carr_nco;
           cfreq = carr_freq;
-          derr = code_err;
-          dnco = code_nco;
-          dfreq = code_freq;
-          for (int f = 0; f < 6; ++f) acc[f] = a[f];
         }
-      } else {
+        if constexpr (kStage == kFull) carr_freq = cfreq;  // the ablated stages run open loop
+        carr_nco = cnco;
+        carr_err = cerr;
+        if (j + 1 < p.r) carrier_steps();
+        if (rank == 0) {
+          of64[2 * plane + o_idx] = cfreq;
+          of64[5 * plane + o_idx] = cerr;
+          of64[6 * plane + o_idx] = cnco;
+        }
+      }
+      if (upd) {
         fll_ip = a[1];
         fll_qp = a[4];
       }
-
-      ptr += blk;
-      cp = cp_j + w * static_cast<unsigned int>(blk);
-      rem = rem_j + step * blk - p.code_len_q;
-      ms += 1;
-      if constexpr (kStage == kFull) {  // the ablated stages run open loop
-        carr_freq = cfreq;
-        code_freq = dfreq;
-      }
-      carr_nco = cnco;
-      carr_err = cerr;
-      code_nco = dnco;
-      code_err = derr;
-
-      if (rank == 0) {
-        const long long o_idx = static_cast<long long>(j) * n_ch + c;
-        abs_sample[o_idx] = ptr;
-        of64[o_idx] = static_cast<double>(rem) / static_cast<double>(step);
-        of64[plane + o_idx] = dfreq;
-        of64[2 * plane + o_idx] = cfreq;
-        of64[3 * plane + o_idx] = derr;
-        of64[4 * plane + o_idx] = dnco;
-        of64[5 * plane + o_idx] = cerr;
-        of64[6 * plane + o_idx] = cnco;
-        of32[o_idx] = s[1];
-        of32[plane + o_idx] = s[0];
-        of32[2 * plane + o_idx] = s[2];
-        of32[3 * plane + o_idx] = s[3];
-        of32[4 * plane + o_idx] = s[4];
-        of32[5 * plane + o_idx] = s[5];
+      if (rank == 0 && lane < 6) of32[(lane < 2 ? 1 - lane : lane) * plane + o_idx] = sf;
+      if (p.aided && code_warp != 0) {  // hand warp 1 the carrier frequency
+        __threadfence_block();
+        __syncwarp();
+        asm volatile("bar.arrive 1, 64;" ::: "memory");
       }
     }
+    if (warp == code_warp) {
+      if (p.aided && code_warp != 0) asm volatile("bar.sync 1, 64;" ::: "memory");
+      if (lane == 0) {
+        // DLL (reference: tracking.py:237-251)
+        const double ie64 = a[0], qe64 = a[3], il64 = a[2], ql64 = a[5];
+        const double e_mag = sqrt(ie64 * ie64 + qe64 * qe64);
+        const double l_mag = sqrt(il64 * il64 + ql64 * ql64);
+        double derr = (e_mag + l_mag > 0.0) ? (e_mag - l_mag) / (e_mag + l_mag) : 0.0;
+        double dnco = code_nco + p.dll_a * (derr - code_err) + derr * p.dll_b;
+        double dfreq = p.code_freq_basis - dnco;
+        if (p.aided) dfreq = dfreq + p.aid_ratio * (s_cfreq - p.intermediate_freq);
+        if (!upd) {
+          derr = code_err;
+          dnco = code_nco;
+          dfreq = code_freq;
+        }
+        if constexpr (kStage == kFull) code_freq = dfreq;
+        code_nco = dnco;
+        code_err = derr;
+        if (j + 1 < p.r) code_steps(j + 1);
+        if (rank == 0) {
+          of64[plane + o_idx] = dfreq;
+          of64[3 * plane + o_idx] = derr;
+          of64[4 * plane + o_idx] = dnco;
+        }
+      }
+    }
+    if (p.pdi_ms > 1 && lane < 6) acc = upd ? 0.f : af;
   }
 
-  if (tid == 0 && rank == 0) {
-    si_out[c] = ptr;
-    si_out[n_ch + c] = rem;
-    si_out[2 * n_ch + c] = ms;
-    si_out[3 * n_ch + c] = static_cast<long long>(static_cast<int>(cp));
-    sf_out[c] = carr_freq;
-    sf_out[n_ch + c] = code_freq;
-    sf_out[2 * n_ch + c] = carr_nco;
-    sf_out[3 * n_ch + c] = carr_err;
-    sf_out[4 * n_ch + c] = code_nco;
-    sf_out[5 * n_ch + c] = code_err;
-    for (int f = 0; f < 6; ++f) sa_out[f * n_ch + c] = acc[f];
-    sa_out[6 * n_ch + c] = fll_ip;
-    sa_out[7 * n_ch + c] = fll_qp;
-    ovf[c] = bad_max > 0 ? bad_max : 0;
+  if (rank == 0) {
+    if (tid == 0) {
+      si_out[3 * n_ch + c] = static_cast<long long>(static_cast<int>(cp));
+      sf_out[c] = carr_freq;
+      sf_out[2 * n_ch + c] = carr_nco;
+      sf_out[3 * n_ch + c] = carr_err;
+      sa_out[6 * n_ch + c] = fll_ip;
+      sa_out[7 * n_ch + c] = fll_qp;
+    }
+    if (code_thread) {
+      si_out[c] = ptr;
+      si_out[n_ch + c] = rem;
+      si_out[2 * n_ch + c] = ms;
+      sf_out[n_ch + c] = code_freq;
+      sf_out[4 * n_ch + c] = code_nco;
+      sf_out[5 * n_ch + c] = code_err;
+      ovf[c] = bad_max > 0 ? bad_max : 0;
+    }
+    if (warp == 0 && lane < 6) sa_out[lane * n_ch + c] = acc;
   }
-  if constexpr (kN > 1) cg::this_cluster().sync();  // peers may still read this rank's partials
+  if constexpr (kN > 1) cg::this_cluster().sync();  // peers may still push into this rank
 }
 
 // hf: fs, code_freq_basis, intermediate_freq, pll_a, pll_b, dll_a, dll_b,

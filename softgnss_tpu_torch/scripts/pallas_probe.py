@@ -33,7 +33,7 @@ via ``dot2d`` :120).  Its counterpart here is ``csrc/pallas_probe.cu``:
 Every probe was redesigned for the card; the first kernels stay
 (``grid_loop``, ``acc_sync``, ``conv_loop``, ``onehot_walk``,
 ``bdot_chain`` and ``dot_chain`` in :data:`VARIANTS`), and so does B1's
-own handoff for ``acc`` (``acc_parity``: one cluster barrier per rep,
+former handoff for ``acc`` (``acc_parity``: one cluster barrier per rep,
 parity slots), each with its own wrapper and launch count, so that one
 run times old and new in turns.  ``conv`` and ``onehot`` are also run
 where they do real work (:func:`receiver_inputs`): conv on one block of
@@ -215,7 +215,7 @@ probe_acc.launches = 0
 
 
 def probe_acc_parity(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
-    """:func:`probe_acc` by B1's design, kernel ``probe_acc_parity_kernel``
+    """:func:`probe_acc` by B1's former handoff, kernel ``probe_acc_parity_kernel``
     (one cluster barrier per rep, partials in parity slots read through
     DSMEM), on a CUDA tensor."""
     if x.device.type == "cpu":

@@ -26,7 +26,10 @@ an entry on the stacked state (:func:`track_block_stacked`,
 caller made), which the block loop issues and captures in a CUDA graph.
 ``wrapper.launches`` counts kernel launches, a graph's replays included;
 ``build_frames.ragged_rows`` counts the frames B2 wrote that start or end
-off a 16-byte line (:func:`ragged_rows`).
+off a 16-byte line (:func:`ragged_rows`); ``track_block.pushed_ms`` (and
+``track_block_fused.pushed_ms``) the channel-ms whose partial sums the
+cluster's ranks handed each other by the one-sided push
+(:func:`pushed_ms`).
 The kernels are compiled at first use with
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with
 a plain C interface under ``softgnss_tpu_torch/_build/<source hash>/``
@@ -708,9 +711,29 @@ def _b1_launch(frames, fb0, config: ReceiverConfig, r: int, ctas_per_channel, th
     return (lambda *a: lib.sg_track_block(_ptr(frames), *a)), kn, threads
 
 
-def _counted(wrapper, kn: int) -> None:
+def active_channels(active: torch.Tensor) -> int:
+    """How many channels the (C,) bool mask ``active`` marks.  The count is
+    read from the card once and kept on the tensor until it is written, so
+    that the block loop's later launches, and a CUDA graph's capture of
+    them, find it without waiting for the card."""
+    kept = getattr(active, "_sg_active_count", None)
+    if kept is None or kept[0] != active._version:
+        kept = (active._version, int(active.sum()))
+        active._sg_active_count = kept
+    return kept[1]
+
+
+def pushed_ms(kn: int, r: int, active: torch.Tensor) -> int:
+    """The channel-ms one B1 (or B3) launch of ``r`` ms hands off by the
+    one-sided push (csrc/track_block.cu): every ms of every active channel
+    at ``kn`` > 1 CTAs per channel, none at one CTA."""
+    return r * active_channels(active) if kn > 1 else 0
+
+
+def _counted(wrapper, kn: int, pushed: int) -> None:
     wrapper.launches += 1
     wrapper.ctas_per_channel = kn
+    wrapper.pushed_ms += pushed
 
 
 def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
@@ -729,14 +752,16 @@ def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
         return track_block_plain(frames, fb0, state, code_pads, carr_basis,
                                  active, config, r)
     launch, kn, threads = _b1_launch(frames, fb0, config, r, ctas_per_channel, threads_per_cta)
+    pushed = pushed_ms(kn, r, active)
     out = _launch_block("track_block", launch, frames.device, fb0, state, code_pads, carr_basis,
                         active, config, r, kn, threads)
-    _counted(track_block, kn)
+    _counted(track_block, kn, pushed)
     return out
 
 
 track_block.launches = 0
 track_block.ctas_per_channel = None
+track_block.pushed_ms = 0
 
 
 def track_block_stacked(frames, fb0, s_in: Stack, s_out: Stack, out: BlockOut, code_pads,
@@ -746,12 +771,14 @@ def track_block_stacked(frames, fb0, s_in: Stack, s_out: Stack, out: BlockOut, c
     """:func:`track_block` on the stacked state (CUDA tensors only): B1
     reads ``s_in`` and writes ``s_out`` and ``out`` (scan.Stack,
     scan.BlockOut of ``r`` ms).  It launches and allocates nothing else,
-    so a CUDA graph can capture it once B1's size was chosen
-    (scan.track_segments); counted on ``track_block``."""
+    so a CUDA graph can capture it once B1's size was chosen and
+    ``active`` was counted (:func:`active_channels`; scan.track_segments
+    runs a block eagerly first); counted on ``track_block``."""
     launch, kn, threads = _b1_launch(frames, fb0, config, r, ctas_per_channel, threads_per_cta)
+    pushed = pushed_ms(kn, r, active)
     _launch_stacked("track_block", launch, frames.device, fb0, s_in, s_out, out, code_pads,
                     carr_basis, active, config, r, kn, threads)
-    _counted(track_block, kn)
+    _counted(track_block, kn, pushed)
 
 
 # --- B3: fused block tracker -----------------------------------------------
@@ -796,14 +823,16 @@ def track_block_fused(cap_words, starts_w, state: TrackState, code_pads, carr_ba
                                        carr_basis, active, config, r)
     launch, kn, threads = _b3_launch(cap_words, starts_w, config, ctas_per_channel,
                                      threads_per_cta)
+    pushed = pushed_ms(kn, r, active)
     out = _launch_block("track_block_fused", launch, cap_words.device, 4 * starts_w, state,
                         code_pads, carr_basis, active, config, r, kn, threads)
-    _counted(track_block_fused, kn)
+    _counted(track_block_fused, kn, pushed)
     return out
 
 
 track_block_fused.launches = 0
 track_block_fused.ctas_per_channel = None
+track_block_fused.pushed_ms = 0
 
 
 def track_block_fused_stacked(cap_words, starts_w, s_in: Stack, s_out: Stack, out: BlockOut,
@@ -814,6 +843,7 @@ def track_block_fused_stacked(cap_words, starts_w, s_in: Stack, s_out: Stack, ou
     :func:`track_block_stacked` is :func:`track_block`."""
     launch, kn, threads = _b3_launch(cap_words, starts_w, config, ctas_per_channel,
                                      threads_per_cta)
+    pushed = pushed_ms(kn, r, active)
     _launch_stacked("track_block_fused", launch, cap_words.device, 4 * starts_w, s_in, s_out,
                     out, code_pads, carr_basis, active, config, r, kn, threads)
-    _counted(track_block_fused, kn)
+    _counted(track_block_fused, kn, pushed)

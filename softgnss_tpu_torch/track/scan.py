@@ -449,9 +449,9 @@ _GRAPH_POOLS: dict = {}
 class _BlockGraph:
     """``step`` captured once in a CUDA graph on ``device``'s side stream,
     from its pool (:class:`_GraphPool`).  :meth:`replay` launches it on the
-    current stream and counts its kernels on their wrappers' ``launches``
-    and B2's frames on ``build_frames.ragged_rows`` (the capture itself
-    launches nothing)."""
+    current stream and counts its kernels on their wrappers' ``launches``,
+    B2's frames on ``build_frames.ragged_rows`` and B1's (or B3's) pushed
+    channel-ms on ``pushed_ms`` (the capture itself launches nothing)."""
 
     def __init__(self, step, device):
         from softgnss_tpu_torch.track import megakernel as mk
@@ -461,7 +461,8 @@ class _BlockGraph:
             _GRAPH_POOLS[index] = _GraphPool(index)
         self.pool = _GRAPH_POOLS[index]
         counters = ((mk.build_frames, "launches"), (mk.build_frames, "ragged_rows"),
-                    (mk.track_block, "launches"), (mk.track_block_fused, "launches"))
+                    (mk.track_block, "launches"), (mk.track_block, "pushed_ms"),
+                    (mk.track_block_fused, "launches"), (mk.track_block_fused, "pushed_ms"))
         before = [getattr(w, a) for w, a in counters]
         self.stream = torch.cuda.current_stream(index)
         self.graph = torch.cuda.CUDAGraph()

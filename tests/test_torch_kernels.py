@@ -1,17 +1,20 @@
 """The port's tracking kernels, build_frames (B2), track_block (B1),
 track_block_fused (B3) and correlate_ms (B4), without the JAX package:
-this file imports only torch, numpy and softgnss_tpu_torch, so it also
-runs on the card's machine, which has no JAX:
+this file imports only torch, numpy and softgnss_tpu_torch (and, for the
+benchmark cells' captures, gnss_bench's generator), so it also runs on the
+card's machine, which has no JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 On the CPU the wrappers run their plain versions; the ``gpu`` tests
 compare the CUDA kernels with those plain versions, B1 and B3 at every
-cluster size (``ctas_per_channel``) and at 3 and 12 channels, and skip
-without a card.
+cluster size (``ctas_per_channel``) and at 3 and 12 channels, and at the
+benchmark cells' front ends with 8 channels, and skip without a card.
 """
 
 import functools
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -40,9 +43,21 @@ def test_build_frames_zero_fill():
     np.testing.assert_array_equal(frames.numpy(), want)
 
 
-def _scenario(device, n_ch: int = 3, ms: int = 100, seed: int = 4):
+REPO = Path(__file__).resolve().parent.parent
+#: ``default_config`` options of the benchmark cells' front ends
+#: (gnss_bench/configs): SoftGNSS's 38.192-MHz data set and its second,
+#: 16.3676-MHz one
+FRONT_ENDS = {"ref38": {},
+              "giove16": {"sampling_freq": 16_367_600.0, "intermediate_freq": 4_130_400.0}}
+
+
+def _scenario(device, n_ch: int = 3, ms: int = 100, seed: int = 4, front: str = "fast"):
     """Three satellites on ``n_ch`` channels (each satellite on every third
-    channel), the second channel idle; an ``ms``-long capture."""
+    channel), the second channel idle; an ``ms``-long capture, at the fast
+    front end with 16-ms blocks.  At a benchmark cell's front end
+    (``front``, a key of ``FRONT_ENDS``: 64-ms blocks), :func:`_cell_scenario`."""
+    if front != "fast":
+        return _cell_scenario(device, n_ch, ms, seed, front)
     cfg = sgt.fast_config(number_of_channels=n_ch, track_block_ms=16)
     sats = [SatelliteSignal(prn=p, doppler_hz=d, delay_samples=float(s), phase0=ph,
                             amplitude=2.0, nav_bits=(1, -1, -1, 1))
@@ -57,13 +72,34 @@ def _scenario(device, n_ch: int = 3, ms: int = 100, seed: int = 4):
     return cfg, sig, ch
 
 
+def _cell_scenario(device, n_ch: int, ms: int, seed: int, front: str):
+    """A capture of the cells' ``obs`` traffic at ``front``'s front end,
+    ``n_ch`` satellites, each on its channel at the truth, the second
+    channel idle.  gnss_bench's generator makes it: the port's synthesizer
+    takes whole-kHz sampling rates only, and giove16's is not one."""
+    from gnss_bench import generator
+
+    cfg = sgt.default_config(number_of_channels=n_ch, **FRONT_ENDS[front])
+    traffic = json.loads((REPO / "gnss_bench" / "traffic" / "obs.json").read_text())
+    front_end = {"sampling_freq": cfg.sampling_freq, "intermediate_freq": cfg.intermediate_freq,
+                 "ms_to_process": ms}
+    scene = generator.draw_scene(front_end, {**traffic, "n_sats": n_ch}, seed)
+    sig = generator.synthesize(scene, device)
+    ch = Channels(prn=scene.prn, acquired_freq=scene.carrier_hz(),
+                  code_phase=np.floor(scene.delay_samples).astype(np.int64),
+                  status=["T", "-"] + ["T"] * (n_ch - 2))
+    return cfg, sig, ch
+
+
 def _counts():
     return (mk.build_frames.launches, mk.track_block.launches,
-            mk.track_block_fused.launches, pk.correlate_ms.launches)
+            mk.track_block_fused.launches, pk.correlate_ms.launches,
+            mk.track_block.pushed_ms, mk.track_block_fused.pushed_ms)
 
 
 def test_plain_path_counts_no_launches():
-    """CPU tensors take the plain versions: no kernel launch is counted."""
+    """CPU tensors take the plain versions: no kernel launch and no pushed
+    channel-ms is counted."""
     cfg, sig, ch = _scenario("cpu")
     before = _counts()
     res = scan.track(cfg, sig, ch, n_ms=40)
@@ -80,6 +116,19 @@ def test_plain_routes_count_no_launches(route):
     res = scan.track(cfg.with_options(**route), sig, ch, n_ms=40)
     assert _counts() == before
     assert np.all(res.i_p[1] == 0) and np.any(res.i_p[0] != 0)
+
+
+def test_pushed_ms_counts_every_active_channel_ms():
+    """``pushed_ms``: r x the active channels at a cluster of CTAs, none
+    at one CTA; the mask's count is kept, and taken again once the mask is
+    written."""
+    active = torch.tensor([True, False, True, True])
+    assert mk.pushed_ms(16, 64, active) == 64 * 3
+    assert mk.pushed_ms(2, 5, active) == 5 * 3
+    assert mk.pushed_ms(1, 64, active) == 0
+    active[1] = True
+    assert mk.pushed_ms(16, 64, active) == 64 * 4
+    assert mk.active_channels(torch.zeros(3, dtype=torch.bool)) == 0
 
 
 def test_correlate_ms_plain_reads_the_capture():
@@ -230,23 +279,37 @@ def cuda_device():
     return torch.device("cuda")
 
 
-#: (channels, CTAs per channel) of the card tests: every cluster size at 3
-#: channels, and 12 channels at the sizes that hold 12 clusters (16 may
-#: not: then its clusters run in waves)
-SIZES = [(3, kn) for kn in mk.CLUSTER_SIZES] + [(12, 8), (12, 16)]
+#: B1's options besides the default: pdi_ms accumulate-and-hold, the FLL,
+#: the carrier-aided DLL and a narrower correlator spacing
+VARIANT = {"pdi_ms": 4, "fll_bandwidth_hz": 10.0, "carrier_aided_dll": True,
+           "dll_correlator_spacing": 0.25}
+#: (front end, channels, CTAs per channel) of the card tests: at the fast
+#: front end every cluster size at 3 channels, and 12 channels at the sizes
+#: that hold 12 clusters (16 may not: then its clusters run in waves); at
+#: each benchmark cell's front end its 8 channels at B1's launch plan
+SIZES = ([("fast", 3, kn) for kn in mk.CLUSTER_SIZES] + [("fast", 12, 8), ("fast", 12, 16)]
+         + [(front, 8, mk.CTAS_PER_CHANNEL) for front in FRONT_ENDS])
+SIZE_IDS = [f"C{c}-kN{k}" if f == "fast" else f"{f}-C{c}-kN{k}" for f, c, k in SIZES]
+#: (ms, capture ms) of the two calls, the second resuming the first: at
+#: the fast front end (16-ms blocks) each has a lead, full blocks and a
+#: tail; at a cell's (64-ms blocks) the first is a tail, the second a lead,
+#: one full block and a tail
+LENGTHS = {"fast": ((37, 43), 100), "cell": ((37, 93), 140)}
+
+
+def _lengths(front: str):
+    return LENGTHS["fast" if front == "fast" else "cell"]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_ch, kn", SIZES, ids=[f"C{c}-kN{k}" for c, k in SIZES])
-@pytest.mark.parametrize("opts", [{}, {"pdi_ms": 4, "fll_bandwidth_hz": 10.0,
-                                       "carrier_aided_dll": True,
-                                       "dll_correlator_spacing": 0.25}],
-                         ids=["default", "variant"])
-def test_kernels_match_plain_on_card(cuda_device, opts, n_ch, kn):
-    """B2 + B1 at ``kn`` CTAs per channel against their plain versions on
-    the card, through the segment loop (lead segment included), inactive
-    channel included."""
-    cfg, sig, ch = _scenario(cuda_device, n_ch)
+@pytest.mark.parametrize("front, n_ch, kn", SIZES, ids=SIZE_IDS)
+@pytest.mark.parametrize("opts", [{}, VARIANT], ids=["default", "variant"])
+def test_kernels_match_plain_on_card(cuda_device, opts, front, n_ch, kn):
+    """B2 + B1 at ``kn`` CTAs per channel of B1's threads against their
+    plain versions on the card, through the segment loop (lead segment
+    included), inactive channel included."""
+    (n1, n2), ms = _lengths(front)
+    cfg, sig, ch = _scenario(cuda_device, n_ch, ms=ms, front=front)
     cfg = cfg.with_options(**opts)
     words = scan.capture_words(sig)
     pads = scan.build_tables(ch.prn, cuda_device)
@@ -257,9 +320,9 @@ def test_kernels_match_plain_on_card(cuda_device, opts, n_ch, kn):
                                                              ctas_per_channel=kn)),
                          (mk.build_frames_plain, mk.track_block_plain)):
         st = scan.initial_state(cfg, ch, cuda_device)
-        st, ys1, ov1 = scan.track_segments(cfg, words, st, pads, cb, active, 37, 0,
+        st, ys1, ov1 = scan.track_segments(cfg, words, st, pads, cb, active, n1, 0,
                                            build, block)
-        st, ys2, ov2 = scan.track_segments(cfg, words, st, pads, cb, active, 43, 37,
+        st, ys2, ov2 = scan.track_segments(cfg, words, st, pads, cb, active, n2, n1,
                                            build, block)
         assert int(torch.maximum(ov1, ov2).max()) == 0
         outs.append([torch.cat(p).cpu().numpy() for p in zip(ys1, ys2)] +
@@ -269,44 +332,54 @@ def test_kernels_match_plain_on_card(cuda_device, opts, n_ch, kn):
     torch.cuda.synchronize()
 
 
-def _segments_then_resume(cfg, sig, ch, dev, build, block):
+def _segments_then_resume(cfg, sig, ch, dev, build, block, lengths=(37, 43)):
     words = scan.capture_words(sig)
     pads = scan.build_tables(ch.prn, dev)
     active = torch.tensor([s == "T" for s in ch.status], device=dev)
     cb = torch.as_tensor(ch.acquired_freq).to(dev)
     st = scan.initial_state(cfg, ch, dev)
+    n1, n2 = lengths
     if build == "per_ms":
-        st, ys1 = scan.track_ms(cfg, sig, st, pads, cb, active, 37, 0, block)
-        st, ys2 = scan.track_ms(cfg, sig, st, pads, cb, active, 43, 37, block)
+        st, ys1 = scan.track_ms(cfg, sig, st, pads, cb, active, n1, 0, block)
+        st, ys2 = scan.track_ms(cfg, sig, st, pads, cb, active, n2, n1, block)
     else:
-        st, ys1, ov1 = scan.track_segments(cfg, words, st, pads, cb, active, 37, 0,
+        st, ys1, ov1 = scan.track_segments(cfg, words, st, pads, cb, active, n1, 0,
                                            build, block)
-        st, ys2, ov2 = scan.track_segments(cfg, words, st, pads, cb, active, 43, 37,
+        st, ys2, ov2 = scan.track_segments(cfg, words, st, pads, cb, active, n2, n1,
                                            build, block)
         assert int(torch.maximum(ov1, ov2).max()) == 0
     return ([torch.cat(p).cpu().numpy() for p in zip(ys1, ys2)]
             + [v.cpu().numpy() for v in st])
 
 
-CASES = [("B3", c, k) for c, k in SIZES] + [("B4", 3, None)]
+#: B3 at every size of SIZES, at the default options and, at the cells'
+#: front ends, the variant; B4 at the fast front end
+CASES = ([("B3", f, c, k, {}) for f, c, k in SIZES]
+         + [("B3", f, c, k, VARIANT) for f, c, k in SIZES if f != "fast"]
+         + [("B4", "fast", 3, None, {})])
+CASE_IDS = ([f"B3-{i}" for i in SIZE_IDS]
+            + [f"B3-{i}-variant" for (f, _, _), i in zip(SIZES, SIZE_IDS) if f != "fast"]
+            + ["B4"])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kernel, n_ch, kn", CASES,
-                         ids=[f"{k}-C{c}-kN{n}" if n else k for k, c, n in CASES])
-def test_fused_and_per_ms_kernels_match_plain_on_card(cuda_device, kernel, n_ch, kn):
+@pytest.mark.parametrize("kernel, front, n_ch, kn, opts", CASES, ids=CASE_IDS)
+def test_fused_and_per_ms_kernels_match_plain_on_card(cuda_device, kernel, front, n_ch, kn,
+                                                      opts):
     """B3 at ``kn`` CTAs per channel (bit-equal, as the B2 + B1 pair it
     fuses) and B4 (the per-ms tracker through it: absolute_sample equal,
     correlators within 1e-4 of the plain version's RMS) on the card, with
     a resume and an idle channel."""
-    cfg, sig, ch = _scenario(cuda_device, n_ch)
+    lengths, ms = _lengths(front)
+    cfg, sig, ch = _scenario(cuda_device, n_ch, ms=ms, front=front)
+    cfg = cfg.with_options(**opts)
     fused = functools.partial(mk.track_block_fused, ctas_per_channel=kn)
     assert pk.correlate_plan(cfg, n_ch).ctas_per_channel > 1
     pair, plain = (((None, fused), (None, mk.track_block_fused_plain))
                    if kernel == "B3" else
                    (("per_ms", pk.correlate_ms), ("per_ms", pk.correlate_ms_plain)))
-    got = _segments_then_resume(cfg, sig, ch, cuda_device, *pair)
-    want = _segments_then_resume(cfg, sig, ch, cuda_device, *plain)
+    got = _segments_then_resume(cfg, sig, ch, cuda_device, *pair, lengths=lengths)
+    want = _segments_then_resume(cfg, sig, ch, cuda_device, *plain, lengths=lengths)
     fields = scan.MsOutputs._fields + scan.TrackState._fields
     for f, a, b in zip(fields, got, want):
         if kernel == "B3" or f == "absolute_sample":
@@ -424,8 +497,9 @@ def test_graph_route_is_bit_equal_to_the_eager_route_on_card(cuda_device, route)
     every output leaf, the final state and the overflow of a first call (2
     full blocks and a 5-ms tail) and a resumed one (an 11-ms lead, 7 full
     blocks, a 7-ms tail), an idle channel among four; each kernel launch
-    counted once per segment either way, and B2's frames (1 033 words: none
-    whole 16-byte lines) on ``build_frames.ragged_rows`` once each."""
+    counted once per segment either way, B2's frames (1 033 words: none
+    whole 16-byte lines) on ``build_frames.ragged_rows`` once each, and
+    every ms of the three active channels on ``pushed_ms`` once."""
     cfg, sig, ch = _scenario(cuda_device, 4, ms=200)
     build, block = GRAPH_ROUTES[route]
 
@@ -435,17 +509,42 @@ def test_graph_route_is_bit_equal_to_the_eager_route_on_card(cuda_device, route)
     runs = {}
     for label, fn in (("graph", block), ("eager", eager)):
         before = (scan.track_segments.graph_blocks, block.launches,
-                  mk.build_frames.ragged_rows)
+                  mk.build_frames.ragged_rows, block.pushed_ms)
         runs[label] = _calls(cfg, sig, ch, build, fn, (37, 130))
         torch.cuda.synchronize()
         runs[label + " counts"] = (scan.track_segments.graph_blocks - before[0],
                                    block.launches - before[1],
-                                   mk.build_frames.ragged_rows - before[2])
+                                   mk.build_frames.ragged_rows - before[2],
+                                   block.pushed_ms - before[3])
     rows = (37 + 130) * 4 if build is not None else 0
-    assert runs["graph counts"] == (1 + 6, 3 + 9, rows)
-    assert runs["eager counts"] == (0, 3 + 9, rows)
+    pushed = (37 + 130) * 3
+    assert block.ctas_per_channel > 1
+    assert runs["graph counts"] == (1 + 6, 3 + 9, rows, pushed)
+    assert runs["eager counts"] == (0, 3 + 9, rows, pushed)
     assert all(int(ovf.max()) == 0 for _, _, ovf in runs["graph"])
     _assert_bit_equal(runs["graph"], runs["eager"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kn", [1, mk.CTAS_PER_CHANNEL])
+def test_one_launch_counts_its_pushed_ms_on_card(cuda_device, kn):
+    """One eager B1 launch and one B3 launch of r ms, three of four
+    channels active: each adds r x 3 to its wrapper's ``pushed_ms`` at a
+    cluster of ``kn`` CTAs, and nothing at one CTA per channel."""
+    cfg, sig, ch = _scenario(cuda_device, 4)
+    words = scan.capture_words(sig)
+    pads, cb, active = scan.channel_tables(ch, cuda_device)
+    st = scan.initial_state(cfg, ch, cuda_device)
+    r = cfg.track_block_ms
+    start_w = torch.div(st.ptr - cfg.track_frame_pre, 4, rounding_mode="floor")
+    frames = mk.build_frames(words, start_w, r, cfg.track_window // 4, cfg.samples_per_code // 4)
+    before = (mk.track_block.pushed_ms, mk.track_block_fused.pushed_ms)
+    mk.track_block(frames, 4 * start_w, st, pads, cb, active, cfg, r, ctas_per_channel=kn)
+    mk.track_block_fused(words, start_w, st, pads, cb, active, cfg, r, ctas_per_channel=kn)
+    torch.cuda.synchronize()
+    want = r * 3 if kn > 1 else 0
+    assert (mk.track_block.pushed_ms - before[0],
+            mk.track_block_fused.pushed_ms - before[1]) == (want, want)
 
 
 @pytest.mark.gpu

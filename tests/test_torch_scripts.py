@@ -1083,7 +1083,7 @@ def test_s5_library_matches_plain_on_card(cuda_device):
 @pytest.mark.parametrize("reps", [1, 2, 3, 64])
 @pytest.mark.parametrize("label", s5.ACC_LABELS)
 def test_s5_acc_reps_rewrite_the_same_sum_on_card(cuda_device, label, reps):
-    """Each acc design (the push, B1's one barrier with parity slots, the
+    """Each acc design (the push, B1's former one barrier with parity slots, the
     first design's two barriers) bit-equal to the plain version at 1, 2, 3
     and 64 reps (the push's slot ring wraps from 3 on), and two launches
     bit-equal."""
