@@ -9,20 +9,21 @@ Phases, each printed with its seconds; the first failure raises and the
 script exits non-zero:
 
 1. card       — device name and nvidia-smi's name / power limit
-2. build      — nvcc builds every kernel from softgnss_tpu_torch/csrc (the
-                receiver's B1-B4, the probes' S1-S5); ptxas's registers,
-                shared memory and spills per entry
+2. build      — nvcc builds the two kernel libraries from
+                softgnss_tpu_torch/csrc: the receiver's (B1-B4 and the
+                ablations S1-S3) and the probes' (S4, S5); ptxas's
+                registers, shared memory and spills per entry
 3. nco        — signals.nco on CUDA tensors bit-equal to the same on CPU
-4. B2         — build_frames' two designs (the bulk main-path kernel and
-                the first, scripts.builder_time) bit-equal to the plain
-                version at the default geometry, C = 8 and 12, r = 64, 1 and
-                the main path's tail, frames past both capture ends, the
-                capture view at 4-byte offsets 0, 4, 8 and 12 mod 16, and at
-                fast_config's window (not whole int4s); then both timed in
-                turns at r = 64, C = 8 and 12, the L2 flushed before each
-                call (the capture cold, as the main path finds it; back to
-                back and alone) and warm, beside one indexing call and a
-                contiguous copy_ of the frames' bytes
+4. B2         — build_frames (the bulk main-path kernel, through
+                scripts.builder_time) bit-equal to the plain version at the
+                default geometry, C = 8 and 12, r = 64, 1 and the main
+                path's tail, frames past both capture ends, the capture
+                view at 4-byte offsets 0, 4, 8 and 12 mod 16, and at
+                fast_config's window (not whole int4s); then timed at
+                r = 64, C = 8 and 12, the L2 flushed before each call (the
+                capture cold, as the main path finds it; back to back and
+                alone) and warm, beside one indexing call and a contiguous
+                copy_ of the frames' bytes
 5. synthesize — build_scenario(default_config(), n_sats=8) (circular
                 orbits, real nav subframes, C/N0 53 dB-Hz) synthesized on
                 the card by synthesize_scenario: 37 020 ms, 1.41 GB int8
@@ -42,18 +43,18 @@ script exits non-zero:
                 dma_probe, S5 pallas_probe): every stage, variant, load
                 pattern and construct against its plain version (bit-equal;
                 S5's tensor-core products within their TF32 bound; S4 at
-                every cluster size and its first design, every S5 construct
-                in each design, S5 conv and onehot also at the receiver's
+                every cluster size, every S5 construct, conv in both its
+                designs, S5 conv and onehot also at the receiver's
                 geometry), S5's library calls against the same plain
                 versions, ptxas's resources of every S4 and S5 kernel (no
                 spills), then each probe's timings (S4's patterns at 1-16
-                CTAs per channel, its first design and ``direct`` at 16 in
-                turns; S5's designs in turns, its tensor-core library calls
-                with TF32 allowed and at the default precision, each acc
-                design's per-rep handoff, conv and onehot L2-flushed and in
-                a CUDA graph at the script's shape and warm and flushed at
-                the receiver's, with their targets) (its own path: the
-                counts are zeroed before the timings and read after)
+                CTAs per channel; conv's designs in turns, S5's tensor-core
+                library calls with TF32 allowed and at the default
+                precision, acc's per-rep handoff, conv and onehot
+                L2-flushed and in a CUDA graph at the script's shape and
+                warm and flushed at the receiver's, with their targets)
+                (its own path: the counts are zeroed before the timings and
+                read after)
 7. main path  — run_receiver(default_config(), navigate=True,
                 device="cuda") over the reference's 37 000 ms (block
                 tracker, B2 + B1): every satellite acquired and locked,
@@ -178,6 +179,7 @@ import time
 
 import numpy as np
 
+from gnss_bench.roofline import OPS_PER_SAMPLE
 from softgnss_tpu_torch.scripts.timing import bound_ms
 from softgnss_tpu_torch.scripts.timing import card as smi_line
 from softgnss_tpu_torch.scripts.timing import cuda_ms, host_ms
@@ -207,13 +209,6 @@ TOL_FRAC = 1e-6            # sample_frac
 ROUTE_TOL = {"absolute_sample": 1, "corr_rel_rms": 1e-3, "carr_freq_hz": 0.5}
 #: the streamed route's chunk (config.track_stream_chunk_ms's default)
 STREAM_CHUNK_MS = 4096
-#: operations per correlated sample in B1, B3 and B4 (and S1's and S2's
-#: ``full``), counted from the sample loops of csrc/track_block.cu and
-#: csrc/correlate_ms.cu: the byte load, its bounds and convert (~5), the
-#: carrier NCO counts and turns (~5), two sin_turns with their products
-#: (~39), the Q40 code phase, three chip indices and lookups (~22), six
-#: products widened and summed in float64 (~18)
-OPS_PER_SAMPLE = 90
 
 
 @contextlib.contextmanager
@@ -271,11 +266,9 @@ def _kernel_wrappers():
     from softgnss_tpu_torch.track import pallas_kernel as pk
 
     return ((mk.build_frames, mk.track_block, mk.track_block_fused, pk.correlate_ms),
-            (*pallas_ablate.VARIANTS.values(), mega_vmem_bisect.track_block_stage,
-             builder_time.build_frames_word, builder_time.build_frames_vec4,
-             builder_time.build_frames_direct,
-             dma_probe.dma_probe, dma_probe.dma_probe_cta,
-             *pallas_probe.VARIANTS.values()))
+            (pallas_ablate.correlate_ms_stage, mega_vmem_bisect.track_block_stage,
+             builder_time.build_frames_vec4, builder_time.build_frames_direct,
+             dma_probe.dma_probe, *pallas_probe.VARIANTS.values()))
 
 
 def union_len(starts, length: int, limit: int) -> int:
@@ -292,7 +285,8 @@ def union_len(starts, length: int, limit: int) -> int:
 
 def block_bound(samples: int, n_bytes: int) -> tuple[float, str]:
     """Bound of B1 / B3 / B4 work: ``samples`` correlated samples at
-    OPS_PER_SAMPLE float32 operations, ``n_bytes`` moved."""
+    OPS_PER_SAMPLE float32 operations (the benchmark's count,
+    gnss_bench.roofline), ``n_bytes`` moved."""
     return bound_ms(n_bytes, samples * OPS_PER_SAMPLE)
 
 
@@ -361,17 +355,18 @@ B2_TARGET_US = 8.2
 
 
 def phase_b2(dev, card: str) -> dict:
-    """B2's designs through scripts.builder_time: the bulk design (the main
-    path's) and the first, bit-equal to the plain version in every case of
-    ``check_cases``, then timed in turns at r = 64, C = 8 and 12, L2
-    flushed (the headline: back to back after the flush) and warm; the
-    indexing call and a contiguous copy_ beside them."""
+    """B2 through scripts.builder_time: the bulk design (the main path's)
+    bit-equal to the plain version in every case of ``check_cases``, then
+    timed at r = 64, C = 8 and 12, L2 flushed (the headline: back to back
+    after the flush) and warm; the indexing call and a contiguous copy_
+    beside it."""
     from softgnss_tpu_torch.scripts import builder_time as s3
+    from softgnss_tpu_torch.track import cuda_lib
     from softgnss_tpu_torch.track import megakernel as mk
 
-    designs = ("bulk", "word")
+    designs = ("bulk",)
     worst = s3.check(dev, variants=designs)
-    print(f"  both designs bit-equal to the plain version in {len(s3.check_cases())} cases "
+    print(f"  bit-equal to the plain version in {len(s3.check_cases())} cases "
           f"(r = {s3.R}, 1, {s3.TAIL_R}; frames past both capture ends; view leads "
           f"{s3.LEADS} words; fast_config's {s3.fast_config().track_window // 4}-word window)")
     res = s3.measure(dev, variants=designs)
@@ -382,16 +377,13 @@ def phase_b2(dev, card: str) -> dict:
         bound = frames_bound(*args)
         lib = frames_library_ms(*args)
         t = {d: {k: float(np.mean(v)) for k, v in res[c][d].items()} for d in designs}
-        plan = mk.frames_plan(s3.R, c, args[3], args[4], n_sm=mk.sm_count(dev.index or 0))
+        plan = mk.frames_plan(s3.R, c, args[3], args[4],
+                              n_sm=cuda_lib.sm_count(dev.index or 0))
         print(f"  [{card}] C={c}: bulk {t['bulk']['cold'] * 1e3:.4f} us per block L2 flushed "
               f"({bound[0] / t['bulk']['cold']:.3f} of the {bound[0] * 1e3:.4f}-us bound), "
               f"alone {t['bulk']['cold_alone'] * 1e3:.4f}, warm {t['bulk']['warm'] * 1e3:.4f}; "
-              f"first design {t['word']['cold'] * 1e3:.4f} / {t['word']['cold_alone'] * 1e3:.4f}"
-              f" / {t['word']['warm'] * 1e3:.4f} ({bound[0] / t['word']['cold']:.3f} of the "
-              f"bound); indexing call {lib['cold'] * 1e3:.4f} flushed, {lib['warm'] * 1e3:.4f} "
-              f"warm; copy_ {res[c]['copy']['cold'] * 1e3:.4f} flushed; plan {plan}")
-        check(t["bulk"]["cold"] < t["word"]["cold"],
-              f"B2 C={c}: the bulk design is not faster than the first, L2 flushed")
+              f"indexing call {lib['cold'] * 1e3:.4f} flushed, {lib['warm'] * 1e3:.4f} warm; "
+              f"copy_ {res[c]['copy']['cold'] * 1e3:.4f} flushed; plan {plan}")
         out[c] = {"t": t, "bound": bound, "lib": lib, "plan": plan, "copy": res[c]["copy"],
                   "plain": res[c]["plain"], "turns": res[c]}
     c = s3.N_CHANNELS[0]
@@ -406,13 +398,7 @@ def phase_b2(dev, card: str) -> dict:
                ms_turns=o["turns"]["bulk"]["cold"], ms_cold_alone=o["t"]["bulk"]["cold_alone"],
                ms_warm=o["t"]["bulk"]["warm"], library_ms_warm=o["lib"]["warm"],
                copy_ms=o["copy"]["cold"], copy_ms_warm=o["copy"]["warm"],
-               first_design={"kernel": "build_frames_kernel", "ms": o["t"]["word"]["cold"],
-                             "ms_turns": o["turns"]["word"]["cold"],
-                             "ms_cold_alone": o["t"]["word"]["cold_alone"],
-                             "ms_warm": o["t"]["word"]["warm"]},
                by_channels={n: {"ms": x["t"]["bulk"]["cold"], "ms_warm": x["t"]["bulk"]["warm"],
-                                "first_design_ms": x["t"]["word"]["cold"],
-                                "first_design_ms_warm": x["t"]["word"]["warm"],
                                 "bound_ms": x["bound"][0]} for n, x in out.items()})
     return rec
 
@@ -791,18 +777,18 @@ def phase_b4(cfg, sig, sc, dev, log: str) -> dict:
     """B4 against its plain version through the per-ms route and call by
     call (bit-equal at every shape of b4_cases, over two launches and two
     replays of a CUDA graph); ptxas's resources of the correlate kernels
-    (no spills); B4 and its other designs timed in turns at the main
-    path's shapes (device, host and in-graph time per call, each S1 stage,
-    each cluster size); one profiler window over the per-ms route."""
-    import functools
-
+    (no spills); B4 timed at the main path's shapes (device, host and
+    in-graph time per call, each S1 stage, each cluster size in turns); one
+    profiler window over the per-ms route."""
     import torch
 
     from softgnss_tpu_torch.scripts import pallas_ablate as s1
     from softgnss_tpu_torch.scripts.pallas_probe import resources
     from softgnss_tpu_torch.scripts.timing import graph_marginal_ms
+    from softgnss_tpu_torch.track import cuda_lib
     from softgnss_tpu_torch.track import pallas_kernel as pk
 
+    n_sm = cuda_lib.sm_count(dev.index or 0)
     channels = truth_channels(sc, ["T"] * (N_SATS - 1) + ["-"])
     worst = hold_against_plain("B4", cfg, sig, channels, ("per_ms", pk.correlate_ms),
                                ("per_ms", pk.correlate_ms_plain))
@@ -811,11 +797,9 @@ def phase_b4(cfg, sig, sc, dev, log: str) -> dict:
         check(torch.equal(got, want), f"B4 {label}: differs from the plain version (max abs "
                                       f"diff {float((got - want).abs().max()):.3e})")
         check(torch.equal(pk.correlate_ms(*a), got), f"B4 {label}: two launches differ")
-        for v, fn in s1.VARIANTS.items():
-            check(torch.equal(fn("full", *a), want), f"S1 {v} full, {label}: differs")
-        print(f"  B4 bit-equal to its plain version, twice, {label} "
-              f"(plan {tuple(pk.correlate_plan(a[0], a[2].shape[0]))}); S1 "
-              f"{'/'.join(s1.VARIANTS)} full too")
+        check(torch.equal(s1.correlate_ms_stage("full", *a), want), f"S1 full, {label}: differs")
+        print(f"  B4 bit-equal to its plain version, twice, {label} (plan "
+              f"{tuple(pk.correlate_plan(a[0], a[2].shape[0], n_sm=n_sm))}); S1 full too")
     args = b4_args(cfg, sig, truth_channels(sc, ["T"] * N_SATS), dev)
     want = pk.correlate_ms_plain(*args)
     side = torch.cuda.Stream()
@@ -837,57 +821,49 @@ def phase_b4(cfg, sig, sc, dev, log: str) -> dict:
     for k, r in sorted(res.items()):
         print(f"  ptxas {k}: {r['registers']} registers, {r['smem']} B shared, spills "
               f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded")
-    check(len(res) >= 9 and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
-                                 for r in res.values()), "a correlate kernel spills")
+    check(len(res) == len(s1.STAGES) and all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                                             for r in res.values()),
+          f"{len(res)} correlate kernels in the ptxas log, or one spills")
     b4_res = [r for k, r in res.items() if "correlate_ms_kernelILi3E" in k]
     check(len(b4_res) == 1, f"B4's instantiation in the ptxas log: {len(b4_res)}")
 
-    # B4 and its first design, full, in turns: device, host, in a graph
-    designs = {"b4": pk.correlate_ms,
-               "two_pass": functools.partial(s1.correlate_ms_two_pass, "full")}
-    fulls = {v: (lambda f=f: f(*args)) for v, f in designs.items()}
-    t_dev = in_turns(lambda v: fulls[v](), list(fulls), 200)
-    t_host = {v: host_ms(fulls[v], 200) for v in fulls}
-    t_graph = {v: graph_marginal_ms(fulls[v]) for v in fulls}
-    for v in fulls:
-        print(f"  [{smi_line()}] {v:8s} one ms x {N_SATS} ch: device {us_list(t_dev[v])} us per "
-              f"call (in turns), host {t_host[v] * 1e3:.3f} us per wrapper call, in a CUDA graph "
-              f"{t_graph[v] * 1e3:.3f} us per call")
+    # B4: device, host, in a graph
+    def b4():
+        return pk.correlate_ms(*args)
+
+    t_dev = [cuda_ms(b4, 200, busy=True) for _ in range(2)]
+    t_host = host_ms(b4, 200)
+    t_graph = graph_marginal_ms(b4)
+    print(f"  [{smi_line()}] B4 one ms x {N_SATS} ch: device {us_list(t_dev)} us per call, host "
+          f"{t_host * 1e3:.3f} us per wrapper call, in a CUDA graph {t_graph * 1e3:.3f} us per "
+          "call")
     stages = s1.time_stages(args)
-    for v, per in stages.items():
-        print(f"  [{smi_line()}] S1 {v:8s} stages at the main path's shape, device / host / "
-              "graph us: " + "; ".join(
-                  f"{s} {t['device'] * 1e3:.3f} / {t['host'] * 1e3:.3f} / {t['graph'] * 1e3:.3f}"
-                  for s, t in per.items()))
+    print(f"  [{smi_line()}] S1 stages at the main path's shape, device / host / graph us: "
+          + "; ".join(f"{s} {t['device'] * 1e3:.3f} / {t['host'] * 1e3:.3f} / "
+                      f"{t['graph'] * 1e3:.3f}" for s, t in stages.items()))
     sizes = in_turns(lambda kn: s1.correlate_ms_stage("full", *args, ctas_per_channel=kn),
                      list(B4_SIZES), 200)
     for kn in B4_SIZES:
         print(f"  [{smi_line()}] {kn:2d} CTAs per channel "
               f"{tuple(pk.correlate_plan(cfg, N_SATS, kn))}: B4 {us_list(sizes[kn])} us per call")
 
-    t_route = {v: [] for v in designs}
-    for v in [*designs, *reversed(designs)]:
-        t_route[v].append(per_ms_route_s(cfg, sig, channels, dev, designs[v]))
+    t_route = [per_ms_route_s(cfg, sig, channels, dev, pk.correlate_ms) for _ in range(2)]
     print(f"  [{smi_line()}] per-ms route, {B4_ROUTE_MS} ms x {N_SATS} ch (scan.track_ms, host "
-          "clock, in turns): " + ", ".join(f"{v} {[round(t, 3) for t in ts]} s"
-                                          for v, ts in t_route.items()))
+          f"clock): {[round(t, 3) for t in t_route]} s")
     prof = b4_profile(cfg, sig, channels, dev)
-    ms = float(np.mean(t_dev["b4"]))
+    ms = float(np.mean(t_dev))
     plain_ms = cuda_ms(lambda: pk.correlate_ms_plain(*args), 20)
     bound = ms_bound(args[2], args[7], args[9])
     print(f"  one ms x {N_SATS} ch, all active: B4 {ms * 1e3:.3f} us of device time per launch, "
           f"plain {plain_ms:.4f} ms, bound {bound[0] * 1e3:.4f} us ({bound[1]})")
     rec = record("B4", "correlate_ms", "correlate_ms.cu", "softgnss_tpu/track/pallas_kernel.py:98",
                  worst, ms, plain_ms, bound, None)
-    rec.update(ms_turns=t_dev["b4"], host_ms=t_host["b4"], graph_ms=t_graph["b4"],
-               plan=list(pk.correlate_plan(cfg, N_SATS)), registers=b4_res[0]["registers"],
-               designs={v: {"ms": float(np.mean(t_dev[v])), "host_ms": t_host[v],
-                            "graph_ms": t_graph[v]} for v in fulls if v != "b4"},
-               stages_us={v: {s: {k: t * 1e3 for k, t in st.items()} for s, st in per.items()}
-                          for v, per in stages.items()},
+    rec.update(ms_turns=t_dev, host_ms=t_host, graph_ms=t_graph,
+               plan=list(pk.correlate_plan(cfg, N_SATS, n_sm=n_sm)),
+               registers=b4_res[0]["registers"],
+               stages_us={s: {k: t * 1e3 for k, t in st.items()} for s, st in stages.items()},
                us_by_ctas={kn: us_list(sizes[kn]) for kn in B4_SIZES},
-               per_ms_route_s={v: ts for v, ts in t_route.items()}, per_ms_ms=B4_ROUTE_MS,
-               per_ms_profile=prof)
+               per_ms_route_s=t_route, per_ms_ms=B4_ROUTE_MS, per_ms_profile=prof)
     return rec
 
 
@@ -938,7 +914,7 @@ def ms_bound(ptr, blk, active) -> tuple[float, str]:
 
 def phase_probes(dev, log: str) -> list[dict]:
     """S1-S5 through their modules: each stage, variant, pattern and
-    construct (S5 grid and dot in both designs) against its plain version,
+    construct (S5 conv in both designs) against its plain version,
     S5's library calls against the same plain versions, ptxas's resources
     of every S5 kernel (no spills), then the timings with the launch counts
     zeroed before and read after."""
@@ -954,18 +930,16 @@ def phase_probes(dev, log: str) -> list[dict]:
     probes = (s1, s2, s3, s4, s5)
     errs = [m.check(dev) for m in probes]
     print("  every S1-S4 stage, variant and load pattern bit-equal to its plain version (S4 at "
-          f"every cluster size and its first design); S5 constructs: max |kernel - plain| "
-          f"{errs[4]} (grid, each acc design at 1, 2, 3 and {s5.ACC_REPS} reps, each conv and "
-          "onehot design on the script's, seeded and receiver inputs, onehot at every warp "
-          "count: bit-equal; bdot, dot within the TF32 bound; two launches of dot, bdot, each "
-          "acc design and each conv and onehot design bit-equal)")
+          f"every cluster size); S5 constructs: max |kernel - plain| {errs[4]} (grid, acc at 1, "
+          f"2, 3 and {s5.ACC_REPS} reps, both conv designs and onehot on the script's, seeded "
+          "and receiver inputs, onehot at every warp count: bit-equal; bdot, dot within the TF32 "
+          "bound; two launches of dot, bdot, acc, both conv designs and onehot bit-equal)")
     print(f"  S5 library calls equal to the plain versions on the script's inputs; max |library "
           f"- plain| {s5.check_library(dev)} (bdot, dot on seeded inputs, TF32 allowed / "
           "default; conv, onehot at the receiver's geometry, sentinels included)")
     s4_res = s4.probe_resources(log)
     s5_res = s5.probe_resources(log)
-    ptxas = {**{f"dma_probe_kernel{k}" if k != "cta" else "dma_probe_cta_kernel": r
-                for k, r in s4_res.items()},
+    ptxas = {**{f"dma_probe_kernel{k}": r for k, r in s4_res.items()},
              **{f"{s5.kernel_of(label)} ({label})": r for label, r in s5_res.items()}}
     for kernel, r in ptxas.items():
         print(f"  ptxas {kernel}: {r['registers']} registers, {r['smem']} B static shared, "
@@ -988,9 +962,7 @@ def phase_probes(dev, log: str) -> list[dict]:
     print(f"  launches {launches}")
     r1, r2, r3, r4, r5 = res
     c = s1.N_CHANNELS[0]
-    for label in s5.ACC_LABELS:
-        print(f"  S5 {label} per-rep handoff: {r5[label]['step_us']:.4f} us "
-              f"({s5.ACC_HANDOFF[label]})")
+    print(f"  S5 acc per-rep handoff: {r5['acc']['step_us']:.4f} us")
     s5_targets(r5)
 
     # the bounds, at the inputs each probe timed (C = 8, r = 64)
@@ -1007,16 +979,15 @@ def phase_probes(dev, log: str) -> list[dict]:
     span = (r - 1) * spc + win
     b_s4 = bound_ms(union_len((4 * starts).tolist(), span, cap.shape[0]) + r * c * 8, r * c * win)
     torch.cuda.synchronize(dev)
-    ms_s4 = {label: float(np.mean(t["warm"])) for label, t in r4["turns"].items()}
-    print(f"  S4 direct at kN={s4.CTAS_PER_CHANNEL}: {ms_s4['direct']:.5f} ms per call (first "
-          f"design {ms_s4['cta']:.5f}, in turns), bound {b_s4[0]:.5f} ms ({b_s4[1]}): "
-          f"{b_s4[0] / ms_s4['direct']:.3f} of it; target 0.02 ms "
-          f"{'met' if ms_s4['direct'] <= 0.02 else 'missed'}")
+    direct = r4[("direct", 1, s4.CTAS_PER_CHANNEL)]
+    print(f"  S4 direct at kN={s4.CTAS_PER_CHANNEL}: {direct['warm']:.5f} ms per call, bound "
+          f"{b_s4[0]:.5f} ms ({b_s4[1]}): {b_s4[0] / direct['warm']:.3f} of it; target 0.02 ms "
+          f"{'met' if direct['warm'] <= 0.02 else 'missed'}")
 
     us = lambda ms, r=1: ms * 1e3 / r   # noqa: E731
     extra = [
-        {"us_per_launch": {n: {v: {s: {k: us(t) for k, t in r1[n][v][s].items()}
-                                   for s in s1.STAGES} for v in s1.VARIANTS} for n in r1}},
+        {"us_per_launch": {n: {s: {k: us(t) for k, t in r1[n][s].items()} for s in s1.STAGES}
+                           for n in r1}},
         {"us_per_ms": {f"C={n}/kN={k[0]}x{k[1]}": {s: us(r2[n][k][s], s2.R) for s in s2.STAGES}
                        for n in r2 for k in r2[n] if k != "plain"}},
         {"us_per_ms": {n: {v: {k: us(float(np.mean(t)), s3.R) for k, t in r3[n][v].items()}
@@ -1026,33 +997,21 @@ def phase_probes(dev, log: str) -> list[dict]:
                        for p, d in s4.PATTERNS for kn in s4.KN_SWEEP},
          "ctas_per_channel": s4.CTAS_PER_CHANNEL, "threads_per_cta": s4.THREADS,
          "ms_by_threads": r4["direct_by_threads"], "ms_r1": r4["direct_r1"],
-         "ms_turns": r4["turns"]["direct"]["warm"],
-         "ms_cold": float(np.mean(r4["turns"]["direct"]["cold"]))},
+         "ms_cold": direct["cold"]},
     ]
     recs = [
         ("S1", "correlate_ms_stage", "correlate_ms.cu", "scripts/pallas_ablate.py:49",
-         r1[c]["b4"]["full"]["device"], r1[c]["plain"], b_s1, None),
+         r1[c]["full"]["device"], r1[c]["plain"], b_s1, None),
         ("S2", "track_block_stage", "track_block.cu", "scripts/mega_vmem_bisect.py:45",
          r2[c][s2.launch_sizes(dev, c)[1]]["full"], r2[c]["plain"], b_s2, None),
         ("S3", "build_frames_vec4", "build_frames.cu", "scripts/builder_time.py:60",
          float(np.mean(r3[c]["vec4"]["cold"])), r3[c]["plain"], b_s3, lib_s3["cold"]),
         ("S4", "dma_probe", "dma_probe.cu", "scripts/dma_probe.py:34",
-         ms_s4["direct"], r4["plain"], b_s4, None),
+         direct["warm"], r4["plain"], b_s4, None),
     ]
     out = [{**record(kid, name, src, rep, err, ms, plain_ms, bound, lib),
             "launches": launches[name], **x}
            for (kid, name, src, rep, ms, plain_ms, bound, lib), err, x in zip(recs, errs, extra)]
-    # B4's first design, kept for S1's same-run comparison (its stages are
-    # in S1's us_per_launch)
-    out.insert(1, {**record("S1", "correlate_ms_two_pass", "correlate_ms.cu",
-                            "scripts/pallas_ablate.py:49", errs[0],
-                            r1[c]["two_pass"]["full"]["device"], r1[c]["plain"], b_s1, None),
-                   "launches": launches["correlate_ms_two_pass"]})
-    # S4's first design, timed in turns with direct at kN = 16
-    out.append({**record("S4", "dma_probe_cta", "dma_probe.cu", "scripts/dma_probe.py:34",
-                         errs[3], ms_s4["cta"], r4["plain"], b_s4, None),
-                "launches": launches["dma_probe_cta"], "ms_turns": r4["turns"]["cta"]["warm"],
-                "ms_cold": float(np.mean(r4["turns"]["cta"]["cold"]))})
     for label in s5.VARIANTS:
         name = s5.probe_of(label)
         t = r5[label]
@@ -1075,9 +1034,6 @@ def phase_probes(dev, log: str) -> list[dict]:
             rec.update({k: t[k] for k in ("ms_cold", "graph_ms", "library_ms_cold",
                                           "library_graph_ms")},
                        **{case: t[case] for case in s5.RECEIVER_CASES if case in t})
-        if label == "acc":                # every design's time and step beside the kept one
-            rec["designs"] = {x: {"ms": r5[x]["ms"], "ms_reps": r5[x]["ms_reps"],
-                                  "us_per_rep_step": r5[x]["step_us"]} for x in s5.ACC_LABELS}
         out.append(rec)
     return out
 
@@ -1086,27 +1042,25 @@ def s5_targets(r5: dict) -> None:
     """Print whether S5 onehot and conv met their targets: at the script's
     shape onehot <= 2.6 us and conv within grid's launch floor (<= 2.24
     us); at the receiver's geometry, L2 flushed, onehot <= 3.3 us (half its
-    1.65-us bound) and twice as fast as its first design, conv <= 23.5 us
-    (half its 11.74-us bound) and no slower than its library call."""
+    1.65-us bound), conv <= 23.5 us (half its 11.74-us bound) and no
+    slower than its library call."""
     us = 1e3
-    one, walk = r5["onehot"], r5["onehot_walk"]
+    one = r5["onehot"]
     conv, loop = r5["conv"], r5["conv_loop"]
     rows = [
         ("onehot, script's shape", one["ms"] * us, 2.6, one["ms"] * us <= 2.6),
         ("conv, script's shape", conv["ms"] * us, 2.24, conv["ms"] * us <= 2.24),
         ("onehot, receiver's geometry, flushed", one["receiver"]["ms_cold"] * us, 3.3,
-         one["receiver"]["ms_cold"] * us <= 3.3
-         and walk["receiver"]["ms_cold"] >= 2 * one["receiver"]["ms_cold"]),
+         one["receiver"]["ms_cold"] * us <= 3.3),
         ("conv, receiver's geometry, flushed", conv["receiver"]["ms_cold"] * us, 23.5,
          conv["receiver"]["ms_cold"] * us <= 23.5
          and conv["receiver"]["ms_cold"] <= conv["receiver"]["library_ms_cold"]),
     ]
     for what, got, limit, met in rows:
         print(f"  S5 target {what}: {got:.3f} us against {limit} us: {'met' if met else 'missed'}")
-    marg = {x: r5[x]["receiver"]["ms_cold_marginal"] * us for x in ("onehot", "onehot_walk",
-                                                                     "conv", "conv_loop")}
-    print(f"  S5 at the receiver's geometry, flushed: onehot_walk "
-          f"{walk['receiver']['ms_cold'] * us:.3f} us, conv_loop "
+    marg = {x: r5[x]["receiver"]["ms_cold_marginal"] * us for x in ("onehot", "conv",
+                                                                     "conv_loop")}
+    print(f"  S5 at the receiver's geometry, flushed: conv_loop "
           f"{loop['receiver']['ms_cold'] * us:.3f} us, conv's library call "
           f"{conv['receiver']['library_ms_cold'] * us:.3f} us; flushed back to back {marg}; "
           f"grid at the script's shape {r5['grid']['ms'] * us:.3f} us")
@@ -1276,7 +1230,7 @@ def phase_profile(cfg, sig, main, card: str) -> dict:
           f"device time B1 {out['b1_share']:.4f}, B2 {out['b2_share']:.4f} ({len(spans)} device "
           f"events); from the first B1 launch to the last: {out['loop_s']:.3f} s, idle share "
           f"{out['loop_idle_share']:.4f}")
-    print(f"  [{card}] B2 in situ ({mk.FRAMES_KERNELS[0]}): {out['b2_us_per_call']:.4f} us per "
+    print(f"  [{card}] B2 in situ ({mk.FRAMES_KERNEL}): {out['b2_us_per_call']:.4f} us per "
           f"call (b2_share x busy / {b2_launches} launches; {out['b2_us_per_event']:.4f} us per "
           f"each of the trace's {b2_events} B2 events)")
     return out
@@ -1989,8 +1943,9 @@ def main(argv=None) -> int:
         return 2
     from softgnss_tpu_torch import default_config
     from softgnss_tpu_torch.scenario import build_scenario, synthesize_scenario
+    from softgnss_tpu_torch.scripts.pallas_probe import PROBE_LIBRARY
     from softgnss_tpu_torch.signals.synth import amplitude_for_cn0
-    from softgnss_tpu_torch.track import megakernel as mk
+    from softgnss_tpu_torch.track import cuda_lib
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2003,11 +1958,12 @@ def main(argv=None) -> int:
     with phase("build"):
         from softgnss_tpu_torch import native
 
-        lib = mk.load_library()
-        print(f"  nvcc build {lib.build_s:.2f} s -> {lib.path}")
-        for line in lib.log.splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                print("  " + line.strip())
+        lib, probe_lib = cuda_lib.RECEIVER.load(), PROBE_LIBRARY.load()
+        for built in (lib, probe_lib):
+            print(f"  nvcc build {built.build_s:.2f} s -> {built.path}")
+            for line in built.log.splitlines():
+                if "Compiling entry" in line or "registers" in line or "spill" in line:
+                    print("  " + line.strip())
         print(f"  native IO library (packed formats, probe statistics): "
               f"{'used' if native.used() else 'not built: io takes its NumPy versions'}")
     with phase("nco"):
@@ -2027,7 +1983,7 @@ def main(argv=None) -> int:
     with phase("B4 vs plain"):
         rec_b4 = phase_b4(cfg, sig, sc, dev, lib.log)
     with phase("probes"):
-        rec_probes = phase_probes(dev, lib.log)
+        rec_probes = phase_probes(dev, probe_lib.log)
     with phase("main path"):
         main_res, launches, _ = phase_main(cfg, sig, sc, card)
     with phase("profile"):

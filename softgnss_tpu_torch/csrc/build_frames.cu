@@ -60,20 +60,19 @@
 // int4 from two 16-byte read-only loads of the capture, the channels'
 // overlapping windows then hitting in L1.
 //
-// The first design (build_frames_kernel, sg_build_frames) stays to be
-// timed beside it: one CTA of 256 threads per (ms, channel), one 4-byte
-// load and store per thread and iteration, ~37 dependent iterations.
-//
-// build_frames_vec4_kernel is the 16-byte variant of the first design, the
-// counterpart of scripts/builder_time.py's roll-width variants
-// (``_builder_var``): each thread stores one int4 of the frame.  Frame
+// build_frames_vec4_kernel (sg_build_frames_vec4) is a 16-byte variant of
+// B2's first design (one CTA of 256 threads per (ms, channel), one 4-byte
+// load and store per thread and iteration, which lost every timing to the
+// bulk design and was deleted), the counterpart of scripts/builder_time.py's
+// roll-width variants (``_builder_var``): each thread stores one int4 of
+// the frame.  Frame
 // (j, c) starts at word starts[c] + j*spc_w, which is 4-byte aligned only,
 // so the kernel copies a scalar head up to the frame's first 16-byte
 // boundary and a scalar tail, and builds each int4 of the body from the
 // two aligned int4s of the capture that hold it (the shift is the same for
 // the whole frame).  An int4 whose source leaves the capture is copied
 // word by word with the zero fill, so the variant is bit-equal to the
-// one-word kernel.
+// plain version.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -81,21 +80,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-__global__ void __launch_bounds__(kThreads)
-build_frames_kernel(const int32_t* __restrict__ cap, long long n_words,
-                    const long long* __restrict__ starts,
-                    int32_t* __restrict__ frames, int n_ch, int win_w,
-                    long long spc_w) {
-  const int j = blockIdx.x;
-  const int c = blockIdx.y;
-  const long long base = starts[c] + static_cast<long long>(j) * spc_w;
-  int32_t* out = frames + (static_cast<long long>(j) * n_ch + c) * win_w;
-  for (int i = threadIdx.x; i < win_w; i += kThreads) {
-    const long long s = base + i;
-    out[i] = (s >= 0 && s < n_words) ? cap[s] : 0;
-  }
-}
 
 __device__ __forceinline__ int32_t word_at(const int32_t* __restrict__ cap, long long n_words,
                                            long long s) {
@@ -402,21 +386,8 @@ build_frames_direct_kernel(const int32_t* __restrict__ cap, long long n_words,
 
 }  // namespace
 
-// the first design
-extern "C" int sg_build_frames(const void* cap, long long n_words,
-                               const void* starts, void* frames, int r,
-                               int n_ch, int win_w, long long spc_w,
-                               void* stream) {
-  if (r <= 0 || n_ch <= 0 || win_w <= 0) return 0;
-  const dim3 grid(r, n_ch);
-  build_frames_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(cap), n_words,
-      static_cast<const long long*>(starts), static_cast<int32_t*>(frames),
-      n_ch, win_w, spc_w);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the 16-byte variant; arguments as sg_build_frames
+// the 16-byte variant: a grid of (r, n_ch) CTAs of kThreads threads; cap
+// and frames 16-byte aligned (the wrapper checks cap)
 extern "C" int sg_build_frames_vec4(const void* cap, long long n_words,
                                     const void* starts, void* frames, int r,
                                     int n_ch, int win_w, long long spc_w,

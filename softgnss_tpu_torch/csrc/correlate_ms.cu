@@ -57,11 +57,9 @@
 // design in the same runs and lost: a cluster's CTAs must share one GPC,
 // and at one CTA per SM the eighth 16-CTA cluster waits for a second wave.)
 //
-// The first design (correlate_partial_kernel + correlate_reduce_kernel,
-// two launches, the float64 partial rows in a scratch the host allocates,
-// the whole code table staged in shared memory, byte loads) stays as
-// sg_correlate_ms_two_pass for the same-run comparison of
-// scripts/pallas_ablate.py.
+// The first design (two launches: CTA partial rows in a scratch the host
+// allocated per call, then a reduce kernel; the whole code table staged in
+// shared memory, byte loads) lost every timing to this one and was deleted.
 //
 // Stage ablation (the counterpart of scripts/pallas_ablate.py's
 // ``make_fn``, which stripped the TPU kernel stage by stage): ``kStage``
@@ -72,7 +70,7 @@
 // integers into i_e (early), i_l (late) and q_e (prompt), with no lookup;
 // kFull is B4.  The per-ms route launches the kFull instantiation
 // (sg_correlate_ms), and sg_correlate_ms_stage(kFull) launches that same
-// instantiation.  The two-pass design has the same stages.
+// instantiation.
 //
 // Numerics as track_block.cu: built with -fmad=false; the sine polynomial
 // coefficients are the float32 values of signals.nco.sin_turns.
@@ -89,7 +87,6 @@ constexpr int kWord = 4;             // samples per thread and step: one 32-bit 
 constexpr int kMaxThreads = 1024;    // launch bounds of correlate_ms_kernel
 constexpr int kMaxVecPerCta = 512;   // 16-byte vectors a CTA stages per pass (8 KB)
 constexpr int kMaxCtas = 64;         // CTAs per channel
-constexpr int kTwoPassThreads = 256;
 
 // stages of the ablation (see the header)
 constexpr int kNoop = 0;
@@ -121,9 +118,8 @@ __device__ __forceinline__ double signed_by(double d, float s) {
 }
 
 // one sample's terms added to the six sums [i_e, i_p, i_l, q_e, q_p, q_l]
-// as ``kStage`` keeps them; ``code(i)`` reads chip i of the padded code;
-// ``kChipSigns``: +-1 chips take the path of two conversions
-template <int kStage, bool kChipSigns, typename Code>
+// as ``kStage`` keeps them; ``code(i)`` reads chip i of the padded code
+template <int kStage, typename Code>
 __device__ __forceinline__ void add_sample(double (&acc)[6], float x, unsigned int counts,
                                            long long tq, long long half_q, Code code) {
   const float turns = __int_as_float(static_cast<int>(0x3F800000u | (counts >> 9))) - 1.0f;
@@ -142,7 +138,7 @@ __device__ __forceinline__ void add_sample(double (&acc)[6], float x, unsigned i
     const float e = code(chip_index(tq - half_q));
     const float pr = code(chip_index(tq));
     const float l = code(chip_index(tq + half_q));
-    if (kChipSigns && fabsf(e) == 1.0f && fabsf(pr) == 1.0f && fabsf(l) == 1.0f) {
+    if (fabsf(e) == 1.0f && fabsf(pr) == 1.0f && fabsf(l) == 1.0f) {
       // +-1 chips (every C/A table): each float32 product is +-ib or +-qb
       // exactly, so its float64 value is the widened ib or qb with the
       // chip's sign; two conversions instead of six (the conversion pipe
@@ -202,27 +198,6 @@ __device__ __forceinline__ double cta_sum_butterfly(const double (&acc)[6],
 #pragma unroll
     for (int i = 0; i < kMaxThreads / 32; ++i)
       if (i < warps) t += red[tid][i];
-  }
-  return t;
-}
-
-// The first design's CTA sums: a shuffle tree in each warp, then the warps
-// in order (threads 0..5 hold sum f = tid; ``red`` is [6][warps] shared)
-__device__ __forceinline__ double cta_sum(double (&acc)[6], double (*red)[kMaxThreads / 32]) {
-  const int tid = threadIdx.x;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int f = 0; f < 6; ++f) acc[f] += __shfl_down_sync(0xffffffffu, acc[f], off);
-  }
-  if ((tid & 31) == 0) {
-#pragma unroll
-    for (int f = 0; f < 6; ++f) red[f][tid >> 5] = acc[f];
-  }
-  __syncthreads();
-  double t = 0.0;
-  if (tid < 6) {
-    for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i) t += red[tid][i];
   }
   return t;
 }
@@ -334,7 +309,7 @@ correlate_ms_kernel(const int8_t* __restrict__ cap, long long n_cap,
         for (int j = 0; j < kWord; ++j) {
           if (j >= lo && j < hi) {
             const float x = static_cast<float>(static_cast<int8_t>(word >> (8 * j)));
-            add_sample<kStage, true>(acc, x, counts, tq, half_q, code);
+            add_sample<kStage>(acc, x, counts, tq, half_q, code);
           }
           counts += w;
           tq += st;
@@ -366,69 +341,6 @@ correlate_ms_kernel(const int8_t* __restrict__ cap, long long n_cap,
     out[c * 6 + tid] = static_cast<float>(s);
   }
   if (tid == 0) tickets[c] = 0u;  // ready for the next launch (and graph replay)
-}
-
-// --- the first design: two launches ----------------------------------------
-
-// partial[(c * n_cta + b) * 6 + f]: CTA b's float64 sum f of channel c
-template <int kStage>
-__global__ void __launch_bounds__(kTwoPassThreads)
-correlate_partial_kernel(const int8_t* __restrict__ cap, long long n_cap,
-                         const long long* __restrict__ ptr,
-                         const int32_t* __restrict__ carr_phase,
-                         const int32_t* __restrict__ carr_w,
-                         const long long* __restrict__ rem,
-                         const long long* __restrict__ step,
-                         const long long* __restrict__ blk,
-                         const float* __restrict__ code_pads,
-                         const uint8_t* __restrict__ active, long long half_q,
-                         double* __restrict__ partial) {
-  const int b = blockIdx.x;
-  const int n_cta = gridDim.x;
-  const int c = blockIdx.y;
-  const int tid = threadIdx.x;
-  if (!active[c]) return;  // the reduce kernel writes the zeros
-  if constexpr (kStage == kNoop) {
-    if (tid < 6) partial[(static_cast<long long>(c) * n_cta + b) * 6 + tid] = 0.0;
-    return;
-  }
-
-  __shared__ float pad[kPad];
-  __shared__ double red[6][kMaxThreads / 32];
-  if constexpr (kStage == kFull) {
-    for (int i = tid; i < kPad; i += kTwoPassThreads) pad[i] = code_pads[c * kPad + i];
-    __syncthreads();
-  }
-  const auto code = [](int i) { return pad[i]; };  // shared memory: static, no capture
-
-  const long long p0 = ptr[c], rem0 = rem[c], st = step[c], n = blk[c];
-  const unsigned int cp = static_cast<unsigned int>(carr_phase[c]);
-  const unsigned int w = static_cast<unsigned int>(carr_w[c]);
-  double acc[6] = {0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
-  const long long stride = static_cast<long long>(n_cta) * kTwoPassThreads;
-  for (long long k = static_cast<long long>(b) * kTwoPassThreads + tid; k < n; k += stride) {
-    const long long s = p0 + k;
-    if (s < 0 || s >= n_cap) continue;  // outside the capture: a zero sample
-    add_sample<kStage, false>(acc, static_cast<float>(cap[s]), cp + w * static_cast<unsigned int>(k),
-                       rem0 + st * k, half_q, code);
-  }
-  const double t = cta_sum(acc, red);
-  if (tid < 6) partial[(static_cast<long long>(c) * n_cta + b) * 6 + tid] = t;
-}
-
-// out[c * 6 + f] = float32(sum over b, in order, of partial[c, b, f])
-__global__ void correlate_reduce_kernel(const double* __restrict__ partial,
-                                        const uint8_t* __restrict__ active,
-                                        int n_cta, float* __restrict__ out) {
-  const int c = blockIdx.x;
-  const int f = threadIdx.x;
-  if (f >= 6) return;
-  double t = 0.0;
-  if (active[c]) {
-    const double* row = partial + static_cast<long long>(c) * n_cta * 6 + f;
-    for (int b = 0; b < n_cta; ++b) t += row[b * 6];
-  }
-  out[c * 6 + f] = static_cast<float>(t);
 }
 
 // --- launches ----------------------------------------------------------------
@@ -478,20 +390,6 @@ int launch_one_pass(const Args& a, int kn, int threads, int vec_per_cta, void* s
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kStage>
-int launch_two_pass(const Args& a, int n_cta, void* partial) {
-  if (n_cta < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (a.n_ch <= 0) return 0;
-  correlate_partial_kernel<kStage><<<dim3(n_cta, a.n_ch), kTwoPassThreads, 0, a.stream>>>(
-      a.cap, a.n_cap, a.ptr, a.carr_phase, a.carr_w, a.rem, a.step, a.blk, a.code_pads,
-      a.active, a.half_q, static_cast<double*>(partial));
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  correlate_reduce_kernel<<<a.n_ch, 32, 0, a.stream>>>(static_cast<const double*>(partial),
-                                                       a.active, n_cta, a.out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 #define SG_BY_STAGE(STAGE, CALL)                             \
   switch (STAGE) {                                           \
     case kNoop: { constexpr int kS = kNoop; return CALL; }   \
@@ -533,17 +431,4 @@ extern "C" int sg_correlate_ms_stage(int stage, const void* cap, long long n_cap
   const Args a = make_args(cap, n_cap, ptr, carr_phase, carr_w, rem, step, blk, code_pads, active,
                            half_q, n_ch, out, stream);
   SG_BY_STAGE(stage, (launch_one_pass<kS>(a, kn, threads, vec_per_cta, scratch, tickets)))
-}
-
-// The first design stripped to ``stage``: two launches, ``n_cta`` CTAs of
-// 256 threads per channel, ``partial`` an (n_ch, n_cta, 6) float64 scratch
-extern "C" int sg_correlate_ms_two_pass(int stage, const void* cap, long long n_cap,
-                                        const void* ptr, const void* carr_phase,
-                                        const void* carr_w, const void* rem, const void* step,
-                                        const void* blk, const void* code_pads,
-                                        const void* active, long long half_q, int n_ch,
-                                        int n_cta, void* partial, void* out, void* stream) {
-  const Args a = make_args(cap, n_cap, ptr, carr_phase, carr_w, rem, step, blk, code_pads, active,
-                           half_q, n_ch, out, stream);
-  SG_BY_STAGE(stage, (launch_two_pass<kS>(a, n_cta, partial)))
 }

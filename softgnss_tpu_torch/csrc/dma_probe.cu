@@ -60,10 +60,10 @@
 // every SM.  What is left is the launch of the clusters and the latency of
 // a few dependent loads per warp and ms.
 //
-// The first design (dma_probe_cta_kernel, sg_dma_probe_cta) stays to be
-// timed beside it: one CTA of 512 threads per channel, thread-strided byte
-// loads from global memory and a CTA sum with two barriers per ms; 8 of 132
-// SMs busy at C = 8.
+// The first design (one CTA of 512 threads per channel, thread-strided
+// byte loads from global memory and a CTA sum with two barriers per ms; 8
+// of 132 SMs busy at C = 8) lost every timing to ``direct`` and was
+// deleted.
 //
 // Shared memory: one slot is chunk + 16 bytes (38 336 at kN = 1 at the
 // reference front end), so a staged pattern takes kDepth slots plus the
@@ -79,8 +79,6 @@ namespace {
 
 constexpr int kMaxThreads = 1024;       // launch bounds of dma_probe_kernel
 constexpr int kMaxSmem = 232448;        // dynamic shared memory a CTA can use
-constexpr int kFirstThreads = 512;      // the first design's CTA
-constexpr int kFirstWarps = kFirstThreads / 32;
 constexpr int kDirect = 0;
 constexpr int kCpAsync = 1;
 constexpr int kBulk = 2;
@@ -327,42 +325,6 @@ int launch(const void* cap, long long n_cap, const void* starts_w, void* sums, i
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
-// --- the first design: one CTA of 512 threads per channel -------------------
-
-// the CTA's exact sum of one int per thread, valid in thread 0; ends in a
-// barrier, so the next ms may start after it
-__device__ __forceinline__ long long block_sum(int v, long long* red) {
-  v = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  long long t = 0;
-  if (threadIdx.x == 0)
-    for (int i = 0; i < kFirstWarps; ++i) t += red[i];
-  __syncthreads();
-  return t;
-}
-
-__global__ void __launch_bounds__(kFirstThreads)
-dma_probe_cta_kernel(const int8_t* __restrict__ cap, long long n_cap,
-                     const long long* __restrict__ starts_w, long long* __restrict__ sums, int r,
-                     int n_ch, int win, int spc) {
-  __shared__ long long red[kFirstWarps];
-  const int c = blockIdx.x;
-  const long long start_b = 4 * starts_w[c];
-  for (int j = 0; j < r; ++j) {
-    const long long off = start_b + static_cast<long long>(j) * spc;
-    // the window bytes [lo, hi) inside the capture; the rest reads as zero
-    const int lo = static_cast<int>(min(max(-off, 0LL), static_cast<long long>(win)));
-    const int hi = static_cast<int>(max(min(n_cap - off, static_cast<long long>(win)),
-                                        static_cast<long long>(lo)));
-    const int8_t* src = cap + off;
-    int v = 0;
-    for (int k = lo + threadIdx.x; k < hi; k += kFirstThreads) v += src[k];
-    const long long t = block_sum(v, red);
-    if (threadIdx.x == 0) sums[static_cast<long long>(j) * n_ch + c] = t;
-  }
-}
-
 }  // namespace
 
 // cap: (n_cap,) int8 capture, 16-byte aligned; window bytes outside it
@@ -388,15 +350,4 @@ extern "C" int sg_dma_probe(int pattern, int depth, int kn, int threads, int chu
   if (pattern == kBulk && depth == 4) SG_LAUNCH(kBulk, 4)
 #undef SG_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The first design: arguments as sg_dma_probe's direct pattern, one CTA of
-// 512 threads per channel
-extern "C" int sg_dma_probe_cta(const void* cap, long long n_cap, const void* starts_w, void* sums,
-                                int r, int n_ch, int win, int spc, void* stream) {
-  if (r <= 0 || n_ch <= 0 || win <= 0) return 0;
-  dma_probe_cta_kernel<<<n_ch, kFirstThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(cap), n_cap, static_cast<const long long*>(starts_w),
-      static_cast<long long*>(sums), r, n_ch, win, spc);
-  return static_cast<int>(cudaGetLastError());
 }

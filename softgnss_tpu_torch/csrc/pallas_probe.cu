@@ -11,9 +11,7 @@
 // fori loop (_k_dot via dot2d).  Each kernel here computes what its TPU
 // kernel computes, at the script's shapes:
 //   grid   — o = x + 1, one CTA of 256 threads per (8, 128) block, each
-//            thread moving one 16-byte float4 (probe_grid_kernel); the
-//            first design, a 4-pass loop of scalar loads and stores per
-//            thread, is kept as probe_grid_loop_kernel;
+//            thread moving one 16-byte float4 (probe_grid_kernel);
 //   acc    — o[r] = sum_i sum_j x[8i + r, j], (64, 128) -> (8,): on the TPU
 //            the grid runs in order and the sum stays in VMEM; on Hopper
 //            the eight blocks run at once, so they form ONE 8-CTA thread
@@ -23,11 +21,8 @@
 //            stores its partial into rank 0's shared memory by st.async,
 //            completing on rank 0's mbarrier, and a consumer warp of rank
 //            0 frees the slot with a remote mbarrier arrive: no cluster
-//            barrier per rep.  B1's former handoff (one cluster barrier per
-//            rep, parity slots, probe_acc_parity_kernel) and the first
-//            design (two cluster.sync() per rep, probe_acc_sync_kernel)
-//            stay to be timed beside it (section 2).  ``reps`` repeats the
-//            step: its cost per rep is a handoff a cluster pays per ms;
+//            barrier per rep.  ``reps`` repeats the step: its cost per rep
+//            is a handoff a cluster pays per ms;
 //   conv   — __int2float_rn, elementwise, 16-byte vectors, a grid sized
 //            by the wrapper's plan (probe_conv_kernel); the first design,
 //            a grid-stride loop of 4-byte loads, is kept as
@@ -35,27 +30,25 @@
 //   onehot — o[c, k] = sum_w [h[c, w] == k] * b[c, w], one warp per row c:
 //            each lane sums its run of columns into its own row of a
 //            per-warp table in shared memory, then lane k sums bin k over
-//            the lanes that touched it (probe_onehot_kernel); the first
-//            design, one CTA per row whose thread k walks every column, is
-//            kept as probe_onehot_walk_kernel (section 4);
+//            the lanes that touched it (probe_onehot_kernel, section 4);
 //   bdot   — batched (B, 8, K) @ (B, K, 8) on the tensor cores by hand
 //            (mma.sync.aligned.m16n8k8 TF32, float32 accumulation, rows
 //            8..15 of the m16 tile zero): batch i is one 8 x 8 output tile,
 //            so probe_dot_kernel runs it, one CTA per batch on the grid's
-//            y index, steps = 1; the first design, one warp per batch
-//            walking K from global memory, is kept as
-//            probe_bdot_chain_kernel;
+//            y index, steps = 1;
 //   dot    — steps * (a @ b), the ``steps``-step loop inside the kernel
 //            as the TPU kernel's fori_loop: one CTA of 8 warps per 8 x 8
 //            output tile, its operands staged on chip once and K split
-//            across the warps (probe_dot_kernel, section 6 below); the
-//            first design, one warp per tile walking all of K from global
-//            memory, is kept as probe_dot_chain_kernel.
+//            across the warps (probe_dot_kernel, section 6 below).
+//
+// Every probe was redesigned; the first designs of grid, acc, onehot,
+// bdot and dot (and B1's former acc handoff, one cluster barrier per rep)
+// lost every timing to these and were deleted.  conv's first design stays
+// (section 3): it is faster at the script's shape and slower at B2's.
 //
 // Sums that must be bit-equal to the plain versions (acc, onehot) are
 // taken in float64 in a fixed order and rounded once; the plain versions
-// in scripts/pallas_probe.py repeat that order (each onehot design its
-// own).  bdot and dot round their inputs to TF32 (cvt.rna), so they are
+// in scripts/pallas_probe.py repeat that order.  bdot and dot round their inputs to TF32 (cvt.rna), so they are
 // held to 2^-10 * sum_k |a_ik b_kj|.
 //
 // What bounds them on the H100 at the script's shapes: nothing but the
@@ -79,15 +72,13 @@ constexpr int kBlockRows = 8;    // rows of one (8, 128) block
 constexpr int kCols = 128;
 constexpr int kCluster = 8;      // CTAs of the acc cluster: the script's grid
 constexpr int kBins = 32;        // one-hot bins
-constexpr int kMaxWidth = 1024;  // one-hot row width the shared copy holds
 
 // --- 1. grid ---------------------------------------------------------------
 
 // What bounds it: 64 KB in and out (0.02 us at 3.35 TB/s) against a launch
 // of ~2 us, so only the launch and one round trip to memory should remain.
-// The first design's loop below runs four passes of 4-byte loads and
-// stores per thread (its bound, blockDim.x, is known only at run time).
-// Here one CTA still takes one (8, 128) block, the TPU grid, and its 256
+// The first design ran four passes of 4-byte loads and stores per thread
+// (its bound, blockDim.x, known only at run time).  Here one CTA still takes one (8, 128) block, the TPU grid, and its 256
 // threads each move one float4 (neighbouring threads on neighbouring 16
 // bytes): one load and one store per thread, no loop.  The wrapper requires x to be
 // contiguous and 16-byte aligned (o is allocated so).
@@ -104,44 +95,23 @@ probe_grid_kernel(const float4* __restrict__ x, float4* __restrict__ o) {
   o[i] = v;
 }
 
-// The first design, kept to be timed beside it
-__global__ void __launch_bounds__(256)
-probe_grid_loop_kernel(const float* __restrict__ x, float* __restrict__ o) {
-  const long long base = static_cast<long long>(blockIdx.x) * kBlockRows * kCols;
-  for (int i = threadIdx.x; i < kBlockRows * kCols; i += blockDim.x) o[base + i] = x[base + i] + 1.0f;
-}
-
 // --- 2. acc: one 8-CTA cluster, DSMEM reduction ---------------------------
 //
-// Three designs of the same sum, each one 8-CTA cluster run ``reps`` times
-// in one launch: warp w < 8 of CTA ``rank`` sums row 8*rank + w
-// (row_sum), and rank 0 sums the 8 ranks' partials of row w in rank order
-// and rounds once.  They differ in how a rep's partials reach rank 0 and
-// how a rank learns that it may overwrite them:
-//   probe_acc_kernel        — a one-sided push: each warp stores its
-//                             partial straight into rank 0's slot
-//                             [rep & 1][rank][w] by st.async, whose
-//                             completion counts its 8 bytes on rank 0's
-//                             ``full`` mbarrier of the slot (armed for the
-//                             8 x 64 bytes of a rep); a ninth warp of rank
-//                             0, the consumer, waits on it
-//                             (try_wait.parity), reads the slot from its
-//                             own shared memory, arms the slot for the rep
-//                             two on and arrives remotely on each rank's
-//                             ``empty`` mbarrier of the slot, on which that
-//                             rank's warps wait before they reuse the slot.
-//                             A producer/consumer ring: one cluster barrier
-//                             at the start (the mbarriers initialised),
-//                             none per rep;
-//   probe_acc_parity_kernel — B1's former handoff: each rank
-//                             writes its partials into its own slot of the
-//                             rep's parity, ONE cluster barrier per rep,
-//                             rank 0 reads the ranks' slots through DSMEM;
-//                             the parity keeps a fast rank from
-//                             overwriting a slot rank 0 still reads; one
-//                             last barrier keeps the peers resident;
-//   probe_acc_sync_kernel   — the first design: one slot per rank between
-//                             two cluster barriers per rep.
+// One 8-CTA cluster run ``reps`` times in one launch: warp w < 8 of CTA
+// ``rank`` sums row 8*rank + w (row_sum), and rank 0 sums the 8 ranks'
+// partials of row w in rank order and rounds once.  A rep's partials reach
+// rank 0 by a one-sided push (probe_acc_kernel): each warp stores its
+// partial straight into rank 0's slot [rep & 1][rank][w] by st.async,
+// whose completion counts its 8 bytes on rank 0's ``full`` mbarrier of the
+// slot (armed for the 8 x 64 bytes of a rep); a ninth warp of rank 0, the
+// consumer, waits on it (try_wait.parity), reads the slot from its own
+// shared memory, arms the slot for the rep two on and arrives remotely on
+// each rank's ``empty`` mbarrier of the slot, on which that rank's warps
+// wait before they reuse the slot.  A producer/consumer ring: one cluster
+// barrier at the start (the mbarriers initialised), none per rep.  The
+// first design (one slot per rank between two cluster barriers per rep)
+// and B1's former handoff (ONE cluster barrier per rep, parity slots read
+// through DSMEM) lost to it and were deleted.
 // What the push's design had to get right (PERF.md section 6): the
 // consumer is a warp of its own, since rank 0's warp 0 both summing its row
 // and draining the slot put the two in series (1.72 us per rep, slower
@@ -262,49 +232,6 @@ probe_acc_kernel(const float* x, float* __restrict__ o, int reps) {
   }
 }
 
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kBlockRows * 32)
-probe_acc_parity_kernel(const float* x, float* __restrict__ o, int reps) {
-  __shared__ double part[2][kBlockRows];  // this rank's partials of rep, in slot rep & 1
-  cg::cluster_group cluster = cg::this_cluster();
-  const unsigned rank = cluster.block_rank();
-  const int w = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float* row = x + (static_cast<long long>(rank) * kBlockRows + w) * kCols;
-  for (int rep = 0; rep < reps; ++rep) {
-    const double v = row_sum(row, lane);
-    if (lane == 0) part[rep & 1][w] = v;
-    cluster.sync();  // every rank's partials of rep are written
-    if (rank == 0 && threadIdx.x < kBlockRows) {
-      double s = *cluster.map_shared_rank(&part[rep & 1][threadIdx.x], 0);
-      for (int q = 1; q < kCluster; ++q) s += *cluster.map_shared_rank(&part[rep & 1][threadIdx.x], q);
-      o[threadIdx.x] = static_cast<float>(s);
-    }
-  }
-  cluster.sync();  // peers stay resident until rank 0 has read the last rep
-}
-
-// The first design, kept to be timed beside them
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kBlockRows * 32)
-probe_acc_sync_kernel(const float* x, float* __restrict__ o, int reps) {
-  __shared__ double partials[kBlockRows];
-  cg::cluster_group cluster = cg::this_cluster();
-  const unsigned rank = cluster.block_rank();
-  const int w = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float* row = x + (static_cast<long long>(rank) * kBlockRows + w) * kCols;
-  for (int rep = 0; rep < reps; ++rep) {
-    const double v = row_sum(row, lane);
-    if (lane == 0) partials[w] = v;
-    cluster.sync();                       // every rank's partials are written
-    if (rank == 0 && threadIdx.x < kBlockRows) {
-      double s = *cluster.map_shared_rank(&partials[threadIdx.x], 0);
-      for (int q = 1; q < kCluster; ++q) s += *cluster.map_shared_rank(&partials[threadIdx.x], q);
-      o[threadIdx.x] = static_cast<float>(s);
-    }
-    cluster.sync();                       // peers stay resident until rank 0 has read
-  }
-}
-
 // --- 3. conv ---------------------------------------------------------------
 //
 // o = __int2float_rn(x), int32 -> float32, round to nearest even.  What
@@ -348,7 +275,7 @@ probe_conv_kernel(const int4* __restrict__ x, float4* __restrict__ o, long long 
   }
 }
 
-// The first design, kept to be timed beside it
+// The first design, kept: it wins at the script's shape and loses at B2's
 __global__ void __launch_bounds__(256)
 probe_conv_loop_kernel(const int* __restrict__ x, float* __restrict__ o, long long n) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x; i < n;
@@ -363,11 +290,10 @@ probe_conv_loop_kernel(const int* __restrict__ x, float* __restrict__ o, long lo
 // What bounds it: at the script's shape, (8, 256), the launch (5.3 KB
 // moved); at the receiver's one-hot geometry, (4 800, 128) -> (4 800, 32),
 // its 5.53 MB, 1.65 us at 3.35 TB/s (its 39 M compares and adds take 0.59
-// us at 67 TFLOP/s).  The first design (probe_onehot_walk_kernel) runs
-// one CTA of 256 threads per row: the row is copied to shared memory
-// behind a CTA barrier, then thread k walks all ``width`` columns for bin
-// k, one chain of ``width`` dependent float64 adds, while 224 of the 256
-// threads idle.
+// us at 67 TFLOP/s).  The first design (deleted) ran one CTA of 256
+// threads per row: the row copied to shared memory behind a CTA barrier,
+// then thread k walked all ``width`` columns for bin k, one chain of
+// ``width`` dependent float64 adds, while 224 of the 256 threads idled.
 //
 // This design runs one warp per row, ``warps`` rows per CTA (the wrapper's
 // launch plan, pallas_probe.onehot_plan).  Lane l owns the columns
@@ -471,27 +397,6 @@ probe_onehot_kernel(const int4* __restrict__ h, const float4* __restrict__ b,
   o[row * kBins + lane] = static_cast<float>(s);
 }
 
-// The first design, kept to be timed beside it
-__global__ void __launch_bounds__(256)
-probe_onehot_walk_kernel(const int* __restrict__ h, const float* __restrict__ b,
-                         float* __restrict__ o, int width) {
-  __shared__ int sh[kMaxWidth];
-  __shared__ float sb[kMaxWidth];
-  const long long row = static_cast<long long>(blockIdx.x) * width;
-  for (int i = threadIdx.x; i < width; i += blockDim.x) {
-    sh[i] = h[row + i];
-    sb[i] = b[row + i];
-  }
-  __syncthreads();
-  const int k = threadIdx.x;
-  if (k < kBins) {
-    double s = 0.0;
-    for (int i = 0; i < width; ++i)
-      if (sh[i] == k) s += static_cast<double>(sb[i]);
-    o[static_cast<long long>(blockIdx.x) * kBins + k] = static_cast<float>(s);
-  }
-}
-
 // --- 5, 6. tensor-core products: mma.sync m16n8k8 TF32 ---------------------
 
 __device__ __forceinline__ uint32_t to_tf32(float f) {
@@ -512,59 +417,14 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// one 16 x 8 output tile at (m0, n0) of a (M, K) row-major times b (K, N)
-// row-major, rows >= m_valid read as zero; ``steps`` passes over K, one
-// dependent mma chain
-__device__ __forceinline__ void mma_tile(const float* __restrict__ a,
-                                         const float* __restrict__ b, int m0, int m_valid,
-                                         int n0, int k_dim, int n_dim, int steps,
-                                         float (&d)[4]) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bool lo = m0 + g < m_valid, hi = m0 + g + 8 < m_valid;
-  const float* a_lo = a + static_cast<long long>(m0 + g) * k_dim;
-  const float* a_hi = a_lo + 8LL * k_dim;
-  for (int s = 0; s < steps; ++s) {
-    for (int k0 = 0; k0 < k_dim; k0 += 8) {
-      uint32_t fa[4], fb[2];
-      fa[0] = to_tf32(lo ? a_lo[k0 + t] : 0.0f);
-      fa[1] = to_tf32(hi ? a_hi[k0 + t] : 0.0f);
-      fa[2] = to_tf32(lo ? a_lo[k0 + t + 4] : 0.0f);
-      fa[3] = to_tf32(hi ? a_hi[k0 + t + 4] : 0.0f);
-      fb[0] = to_tf32(b[static_cast<long long>(k0 + t) * n_dim + n0 + g]);
-      fb[1] = to_tf32(b[static_cast<long long>(k0 + t + 4) * n_dim + n0 + g]);
-      mma_tf32(d, fa, fb);
-    }
-  }
-}
-
-// The first bdot design, kept to be timed beside it (bdot now launches
-// probe_dot_kernel, section 6): batch i of (B, 8, K) @ (B, K, 8) on warp i,
-// one dependent mma chain over K with its fragments loaded from global
-// memory link by link
-__global__ void __launch_bounds__(128)
-probe_bdot_chain_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                        float* __restrict__ o, int batch, int k_dim) {
-  const int i = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (i >= batch) return;
-  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma_tile(a + static_cast<long long>(i) * 8 * k_dim, b + static_cast<long long>(i) * k_dim * 8,
-           0, 8, 0, k_dim, 8, 1, d);
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float* oi = o + static_cast<long long>(i) * 64;
-  oi[g * 8 + 2 * t] = d[0];      // rows 8..15 (d[2], d[3]) are the padding
-  oi[g * 8 + 2 * t + 1] = d[1];
-}
-
 // --- 6. dot: operands on chip, K split across warps ------------------------
 //
 // What bounds it: 336 KB of operands and output (0.10 us at 3.35 TB/s) and
 // 16.8 MFLOP TF32 (0.03 us at 495 TFLOP/s); in practice the launch, one
 // round of loads, and the longest dependent chain.  The first design
-// (probe_dot_chain_kernel below) gave each warp a 16 x 8 tile and all of
-// K: 4 x 64 dependent mma.sync, each behind its own fragment loads from
-// global memory, so four passes over the operands paid the load latency
-// link by link (51-53 us).
+// (deleted) gave each warp a 16 x 8 tile and all of K: 4 x 64 dependent
+// mma.sync, each behind its own fragment loads from global memory, so four
+// passes over the operands paid the load latency link by link (51-53 us).
 //
 // This design keeps the operands on chip, as the TPU kernel keeps them
 // resident in VMEM across the fori_loop.  CTA c owns the 8 x 8 output
@@ -673,26 +533,6 @@ probe_dot_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
-// The first design, kept to be timed beside it: tile w = (tm, tn) of the
-// (M, N) output on warp w
-__global__ void __launch_bounds__(256)
-probe_dot_chain_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                       float* __restrict__ o, int m_dim, int k_dim, int n_dim, int steps) {
-  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int tiles_n = n_dim / 8;
-  if (w >= (m_dim / 16) * tiles_n) return;
-  const int m0 = (w / tiles_n) * 16, n0 = (w % tiles_n) * 8;
-  float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  mma_tile(a, b, m0, m_dim, n0, k_dim, n_dim, steps, d);
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float* lo = o + static_cast<long long>(m0 + g) * n_dim + n0 + 2 * t;
-  float* hi = lo + 8LL * n_dim;
-  lo[0] = d[0];
-  lo[1] = d[1];
-  hi[0] = d[2];
-  hi[1] = d[3];
-}
-
 int last_error() { return static_cast<int>(cudaGetLastError()); }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -710,30 +550,9 @@ extern "C" int sg_probe_grid(const void* x, void* o, int n_blocks, void* stream)
   return last_error();
 }
 
-// The first grid design: x, o: (n_blocks * 8, 128) float32
-extern "C" int sg_probe_grid_loop(const void* x, void* o, int n_blocks, void* stream) {
-  probe_grid_loop_kernel<<<n_blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(o));
-  return last_error();
-}
-
-// x: (64, 128) float32; o: (8,) float32; reps >= 1: the push design
+// x: (64, 128) float32; o: (8,) float32; reps >= 1
 extern "C" int sg_probe_acc(const void* x, void* o, int reps, void* stream) {
   probe_acc_kernel<<<kCluster, kAccThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(o), reps);
-  return last_error();
-}
-
-// B1's former handoff (one cluster barrier per rep, parity slots); as sg_probe_acc
-extern "C" int sg_probe_acc_parity(const void* x, void* o, int reps, void* stream) {
-  probe_acc_parity_kernel<<<kCluster, kBlockRows * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(o), reps);
-  return last_error();
-}
-
-// The first design (two cluster barriers per rep); as sg_probe_acc
-extern "C" int sg_probe_acc_sync(const void* x, void* o, int reps, void* stream) {
-  probe_acc_sync_kernel<<<kCluster, kBlockRows * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(o), reps);
   return last_error();
 }
@@ -786,25 +605,6 @@ extern "C" int sg_probe_onehot(const void* h, const void* b, void* o, int rows, 
   return last_error();
 }
 
-// The first onehot design: as sg_probe_onehot, any alignment, width <= 1024
-extern "C" int sg_probe_onehot_walk(const void* h, const void* b, void* o, int rows, int width,
-                                    void* stream) {
-  if (width > kMaxWidth) return static_cast<int>(cudaErrorInvalidValue);
-  probe_onehot_walk_kernel<<<rows, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(h), static_cast<const float*>(b), static_cast<float*>(o), width);
-  return last_error();
-}
-
-// The first bdot design: a: (batch, 8, k); b: (batch, k, 8); o: (batch,
-// 8, 8) float32; k % 8 == 0
-extern "C" int sg_probe_bdot_chain(const void* a, const void* b, void* o, int batch, int k_dim,
-                                   void* stream) {
-  probe_bdot_chain_kernel<<<(batch + 3) / 4, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(o), batch,
-      k_dim);
-  return last_error();
-}
-
 namespace {
 
 // probe_dot_kernel over a grid of (m/8 * n/8, batch) CTAs at the wrapper's
@@ -853,14 +653,4 @@ extern "C" int sg_probe_dot(const void* a, const void* b, void* o, int m_dim, in
                             int smem, void* stream) {
   return launch_dot(a, b, o, m_dim, k_dim, n_dim, steps, 1, warps, slices_per_warp, lda, smem,
                     stream);
-}
-
-// The first dot design: m % 16, k % 8 and n % 8 == 0, any alignment and k
-extern "C" int sg_probe_dot_chain(const void* a, const void* b, void* o, int m_dim, int k_dim,
-                                  int n_dim, int steps, void* stream) {
-  const int warps = (m_dim / 16) * (n_dim / 8);
-  probe_dot_chain_kernel<<<(warps + 7) / 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(o), m_dim,
-      k_dim, n_dim, steps);
-  return last_error();
 }

@@ -10,12 +10,12 @@ the variants are the designs of ``csrc/build_frames.cu``:
   ``build_frames_bulk_kernel``): a persistent grid whose CTAs stage pieces
   of the capture into a shared-memory ring by 1-D TMA bulk copies and
   write the frames as int4 (:func:`megakernel.frames_plan`);
-* ``word`` — B2's first design (``build_frames_kernel``): one CTA per
-  (ms, channel), one int32 word per thread and access;
-* ``vec4`` — ``build_frames_vec4_kernel``: the first design with one int4
-  (16 bytes) per thread and access, a scalar head and tail (a frame starts
-  4-byte aligned only) and the same zero fill at both capture edges; it
-  needs a 16-byte aligned capture;
+* ``vec4`` — ``build_frames_vec4_kernel``: one CTA per (ms, channel), as
+  B2's first design (one int32 word per thread and access; it lost every
+  timing to the bulk design and was deleted), but one int4 (16 bytes) per
+  thread and access, a scalar head and tail (a frame starts 4-byte aligned
+  only) and a zero fill at both capture edges; it needs a 16-byte aligned
+  capture;
 * ``direct`` — ``build_frames_direct_kernel``: the bulk design's CTAs (one
   per ms and column group, every channel's columns), each int4 built from
   two 16-byte read-only loads of the capture in place of the staged hull
@@ -45,6 +45,7 @@ Without a CUDA card it raises.
 
 from __future__ import annotations
 
+import ctypes
 import itertools
 import sys
 
@@ -55,9 +56,10 @@ from softgnss_tpu_torch.config import default_config, fast_config
 from softgnss_tpu_torch.scripts.inputs import SEED, assert_bit_equal
 from softgnss_tpu_torch.scripts.timing import (card, cold_ms, cuda_ms, flushed_marginal_ms,
                                                require_cuda)
+from softgnss_tpu_torch.track import cuda_lib
 from softgnss_tpu_torch.track import megakernel as mk
 
-VARIANTS = ("bulk", "word", "vec4", "direct")
+VARIANTS = ("bulk", "vec4", "direct")
 #: the variants that need a 16-byte aligned capture
 ALIGNED_ONLY = ("vec4", "direct")
 #: threads per CTA of the direct variant
@@ -75,20 +77,11 @@ SWEEP = tuple(itertools.product((True, False), (512, 1024, 4096), (256, 512), (1
 DIRECT_SWEEP = tuple(itertools.product((1, 2, 4), (256, 512, 1024)))
 
 
-def build_frames_word(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int, win_w: int,
-                      spc_w: int) -> torch.Tensor:
-    """:func:`megakernel.build_frames` by B2's first design: kernel
-    ``build_frames_kernel`` (csrc/build_frames.cu, ``sg_build_frames``) on
-    CUDA tensors; :func:`megakernel.build_frames_plain` on CPU tensors."""
-    if cap_words.device.type == "cpu":
-        return mk.build_frames_plain(cap_words, starts_w, r, win_w, spc_w)
-    frames = mk._launch_frames("build_frames_word", mk.load_library().lib.sg_build_frames,
-                               cap_words, starts_w, r, win_w, spc_w)
-    build_frames_word.launches += 1
-    return frames
-
-
-build_frames_word.launches = 0
+_vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_FRAMES_ARGS = [_vp, _ll, _vp, _vp, _i, _i, _i, _ll]
+_BUILD_FRAMES_VEC4 = cuda_lib.RECEIVER.entry("sg_build_frames_vec4", _FRAMES_ARGS + [_vp])
+_BUILD_FRAMES_DIRECT = cuda_lib.RECEIVER.entry("sg_build_frames_direct",
+                                               _FRAMES_ARGS + [_i, _i, _vp])
 
 
 def build_frames_vec4(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int, win_w: int,
@@ -101,8 +94,8 @@ def build_frames_vec4(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int, w
         return mk.build_frames_plain(cap_words, starts_w, r, win_w, spc_w)
     if cap_words.data_ptr() % 16:
         raise ValueError("build_frames_vec4: cap_words must start 16-byte aligned")
-    frames = mk._launch_frames("build_frames_vec4", mk.load_library().lib.sg_build_frames_vec4,
-                               cap_words, starts_w, r, win_w, spc_w)
+    frames = mk.launch_frames("build_frames_vec4", _BUILD_FRAMES_VEC4.function(), cap_words,
+                              starts_w, r, win_w, spc_w)
     build_frames_vec4.launches += 1
     return frames
 
@@ -124,9 +117,9 @@ def build_frames_direct(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int,
         raise ValueError("build_frames_direct: cap_words must start 16-byte aligned")
     if plan is None:
         plan = mk.frames_plan(r, starts_w.shape[0], win_w, spc_w,
-                              n_sm=mk.sm_count(cap_words.device.index or 0))
-    frames = mk._launch_frames("build_frames_direct", mk.load_library().lib.sg_build_frames_direct,
-                               cap_words, starts_w, r, win_w, spc_w, plan.group_w, threads)
+                              n_sm=cuda_lib.sm_count(cap_words.device.index or 0))
+    frames = mk.launch_frames("build_frames_direct", _BUILD_FRAMES_DIRECT.function(), cap_words,
+                              starts_w, r, win_w, spc_w, plan.group_w, threads)
     build_frames_direct.launches += 1
     return frames
 
@@ -135,7 +128,7 @@ build_frames_direct.launches = 0
 
 
 def variant(name: str):
-    return {"bulk": mk.build_frames, "word": build_frames_word, "vec4": build_frames_vec4,
+    return {"bulk": mk.build_frames, "vec4": build_frames_vec4,
             "direct": build_frames_direct}[name]
 
 
@@ -190,7 +183,7 @@ def check(device, n_channels=N_CHANNELS, variants=VARIANTS) -> float:
                                                 {"frames": variant(name)(*args)}, want))
         if "bulk" in variants:    # a hull budget wide enough for the edge starts too
             wide = mk.frames_plan(r, c, args[3], args[4], spread_w=4 * args[4],
-                                  n_sm=mk.sm_count(args[0].device.index or 0))
+                                  n_sm=cuda_lib.sm_count(args[0].device.index or 0))
             assert_bit_equal(f"S3 bulk {label}, hull budget {wide.buf_w} words",
                              {"frames": mk.build_frames(*args, plan=wide)}, want)
     torch.cuda.synchronize(device)
@@ -266,7 +259,7 @@ def sweep(device, points=SWEEP, c: int = 8, r: int = R, n: int = 20) -> dict:
     edge = frame_args(c, r, device, edges=True, lead=1)
     args = frame_args(c, r, device)
     want = mk.build_frames_plain(*edge)
-    n_sm = mk.sm_count(device.index or 0)
+    n_sm = cuda_lib.sm_count(device.index or 0)
     out = {}
     for point in points:
         union, part_w, threads, per_sm = point
@@ -306,7 +299,7 @@ def main(argv=None) -> int:
           "(bit-equal)")
     cfg = default_config()
     plan = mk.frames_plan(R, 8, cfg.track_window // 4, cfg.samples_per_code // 4,
-                          n_sm=mk.sm_count(device.index or 0))
+                          n_sm=cuda_lib.sm_count(device.index or 0))
     print(f"bulk plan at C=8: {plan}")
     report(measure(device))
     if "sweep" in argv:

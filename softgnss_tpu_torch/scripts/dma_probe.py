@@ -27,23 +27,24 @@ shared memory.  :func:`dma_plan` alone makes the launch plan (CTAs per
 channel, threads, bytes per rank and per staging buffer, shared memory);
 the kernel only refuses a plan past its limits.  The first design, one CTA
 of 512 threads per channel with thread-strided byte loads and two CTA
-barriers per ms, stays behind its own wrapper :func:`dma_probe_cta`.
+barriers per ms, lost every timing to ``direct`` and was deleted.  The
+kernel is in the probes' library (``pallas_probe.PROBE_LIBRARY``).
 
 Run on a CUDA card from the repository root::
 
     python -m softgnss_tpu_torch.scripts.dma_probe
 
-It holds every pattern at every cluster size, and the first design,
-bit-equal to :func:`dma_probe_plain`, prints each kernel's ptxas resources,
-then each pattern's us per ms and GB/s (window bytes brought on chip) at
-1, 2, 4, 8 and 16 CTAs per channel, with the L2 flushed before each call
-and with the L2 warm, at ``default_config()``'s geometry, r = 64, C = 8,
-and the first design and ``direct`` at 16 CTAs in turns, each with
+It holds every pattern at every cluster size bit-equal to
+:func:`dma_probe_plain`, prints each kernel's ptxas resources, then each
+pattern's us per ms and GB/s (window bytes brought on chip) at 1, 2, 4, 8
+and 16 CTAs per channel, with the L2 flushed before each call and with
+the L2 warm, at ``default_config()``'s geometry, r = 64, C = 8, each with
 nvidia-smi's card line.  Without a CUDA card it raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import re
 import sys
 from typing import NamedTuple
@@ -53,8 +54,9 @@ import torch
 
 from softgnss_tpu_torch.config import default_config
 from softgnss_tpu_torch.scripts.inputs import SEED, assert_bit_equal
-from softgnss_tpu_torch.scripts.pallas_probe import resources
+from softgnss_tpu_torch.scripts.pallas_probe import PROBE_LIBRARY, resources
 from softgnss_tpu_torch.scripts.timing import card, cold_ms, cuda_ms, require_cuda
+from softgnss_tpu_torch.track import cuda_lib
 from softgnss_tpu_torch.track import megakernel as mk
 
 #: (pattern, windows in flight)
@@ -74,6 +76,9 @@ THREADS_SWEEP = (256, 512, 1024)
 MAX_THREADS = 1024
 #: dynamic shared memory a CTA can use on an H100 (227 KB)
 MAX_SMEM_BYTES = 232_448
+_DMA_PROBE = PROBE_LIBRARY.entry("sg_dma_probe", [ctypes.c_int] * 7 + [
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4
+    + [ctypes.c_void_p])
 
 
 def dma_probe_plain(cap: torch.Tensor, starts_w: torch.Tensor, r: int, win: int,
@@ -133,8 +138,8 @@ def _require_capture(name: str, cap: torch.Tensor, starts_w: torch.Tensor) -> No
     one card.  The windows' bounds are not looked at: the kernels read
     bytes outside the capture as zero, and a look would synchronise."""
     dev = cap.device
-    mk._require(cap, "cap", torch.int8, (cap.shape[0],), dev)
-    mk._require(starts_w, "starts_w", torch.int64, (starts_w.shape[0],), dev)
+    cuda_lib.require(cap, "cap", torch.int8, (cap.shape[0],), dev)
+    cuda_lib.require(starts_w, "starts_w", torch.int64, (starts_w.shape[0],), dev)
     if cap.data_ptr() % 16:
         raise ValueError(f"{name}: cap must start 16-byte aligned")
 
@@ -155,40 +160,16 @@ def dma_probe(pattern: str, depth: int, cap: torch.Tensor, starts_w: torch.Tenso
     dev = cap.device
     c = starts_w.shape[0]
     sums = torch.empty((r, c), dtype=torch.int64, device=dev)
-    lib = mk.load_library().lib
+    ptr = cuda_lib.ptr
     with torch.cuda.device(dev):
-        rc = lib.sg_dma_probe(_PATTERN_IDS[pattern], depth, *plan, mk._ptr(cap), cap.shape[0],
-                              mk._ptr(starts_w), mk._ptr(sums), r, c, win, spc, mk._stream(dev))
+        rc = _DMA_PROBE(_PATTERN_IDS[pattern], depth, *plan, ptr(cap), cap.shape[0],
+                        ptr(starts_w), ptr(sums), r, c, win, spc, cuda_lib.stream(dev))
     dma_probe.launches += 1
-    mk._check(rc, "dma_probe")
+    cuda_lib.check(rc, "dma_probe")
     return sums
 
 
 dma_probe.launches = 0
-
-
-def dma_probe_cta(cap: torch.Tensor, starts_w: torch.Tensor, r: int, win: int,
-                  spc: int) -> torch.Tensor:
-    """:func:`dma_probe_plain` by the first design's kernel
-    ``dma_probe_cta_kernel`` (one CTA of 512 threads per channel,
-    thread-strided byte loads, a CTA sum with two barriers per ms) on CUDA
-    tensors; :func:`dma_probe_plain` on CPU tensors."""
-    if cap.device.type == "cpu":
-        return dma_probe_plain(cap, starts_w, r, win, spc)
-    _require_capture("dma_probe_cta", cap, starts_w)
-    dev = cap.device
-    c = starts_w.shape[0]
-    sums = torch.empty((r, c), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        rc = mk.load_library().lib.sg_dma_probe_cta(mk._ptr(cap), cap.shape[0],
-                                                    mk._ptr(starts_w), mk._ptr(sums), r, c, win,
-                                                    spc, mk._stream(dev))
-    dma_probe_cta.launches += 1
-    mk._check(rc, "dma_probe_cta")
-    return sums
-
-
-dma_probe_cta.launches = 0
 
 
 def probe_args(c: int, r: int, device, edges: str = "inside"):
@@ -212,9 +193,9 @@ def probe_args(c: int, r: int, device, edges: str = "inside"):
 
 
 def check(device, c: int = N_CHANNELS, r: int = R) -> float:
-    """Every pattern at every cluster size of KN_SWEEP, and the first
-    design, bit-equal to the plain version, with every window inside the
-    capture and with windows past both of its ends; raises otherwise.
+    """Every pattern at every cluster size of KN_SWEEP bit-equal to the
+    plain version, with every window inside the capture and with windows
+    past both of its ends; raises otherwise.
     Returns the largest absolute difference (0.0)."""
     worst = 0.0
     for edges in ("inside", "outside"):
@@ -225,8 +206,6 @@ def check(device, c: int = N_CHANNELS, r: int = R) -> float:
                 got = {"sums": dma_probe(p, d, *args, ctas_per_channel=kn)}
                 worst = max(worst, assert_bit_equal(f"S4 {p} depth {d} kN={kn} ({edges})", got,
                                                     want))
-        worst = max(worst, assert_bit_equal(f"S4 first design ({edges})",
-                                            {"sums": dma_probe_cta(*args)}, want))
     torch.cuda.synchronize(device)
     return worst
 
@@ -236,8 +215,7 @@ _KERNEL = re.compile(r"16dma_probe_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
 
 def probe_resources(log: str) -> dict:
     """{(pattern, depth, kN): resources} of every instantiation of
-    ``dma_probe_kernel``, and {"cta": resources} of the first design's
-    kernel, from nvcc's ``-Xptxas -v`` output (see
+    ``dma_probe_kernel`` from nvcc's ``-Xptxas -v`` output (see
     :func:`~softgnss_tpu_torch.scripts.pallas_probe.resources`); raises
     KeyError when one is missing."""
     names = {v: k for k, v in _PATTERN_IDS.items()}
@@ -245,9 +223,7 @@ def probe_resources(log: str) -> dict:
     for mangled, res in resources(log).items():
         if m := _KERNEL.search(mangled):
             out[(names[int(m.group(1))], int(m.group(2)), int(m.group(3)))] = res
-        elif "20dma_probe_cta_kernel" in mangled:
-            out["cta"] = res
-    want = [(p, d, kn) for p, d in PATTERNS for kn in KN_SWEEP] + ["cta"]
+    want = [(p, d, kn) for p, d in PATTERNS for kn in KN_SWEEP]
     missing = [k for k in want if k not in out]
     if missing:
         raise KeyError(f"dma_probe kernels missing from the ptxas log: {missing}")
@@ -256,14 +232,12 @@ def probe_resources(log: str) -> dict:
 
 def measure(device, c: int = N_CHANNELS, r: int = R, n: int = 50) -> dict:
     """Device ms per call (r ms) of each pattern at each cluster size of
-    KN_SWEEP, L2 warm and L2 flushed; the first design and ``direct`` at
-    CTAS_PER_CHANNEL in turns (each, then each in reverse order); the
-    plain version's; ``direct`` at each of THREADS_SWEEP threads per CTA
-    (in turns); ``direct`` at r = 1 (the launch, the cluster barriers and
-    one ms); the window bytes one call brings on chip: {(pattern, depth,
-    kN): {"warm", "cold"}, "turns": {"cta" | "direct": {"warm": [ms, ms],
-    "cold": [ms, ms]}}, "direct_by_threads": {threads: ms}, "direct_r1":
-    ms, "plain": ms, "bytes": n}."""
+    KN_SWEEP, L2 warm and L2 flushed; the plain version's; ``direct`` at
+    CTAS_PER_CHANNEL and each of THREADS_SWEEP threads per CTA (in turns:
+    each, then each in reverse order); ``direct`` at r = 1 (the launch,
+    the cluster barriers and one ms); the window bytes one call brings on
+    chip: {(pattern, depth, kN): {"warm", "cold"}, "direct_by_threads":
+    {threads: ms}, "direct_r1": ms, "plain": ms, "bytes": n}."""
     args = probe_args(c, r, device)
     res = {}
     for p, d in PATTERNS:
@@ -272,12 +246,6 @@ def measure(device, c: int = N_CHANNELS, r: int = R, n: int = 50) -> dict:
                 return dma_probe(p, d, *args, ctas_per_channel=kn)
 
             res[(p, d, kn)] = {"warm": cuda_ms(fn, n, busy=True), "cold": cold_ms(fn, n, device)}
-    fns = {"cta": lambda: dma_probe_cta(*args), "direct": lambda: dma_probe("direct", 1, *args)}
-    turns = {label: {"warm": [], "cold": []} for label in fns}
-    for label in ("cta", "direct", "direct", "cta"):
-        turns[label]["warm"].append(cuda_ms(fns[label], n, busy=True))
-        turns[label]["cold"].append(cold_ms(fns[label], n, device))
-    res["turns"] = turns
     by_threads = {t: [] for t in THREADS_SWEEP}
     for t in [*THREADS_SWEEP, *reversed(THREADS_SWEEP)]:
         by_threads[t].append(cuda_ms(lambda: dma_probe("direct", 1, *args, threads=t), n,
@@ -300,13 +268,6 @@ def report(res: dict, c: int = N_CHANNELS, r: int = R) -> None:
             for cache in ("cold", "warm"):
                 print(f"S4 {p:8s} depth {d} kN={kn:2d} C={c} r={r} L2 {cache}: "
                       + line(res[(p, d, kn)][cache]))
-    for label, what in (("cta", "first design (one CTA of 512, byte loads)"),
-                        ("direct", f"direct at kN={CTAS_PER_CHANNEL}")):
-        for cache in ("cold", "warm"):
-            turns = ", ".join(f"{t:.4f}" for t in res["turns"][label][cache])
-            print(f"S4 {what} in turns, L2 {cache}: "
-                  + line(float(np.mean(res["turns"][label][cache])))
-                  + f" (ms per call in turns: {turns})")
     by_t = ", ".join(f"{t} threads {ms:.4f}" for t, ms in res["direct_by_threads"].items())
     print(f"S4 direct at kN={CTAS_PER_CHANNEL} by threads per CTA (in turns; the default is "
           f"{THREADS}), L2 warm, ms per call: {by_t} [{card()}]")
@@ -318,7 +279,7 @@ def report(res: dict, c: int = N_CHANNELS, r: int = R) -> None:
 def main() -> int:
     device = require_cuda()
     print(card())
-    for key, r in probe_resources(mk.load_library().log).items():
+    for key, r in probe_resources(PROBE_LIBRARY.load().log).items():
         print(f"S4 {key}: {r['registers']} registers, {r['smem']} B static shared, "
               f"spills {r['spill_stores']} B stored / {r['spill_loads']} B loaded")
     print(f"worst |kernel - plain| over every pattern and cluster size: {check(device):.1f} "

@@ -33,6 +33,7 @@ nvidia-smi's card line.  Without a CUDA card it raises.
 
 from __future__ import annotations
 
+import ctypes
 import sys
 
 import torch
@@ -42,6 +43,7 @@ from softgnss_tpu_torch.scripts.inputs import assert_bit_equal, channel_inputs
 from softgnss_tpu_torch.scripts.timing import card, cuda_ms, require_cuda
 from softgnss_tpu_torch.signals.nco import (CODE_ONE, carrier_step_u32, carrier_turns,
                                             code_step_q, sin_turns)
+from softgnss_tpu_torch.track import cuda_lib
 from softgnss_tpu_torch.track import megakernel as mk
 from softgnss_tpu_torch.track.scan import MsOutputs, TrackState, _filters_and_outputs
 
@@ -50,6 +52,8 @@ R = 64
 N_CHANNELS = (8, 12)
 #: threads of the one-CTA-per-channel B1 (kN = 1), the design S2 first split
 ONE_CTA_THREADS = 512
+_TRACK_BLOCK_STAGE = cuda_lib.RECEIVER.entry("sg_track_block_stage",
+                                             [ctypes.c_int, ctypes.c_void_p] + mk.BLOCK_ARGS)
 
 
 def _sum32(x: torch.Tensor) -> torch.Tensor:
@@ -82,7 +86,7 @@ def track_block_stage_plain(stage: str, frames, fb0, state: TrackState, code_pad
         step_q = code_step_q(st.code_freq, fs)
         blk = torch.div(code_len_q - st.code_rem_q + step_q - 1, step_q, rounding_mode="floor")
         o = st.ptr - (fb0 + j * spc)
-        ovf = torch.maximum(ovf, mk._overflow(o, blk, win, active))
+        ovf = torch.maximum(ovf, mk.overflow(o, blk, win, active))
         w = carrier_step_u32(st.carr_freq, fs)
         i_p = q_p = zero
         if stage != "filters":
@@ -112,19 +116,19 @@ def track_block_stage(stage: str, frames, fb0, state: TrackState, code_pads, car
     CUDA tensors, at B1's launch size or the forced one (the keywords of
     :func:`megakernel.track_block`); :func:`track_block_stage_plain` on
     CPU tensors."""
-    mk._check_launch_size(ctas_per_channel, threads_per_cta)
+    mk.check_launch_size(ctas_per_channel, threads_per_cta)
     if frames.device.type == "cpu":
         return track_block_stage_plain(stage, frames, fb0, state, code_pads, carr_basis,
                                        active, config, r)
     dev = frames.device
-    mk._require(frames, "frames", torch.int32, (r, fb0.shape[0], config.track_window // 4), dev)
+    cuda_lib.require(frames, "frames", torch.int32, (r, fb0.shape[0], config.track_window // 4),
+                     dev)
     s = STAGES.index(stage)
     kn, threads = mk.launch_size(dev, False, fb0.shape[0], config.track_window,
                                  ctas_per_channel, threads_per_cta)
-    lib = mk.load_library().lib
-    out = mk._launch_block(
-        "track_block_stage",
-        lambda *a: lib.sg_track_block_stage(s, mk._ptr(frames), *a),
+    fn = _TRACK_BLOCK_STAGE.function()
+    out = mk.launch_block(
+        "track_block_stage", lambda *a: fn(s, cuda_lib.ptr(frames), *a),
         dev, fb0, state, code_pads, carr_basis, active, config, r, kn, threads)
     track_block_stage.launches += 1
     track_block_stage.ctas_per_channel = kn

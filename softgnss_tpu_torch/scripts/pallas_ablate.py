@@ -15,25 +15,23 @@ stages are compile-time instantiations of B4 itself,
   as integers into i_e (early), q_e (prompt) and i_l (late), no lookup;
 * ``full`` — B4, the very instantiation the per-ms route launches.
 
-Each stage runs in two designs (:data:`VARIANTS`): ``b4``, the kernel the
-route launches (one launch per ms: each CTA stages its slice of the
-window by cp.async and the last CTA of a channel sums the channel's rows),
-and ``two_pass``, the first design kept for the same-run comparison (two
-launches per ms: CTA partial rows in a float64 scratch the wrapper
-allocates per call, then a reduce kernel), each with its own wrapper and
-launch count.
+Each stage is the kernel the route launches (one launch per ms: each CTA
+stages its slice of the window by cp.async and the last CTA of a channel
+sums the channel's rows) at its own plan.  B4's first design (two
+launches per ms: CTA partial rows in a float64 scratch allocated per
+call, then a reduce kernel) lost every timing to it and was deleted.
 
-For each stage and design it reports three figures, timed in turns: the
-device time per launch (CUDA events on a busy card), the host time per
-wrapper call (the eager per-ms route pays this), and the marginal device
-time per call inside a CUDA graph of 50 and of 400 calls (what a
-graph-captured route would pay).
+For each stage it reports three figures: the device time per launch
+(CUDA events on a busy card), the host time per wrapper call (the eager
+per-ms route pays this), and the marginal device time per call inside a
+CUDA graph of 50 and of 400 calls (what a graph-captured route would
+pay).
 
 Run on a CUDA card from the repository root::
 
     python -m softgnss_tpu_torch.scripts.pallas_ablate
 
-It holds every stage of both designs bit-equal to
+It holds every stage bit-equal to
 :func:`correlate_ms_stage_plain` and prints the three figures in us at
 ``default_config()``, C = 8 and 12 channels, each with nvidia-smi's card
 line.  Without a CUDA card it raises.
@@ -41,6 +39,7 @@ line.  Without a CUDA card it raises.
 
 from __future__ import annotations
 
+import ctypes
 import sys
 
 import torch
@@ -51,14 +50,13 @@ from softgnss_tpu_torch.scripts.timing import (card, cuda_ms, graph_marginal_ms,
                                                require_cuda)
 from softgnss_tpu_torch.signals.nco import (CODE_ONE, carrier_step_u32, carrier_turns,
                                             ceil_chip_index, chips_to_q, code_step_q, sin_turns)
-from softgnss_tpu_torch.track import megakernel as mk
+from softgnss_tpu_torch.track import cuda_lib
 from softgnss_tpu_torch.track import pallas_kernel as pk
 
 STAGES = ("noop", "carrier", "phase", "full")
 N_CHANNELS = (8, 12)
-#: samples of one channel per CTA and ms in the two-pass design (256
-#: threads x 8): 19 CTAs per channel at the reference front end
-TWO_PASS_SAMPLES_PER_CTA = 2048
+_CORRELATE_MS_STAGE = cuda_lib.RECEIVER.entry("sg_correlate_ms_stage",
+                                              [ctypes.c_int] + pk.CORRELATE_ARGS)
 
 
 def _stage_index(stage: str) -> int:
@@ -102,54 +100,25 @@ def correlate_ms_stage(stage: str, config: ReceiverConfig, cap, ptr, carr_phase,
                        ctas_per_channel: int | None = None) -> torch.Tensor:
     """:func:`pallas_kernel.correlate_ms` stripped to ``stage``: kernel
     ``correlate_ms_kernel<kStage>`` (csrc/correlate_ms.cu) at
-    :func:`pallas_kernel.correlate_plan` (``ctas_per_channel`` to time
-    another size) on CUDA tensors, never synchronizing;
-    :func:`correlate_ms_stage_plain` on CPU tensors."""
+    :func:`pallas_kernel.correlate_plan` for the card's SM count
+    (``ctas_per_channel`` to time another size) on CUDA tensors, never
+    synchronizing; :func:`correlate_ms_stage_plain` on CPU tensors."""
     if cap.device.type == "cpu":
         return correlate_ms_stage_plain(stage, config, cap, ptr, carr_phase, w, code_rem_q,
                                         step_q, blk, code_pads, active)
     s = _stage_index(stage)
-    plan = pk.correlate_plan(config, ptr.shape[0], ctas_per_channel)
-    lib = mk.load_library().lib
-    out = pk._launch_correlate("correlate_ms_stage",
-                               lambda *a: lib.sg_correlate_ms_stage(s, *a), config, cap,
-                               ptr, carr_phase, w, code_rem_q, step_q, blk, code_pads, active,
-                               *plan, *pk._scratch(cap.device, ptr.shape[0], plan.ctas_per_channel))
+    dev = cap.device
+    plan = pk.correlate_plan(config, ptr.shape[0], ctas_per_channel,
+                             n_sm=cuda_lib.sm_count(dev.index or 0))
+    fn = _CORRELATE_MS_STAGE.function()
+    out = pk.launch_correlate("correlate_ms_stage", lambda *a: fn(s, *a), config, cap, ptr,
+                              carr_phase, w, code_rem_q, step_q, blk, code_pads, active, *plan,
+                              *pk.scratch(dev, ptr.shape[0], plan.ctas_per_channel))
     correlate_ms_stage.launches += 1
     return out
 
 
 correlate_ms_stage.launches = 0
-
-
-def correlate_ms_two_pass(stage: str, config: ReceiverConfig, cap, ptr, carr_phase, w,
-                          code_rem_q, step_q, blk, code_pads, active) -> torch.Tensor:
-    """The first design of B4 (``sg_correlate_ms_two_pass``: two launches,
-    ``correlate_partial_kernel<kStage>`` over CTAs of
-    TWO_PASS_SAMPLES_PER_CTA samples writing float64 partial rows into a
-    scratch allocated here, then ``correlate_reduce_kernel``) stripped to
-    ``stage`` on CUDA tensors; :func:`correlate_ms_stage_plain` on CPU
-    tensors."""
-    if cap.device.type == "cpu":
-        return correlate_ms_stage_plain(stage, config, cap, ptr, carr_phase, w, code_rem_q,
-                                        step_q, blk, code_pads, active)
-    s = _stage_index(stage)
-    n_cta = -(-(config.samples_per_code + config.track_window_extra) // TWO_PASS_SAMPLES_PER_CTA)
-    partial = torch.empty((ptr.shape[0], n_cta, 6), dtype=torch.float64, device=cap.device)
-    lib = mk.load_library().lib
-    out = pk._launch_correlate("correlate_ms_two_pass",
-                               lambda *a: lib.sg_correlate_ms_two_pass(s, *a), config, cap,
-                               ptr, carr_phase, w, code_rem_q, step_q, blk, code_pads, active,
-                               n_cta, partial)
-    correlate_ms_two_pass.launches += 1
-    return out
-
-
-correlate_ms_two_pass.launches = 0
-
-#: each design of B4 by label, with its own wrapper (``.launches`` counts
-#: its launches): ``b4`` the route's kernel, ``two_pass`` the first design
-VARIANTS = {"b4": correlate_ms_stage, "two_pass": correlate_ms_two_pass}
 
 
 def ms_args(config: ReceiverConfig, device, n_idle: int = 0):
@@ -166,18 +135,17 @@ def ms_args(config: ReceiverConfig, device, n_idle: int = 0):
 
 
 def check(device, n_channels=N_CHANNELS) -> float:
-    """Every stage of every design bit-equal to its plain version at
-    ``default_config()`` with one idle channel, and ``full`` bit-equal to
+    """Every stage bit-equal to its plain version at ``default_config()``
+    with one idle channel, and ``full`` bit-equal to
     :func:`pallas_kernel.correlate_ms`; raises otherwise.  Returns the
     largest absolute difference (0.0)."""
     worst = 0.0
     for c in n_channels:
         args = ms_args(default_config(number_of_channels=c), device, n_idle=1)
-        for label, fn in VARIANTS.items():
-            for stage in STAGES:
-                worst = max(worst, assert_bit_equal(
-                    f"S1 {label} {stage} C={c}", {"out": fn(stage, *args)},
-                    {"out": correlate_ms_stage_plain(stage, *args)}))
+        for stage in STAGES:
+            worst = max(worst, assert_bit_equal(
+                f"S1 {stage} C={c}", {"out": correlate_ms_stage(stage, *args)},
+                {"out": correlate_ms_stage_plain(stage, *args)}))
         assert_bit_equal(f"S1 full C={c} vs correlate_ms",
                          {"out": correlate_ms_stage("full", *args)},
                          {"out": pk.correlate_ms(*args)})
@@ -186,25 +154,22 @@ def check(device, n_channels=N_CHANNELS) -> float:
 
 
 def time_stages(args, n: int = 200) -> dict:
-    """{variant: {stage: {"device", "host", "graph"}}} on ``args``: device
-    ms per launch, host ms per wrapper call and the marginal device ms per
-    call in a CUDA graph, each stage's designs timed in turns (each, then
-    each in reverse order; the mean of the two)."""
-    res = {v: {} for v in VARIANTS}
+    """{stage: {"device", "host", "graph"}} on ``args``: device ms per
+    launch, host ms per wrapper call and the marginal device ms per call
+    in a CUDA graph."""
+    res = {}
     for stage in STAGES:
-        turns = {v: [] for v in VARIANTS}
-        for v in [*VARIANTS, *reversed(VARIANTS)]:
-            fn = lambda v=v: VARIANTS[v](stage, *args)   # noqa: E731
-            turns[v].append((cuda_ms(fn, n, busy=True), host_ms(fn, n), graph_marginal_ms(fn)))
-        for v in VARIANTS:
-            res[v][stage] = {k: sum(t[i] for t in turns[v]) / 2
-                             for i, k in enumerate(("device", "host", "graph"))}
+        def fn(stage=stage):
+            return correlate_ms_stage(stage, *args)
+
+        res[stage] = {"device": cuda_ms(fn, n, busy=True), "host": host_ms(fn, n),
+                      "graph": graph_marginal_ms(fn)}
     return res
 
 
 def measure(device, n_channels=N_CHANNELS, n: int = 200) -> dict:
-    """Per C: each design's stages (:func:`time_stages`) and the plain
-    ``full``'s device ms: {C: {variant: {stage: {...}}, "plain": ms}}."""
+    """Per C: the stages (:func:`time_stages`) and the plain ``full``'s
+    device ms: {C: {stage: {...}, "plain": ms}}."""
     res = {}
     for c in n_channels:
         args = ms_args(default_config(number_of_channels=c), device)
@@ -215,12 +180,11 @@ def measure(device, n_channels=N_CHANNELS, n: int = 200) -> dict:
 
 def report(res: dict) -> None:
     for c, times in res.items():
-        for v in VARIANTS:
-            for stage in STAGES:
-                t = times[v][stage]
-                print(f"S1 B4 {v:8s} {stage:7s} C={c:2d}: device {t['device'] * 1e3:8.3f} "
-                      f"us/launch, host {t['host'] * 1e3:8.3f} us/call, in a CUDA graph "
-                      f"{t['graph'] * 1e3:8.3f} us/call [{card()}]")
+        for stage in STAGES:
+            t = times[stage]
+            print(f"S1 B4 {stage:7s} C={c:2d}: device {t['device'] * 1e3:8.3f} us/launch, host "
+                  f"{t['host'] * 1e3:8.3f} us/call, in a CUDA graph {t['graph'] * 1e3:8.3f} "
+                  f"us/call [{card()}]")
         print(f"S1 B4 plain full C={c:2d}: {times['plain'] * 1e3:.3f} us/ms [{card()}]")
 
 

@@ -30,18 +30,21 @@ via ``dot2d`` :120).  Its counterpart here is ``csrc/pallas_probe.cu``:
   operands staged in shared memory once, K split across 8 warps
   (:func:`dot_plan`).
 
-Every probe was redesigned for the card; the first kernels stay
-(``grid_loop``, ``acc_sync``, ``conv_loop``, ``onehot_walk``,
-``bdot_chain`` and ``dot_chain`` in :data:`VARIANTS`), and so does B1's
-former handoff for ``acc`` (``acc_parity``: one cluster barrier per rep,
-parity slots), each with its own wrapper and launch count, so that one
-run times old and new in turns.  ``conv`` and ``onehot`` are also run
-where they do real work (:func:`receiver_inputs`): conv on one block of
-B2's frames, (64, 8, 9580) int32, and onehot at the JAX receiver's
-one-hot geometry, (4800, 128) -> (4800, 32).
+Every probe was redesigned for the card.  The first designs of grid,
+acc, onehot, bdot and dot, and B1's former handoff for acc (one cluster
+barrier per rep), lost every timing and were deleted; conv's first design
+stays beside it (``conv_loop`` in :data:`VARIANTS`, its own wrapper and
+launch count): it is faster at the script's shape and slower at B2's.
+``conv`` and ``onehot`` are also run where they do real work
+(:func:`receiver_inputs`): conv on one block of B2's frames, (64, 8,
+9580) int32, and onehot at the JAX receiver's one-hot geometry, (4800,
+128) -> (4800, 32).
 
-What "does it lower" was on the TPU is here what ptxas reports for each
-kernel (registers, shared memory, stack, spills), parsed from the kernel
+The kernels of S4 (scripts.dma_probe) and S5 are the probes' own library,
+:data:`PROBE_LIBRARY` (``csrc/dma_probe.cu`` and ``csrc/pallas_probe.cu``),
+built at first use beside the receiver's and loaded by these two scripts
+alone.  What "does it lower" was on the TPU is here what ptxas reports for
+each kernel (registers, shared memory, stack, spills), parsed from that
 library's ``-Xptxas -v`` log.
 
 Run on a CUDA card from the repository root::
@@ -56,8 +59,8 @@ as the TPU script does (``grid``, ``acc``, ``conv`` and ``onehot``
 bit-equal; ``bdot`` and ``dot`` within ``2^-10 * sum_k |a_ik b_kj|`` per
 output, the TF32 rounding of both inputs, and bit-equal on the script's
 ones), holds each :data:`LIBRARY` call to the same plain versions, then
-times each kernel (a probe's designs in turns; each acc design at 1 and
-64 reps; conv's and onehot's also L2-flushed and inside a CUDA graph, and
+times each kernel (conv's designs in turns; acc at 1 and 64 reps;
+conv's and onehot's also L2-flushed and inside a CUDA graph, and
 at the receiver's geometry), its plain version and one PyTorch call that
 computes the same function (for bdot and dot with TF32 allowed, as the
 kernels compute, and at PyTorch's default precision).
@@ -67,6 +70,7 @@ Without a CUDA card it raises.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import functools
 import re
 import sys
@@ -79,7 +83,19 @@ from softgnss_tpu_torch.scripts.inputs import SEED
 from softgnss_tpu_torch.scripts.timing import (TF32_OPS_PER_S, bound_ms, card, cold_ms, cuda_ms,
                                                flushed_marginal_ms, graph_marginal_ms,
                                                require_cuda)
-from softgnss_tpu_torch.track import megakernel as mk
+from softgnss_tpu_torch.track import cuda_lib
+
+#: the probes' library: S4's and S5's kernels, loaded by scripts.dma_probe
+#: and this script only
+PROBE_LIBRARY = cuda_lib.Library("sgprobe", ("dma_probe.cu", "pallas_probe.cu"))
+_vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_GRID = PROBE_LIBRARY.entry("sg_probe_grid", [_vp, _vp, _i, _vp])
+_ACC = PROBE_LIBRARY.entry("sg_probe_acc", [_vp, _vp, _i, _vp])
+_CONV = PROBE_LIBRARY.entry("sg_probe_conv", [_vp, _vp, _ll, _i, _vp])
+_CONV_LOOP = PROBE_LIBRARY.entry("sg_probe_conv_loop", [_vp, _vp, _ll, _vp])
+_ONEHOT = PROBE_LIBRARY.entry("sg_probe_onehot", [_vp, _vp, _vp] + [_i] * 5 + [_vp])
+_BDOT = PROBE_LIBRARY.entry("sg_probe_bdot", [_vp, _vp, _vp] + [_i] * 6 + [_vp])
+_DOT = PROBE_LIBRARY.entry("sg_probe_dot", [_vp, _vp, _vp] + [_i] * 8 + [_vp])
 
 PROBES = ("grid", "acc", "conv", "onehot", "bdot", "dot")
 #: the TPU script's line number of each kernel's pl.pallas_call
@@ -94,10 +110,6 @@ ACC_REPS = 64
 _BLOCK_ROWS, _COLS, _CLUSTER, _BINS = 8, 128, 8, 32
 
 
-def _lib():
-    return mk.load_library().lib
-
-
 def _out(shape, dtype, like: torch.Tensor) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device=like.device)
 
@@ -105,9 +117,9 @@ def _out(shape, dtype, like: torch.Tensor) -> torch.Tensor:
 def _launch(name: str, fn, *args) -> None:
     dev = args[0].device if isinstance(args[0], torch.Tensor) else None
     with torch.cuda.device(dev):
-        rc = fn(*[mk._ptr(a) if isinstance(a, torch.Tensor) else a for a in args],
-                mk._stream(dev))
-    mk._check(rc, name)
+        rc = fn(*[cuda_lib.ptr(a) if isinstance(a, torch.Tensor) else a for a in args],
+                cuda_lib.stream(dev))
+    cuda_lib.check(rc, name)
 
 
 def require_vec4(t: torch.Tensor, name: str) -> None:
@@ -129,7 +141,7 @@ def probe_grid_plain(x: torch.Tensor) -> torch.Tensor:
 def _require_grid(x: torch.Tensor) -> None:
     if x.dim() != 2 or x.shape[0] % _BLOCK_ROWS:
         raise ValueError(f"probe_grid: x must be (8n, 128), got {tuple(x.shape)}")
-    mk._require(x, "x", torch.float32, (x.shape[0], _COLS), x.device)
+    cuda_lib.require(x, "x", torch.float32, (x.shape[0], _COLS), x.device)
 
 
 def probe_grid(x: torch.Tensor) -> torch.Tensor:
@@ -141,28 +153,12 @@ def probe_grid(x: torch.Tensor) -> torch.Tensor:
     _require_grid(x)
     require_vec4(x, "x")
     o = _out(x.shape, torch.float32, x)
-    _launch("probe_grid", _lib().sg_probe_grid, x, o, x.shape[0] // _BLOCK_ROWS)
+    _launch("probe_grid", _GRID, x, o, x.shape[0] // _BLOCK_ROWS)
     probe_grid.launches += 1
     return o
 
 
 probe_grid.launches = 0
-
-
-def probe_grid_loop(x: torch.Tensor) -> torch.Tensor:
-    """:func:`probe_grid` by the first design's kernel
-    ``probe_grid_loop_kernel`` (a loop of scalar loads and stores per
-    thread) on a CUDA tensor."""
-    if x.device.type == "cpu":
-        return probe_grid_plain(x)
-    _require_grid(x)
-    o = _out(x.shape, torch.float32, x)
-    _launch("probe_grid_loop", _lib().sg_probe_grid_loop, x, o, x.shape[0] // _BLOCK_ROWS)
-    probe_grid_loop.launches += 1
-    return o
-
-
-probe_grid_loop.launches = 0
 
 
 # --- 2. acc: one 8-CTA cluster -----------------------------------------------
@@ -191,7 +187,7 @@ def probe_acc_plain(x: torch.Tensor) -> torch.Tensor:
 def _launch_acc(name: str, entry, x: torch.Tensor, reps: int) -> torch.Tensor:
     if reps < 1:
         raise ValueError(f"{name}: reps must be >= 1, got {reps}")
-    mk._require(x, "x", torch.float32, (_CLUSTER * _BLOCK_ROWS, _COLS), x.device)
+    cuda_lib.require(x, "x", torch.float32, (_CLUSTER * _BLOCK_ROWS, _COLS), x.device)
     o = _out((_BLOCK_ROWS, 1), torch.float32, x)
     _launch(name, entry, x, o, int(reps))
     return o
@@ -206,40 +202,12 @@ def probe_acc(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
     on a CPU tensor."""
     if x.device.type == "cpu":
         return probe_acc_plain(x)
-    o = _launch_acc("probe_acc", _lib().sg_probe_acc, x, reps)
+    o = _launch_acc("probe_acc", _ACC, x, reps)
     probe_acc.launches += 1
     return o
 
 
 probe_acc.launches = 0
-
-
-def probe_acc_parity(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
-    """:func:`probe_acc` by B1's former handoff, kernel ``probe_acc_parity_kernel``
-    (one cluster barrier per rep, partials in parity slots read through
-    DSMEM), on a CUDA tensor."""
-    if x.device.type == "cpu":
-        return probe_acc_plain(x)
-    o = _launch_acc("probe_acc_parity", _lib().sg_probe_acc_parity, x, reps)
-    probe_acc_parity.launches += 1
-    return o
-
-
-probe_acc_parity.launches = 0
-
-
-def probe_acc_sync(x: torch.Tensor, reps: int = 1) -> torch.Tensor:
-    """:func:`probe_acc` by the first design's kernel
-    ``probe_acc_sync_kernel`` (two cluster barriers per rep) on a CUDA
-    tensor."""
-    if x.device.type == "cpu":
-        return probe_acc_plain(x)
-    o = _launch_acc("probe_acc_sync", _lib().sg_probe_acc_sync, x, reps)
-    probe_acc_sync.launches += 1
-    return o
-
-
-probe_acc_sync.launches = 0
 
 
 # --- 3. conv -----------------------------------------------------------------
@@ -288,11 +256,6 @@ def conv_plan(n: int, sms: int) -> ConvPlan:
     return ConvPlan(vectors, n % 4, max(blocks, 1))
 
 
-@functools.cache
-def _sms(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
 def probe_conv(x: torch.Tensor) -> torch.Tensor:
     """int32 -> float32 (round to nearest even): kernel ``probe_conv_kernel``
     (16-byte vectors at :func:`conv_plan`; x contiguous and 16-byte
@@ -300,11 +263,11 @@ def probe_conv(x: torch.Tensor) -> torch.Tensor:
     a CPU tensor."""
     if x.device.type == "cpu":
         return probe_conv_plain(x)
-    mk._require(x, "x", torch.int32, tuple(x.shape), x.device)
+    cuda_lib.require(x, "x", torch.int32, tuple(x.shape), x.device)
     require_vec4(x, "x")
-    plan = conv_plan(x.numel(), _sms(x.device.index))
+    plan = conv_plan(x.numel(), cuda_lib.sm_count(x.device.index))
     o = _out(x.shape, torch.float32, x)
-    _launch("probe_conv", _lib().sg_probe_conv, x, o, x.numel(), plan.blocks)
+    _launch("probe_conv", _CONV, x, o, x.numel(), plan.blocks)
     probe_conv.launches += 1
     return o
 
@@ -315,12 +278,13 @@ probe_conv.launches = 0
 def probe_conv_loop(x: torch.Tensor) -> torch.Tensor:
     """:func:`probe_conv` by the first design's kernel
     ``probe_conv_loop_kernel`` (a grid-stride loop of 4-byte loads; any
-    alignment) on a CUDA tensor."""
+    alignment) on a CUDA tensor: faster than probe_conv at the script's
+    shape, slower at B2's block."""
     if x.device.type == "cpu":
         return probe_conv_plain(x)
-    mk._require(x, "x", torch.int32, tuple(x.shape), x.device)
+    cuda_lib.require(x, "x", torch.int32, tuple(x.shape), x.device)
     o = _out(x.shape, torch.float32, x)
-    _launch("probe_conv_loop", _lib().sg_probe_conv_loop, x, o, x.numel())
+    _launch("probe_conv_loop", _CONV_LOOP, x, o, x.numel())
     probe_conv_loop.launches += 1
     return o
 
@@ -361,18 +325,6 @@ def probe_onehot_plain(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for lane in range(1, 32):
         s = s + part[:, lane]
     return s.to(torch.float32)
-
-
-def probe_onehot_walk_plain(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(rows, 32) float32: :func:`probe_onehot_plain`'s function in the
-    first design's order, over w in column order in float64, rounded
-    once."""
-    bins = torch.arange(_BINS, device=h.device)
-    acc = torch.zeros((h.shape[0], _BINS), dtype=torch.float64, device=h.device)
-    bd = b.to(torch.float64)
-    for w in range(h.shape[1]):
-        acc = acc + torch.where(h[:, w, None] == bins, bd[:, w, None], 0.0)
-    return acc.to(torch.float32)
 
 
 class OnehotPlan(NamedTuple):
@@ -428,8 +380,8 @@ def _require_onehot(name: str, h: torch.Tensor, b: torch.Tensor) -> tuple[int, i
     if h.dim() != 2:
         raise ValueError(f"{name}: h must be (rows, width), got {tuple(h.shape)}")
     rows, width = h.shape
-    mk._require(h, "h", torch.int32, (rows, width), h.device)
-    mk._require(b, "b", torch.float32, (rows, width), h.device)
+    cuda_lib.require(h, "h", torch.int32, (rows, width), h.device)
+    cuda_lib.require(b, "b", torch.float32, (rows, width), h.device)
     return rows, width
 
 
@@ -447,8 +399,8 @@ def probe_onehot(h: torch.Tensor, b: torch.Tensor, warps: int | None = None) -> 
     require_vec4(h, "h")
     require_vec4(b, "b")
     o = _out((rows, _BINS), torch.float32, h)
-    _launch("probe_onehot", _lib().sg_probe_onehot, h, b, o, rows, width, plan.warps,
-            plan.vecs_per_lane, plan.smem_bytes)
+    _launch("probe_onehot", _ONEHOT, h, b, o, rows, width, plan.warps, plan.vecs_per_lane,
+            plan.smem_bytes)
     probe_onehot.launches += 1
     probe_onehot.smem_bytes = plan.smem_bytes
     return o
@@ -456,25 +408,6 @@ def probe_onehot(h: torch.Tensor, b: torch.Tensor, warps: int | None = None) -> 
 
 probe_onehot.launches = 0
 probe_onehot.smem_bytes = None
-
-
-def probe_onehot_walk(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """:func:`probe_onehot_walk_plain` by the first design's kernel
-    ``probe_onehot_walk_kernel`` (one CTA per row, thread k walks every
-    column for bin k; width <= 1024, any alignment) on CUDA tensors, the
-    plain version on CPU tensors."""
-    if h.device.type == "cpu":
-        return probe_onehot_walk_plain(h, b)
-    rows, width = _require_onehot("probe_onehot_walk", h, b)
-    if width > ONEHOT_MAX_WIDTH:
-        raise ValueError(f"probe_onehot_walk: width {width} > {ONEHOT_MAX_WIDTH}")
-    o = _out((rows, _BINS), torch.float32, h)
-    _launch("probe_onehot_walk", _lib().sg_probe_onehot_walk, h, b, o, rows, width)
-    probe_onehot_walk.launches += 1
-    return o
-
-
-probe_onehot_walk.launches = 0
 
 
 # --- 5. bdot, 6. dot: tensor cores -------------------------------------------
@@ -489,8 +422,8 @@ def _require_bdot(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
     if a.dim() != 3 or a.shape[1] != 8 or a.shape[2] % 8:
         raise ValueError(f"probe_bdot: a must be (B, 8, 8n), got {tuple(a.shape)}")
     batch, _, k = a.shape
-    mk._require(a, "a", torch.float32, (batch, 8, k), a.device)
-    mk._require(b, "b", torch.float32, (batch, k, 8), a.device)
+    cuda_lib.require(a, "a", torch.float32, (batch, 8, k), a.device)
+    cuda_lib.require(b, "b", torch.float32, (batch, k, 8), a.device)
     return batch, k
 
 
@@ -511,8 +444,8 @@ def probe_bdot(a: torch.Tensor, b: torch.Tensor, warps: int | None = None) -> to
     require_vec4(a, "a")
     require_vec4(b, "b")
     o = _out((batch, 8, 8), torch.float32, a)
-    _launch("probe_bdot", _lib().sg_probe_bdot, a, b, o, batch, k, plan.warps,
-            plan.slices_per_warp, plan.lda, plan.smem_bytes)
+    _launch("probe_bdot", _BDOT, a, b, o, batch, k, plan.warps, plan.slices_per_warp,
+            plan.lda, plan.smem_bytes)
     probe_bdot.launches += 1
     probe_bdot.smem_bytes = plan.smem_bytes
     return o
@@ -520,23 +453,6 @@ def probe_bdot(a: torch.Tensor, b: torch.Tensor, warps: int | None = None) -> to
 
 probe_bdot.launches = 0
 probe_bdot.smem_bytes = None
-
-
-def probe_bdot_chain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """:func:`probe_bdot` by the first design's kernel
-    ``probe_bdot_chain_kernel`` (one warp per batch walking K from global
-    memory; any alignment) on CUDA tensors; :func:`probe_bdot_plain` on
-    CPU tensors."""
-    if a.device.type == "cpu":
-        return probe_bdot_plain(a, b)
-    batch, k = _require_bdot(a, b)
-    o = _out((batch, 8, 8), torch.float32, a)
-    _launch("probe_bdot_chain", _lib().sg_probe_bdot_chain, a, b, o, batch, k)
-    probe_bdot_chain.launches += 1
-    return o
-
-
-probe_bdot_chain.launches = 0
 
 
 def probe_dot_plain(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS) -> torch.Tensor:
@@ -619,8 +535,8 @@ def _require_dot(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
         raise ValueError(f"probe_dot: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
     m, k = a.shape
     n = b.shape[1]
-    mk._require(a, "a", torch.float32, (m, k), a.device)
-    mk._require(b, "b", torch.float32, (k, n), a.device)
+    cuda_lib.require(a, "a", torch.float32, (m, k), a.device)
+    cuda_lib.require(b, "b", torch.float32, (k, n), a.device)
     return m, k, n
 
 
@@ -639,7 +555,7 @@ def probe_dot(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS) -> torch
     require_vec4(a, "a")
     require_vec4(b, "b")
     o = _out((m, n), torch.float32, a)
-    _launch("probe_dot", _lib().sg_probe_dot, a, b, o, m, k, n, int(steps), plan.warps,
+    _launch("probe_dot", _DOT, a, b, o, m, k, n, int(steps), plan.warps,
             plan.slices_per_warp, plan.lda, plan.smem_bytes)
     probe_dot.launches += 1
     probe_dot.smem_bytes = plan.smem_bytes
@@ -650,39 +566,12 @@ probe_dot.launches = 0
 probe_dot.smem_bytes = None
 
 
-def probe_dot_chain(a: torch.Tensor, b: torch.Tensor, steps: int = DOT_STEPS) -> torch.Tensor:
-    """:func:`probe_dot` by the first design's kernel
-    ``probe_dot_chain_kernel`` (one warp per 16 x 8 tile walking all of K
-    from global memory; M % 16, K % 8, N % 8 == 0) on CUDA tensors;
-    :func:`probe_dot_plain` on CPU tensors."""
-    if a.device.type == "cpu":
-        return probe_dot_plain(a, b, steps)
-    m, k, n = _require_dot(a, b)
-    if m % 16 or k % 8 or n % 8:
-        raise ValueError(f"probe_dot_chain: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
-    o = _out((m, n), torch.float32, a)
-    _launch("probe_dot_chain", _lib().sg_probe_dot_chain, a, b, o, m, k, n, int(steps))
-    probe_dot_chain.launches += 1
-    return o
-
-
-probe_dot_chain.launches = 0
-
 #: every S5 kernel's own wrapper by label (``.launches`` counts its
-#: launches): ``<probe>`` the design the probe runs, ``<probe>_<design>``
-#: the first design of grid, acc, conv, onehot, bdot and dot and B1's
-#: design of acc, kept to be timed beside it
-VARIANTS = {"grid": probe_grid, "grid_loop": probe_grid_loop, "acc": probe_acc,
-            "acc_parity": probe_acc_parity, "acc_sync": probe_acc_sync,
-            "conv": probe_conv, "conv_loop": probe_conv_loop, "onehot": probe_onehot,
-            "onehot_walk": probe_onehot_walk, "bdot": probe_bdot,
-            "bdot_chain": probe_bdot_chain, "dot": probe_dot, "dot_chain": probe_dot_chain}
-#: the designs of acc, each timed at 1 and ACC_REPS reps, and how each
-#: rep's partials reach rank 0
-ACC_LABELS = ("acc", "acc_parity", "acc_sync")
-ACC_HANDOFF = {"acc": "one-sided st.async push onto rank 0's mbarrier",
-               "acc_parity": "one cluster barrier per rep, parity slots",
-               "acc_sync": "two cluster barriers per rep"}
+#: launches): ``<probe>`` the design the probe runs, ``conv_loop`` conv's
+#: first design, timed beside it
+VARIANTS = {"grid": probe_grid, "acc": probe_acc, "conv": probe_conv,
+            "conv_loop": probe_conv_loop, "onehot": probe_onehot, "bdot": probe_bdot,
+            "dot": probe_dot}
 #: the probes also run where they do real work (:func:`receiver_inputs`)
 RECEIVER_PROBES = ("conv", "onehot")
 
@@ -705,11 +594,9 @@ def kernel_of(label: str) -> str:
     return "probe_dot_kernel" if label == "bdot" else f"probe_{label}_kernel"
 
 
-#: every label's plain version: its probe's, but for onehot_walk, which
-#: sums in another order
+#: every label's plain version: its probe's
 PLAINS = {"grid": probe_grid_plain, "acc": probe_acc_plain, "conv": probe_conv_plain,
-          "onehot": probe_onehot_plain, "onehot_walk": probe_onehot_walk_plain,
-          "bdot": probe_bdot_plain, "dot": probe_dot_plain}
+          "onehot": probe_onehot_plain, "bdot": probe_bdot_plain, "dot": probe_dot_plain}
 PLAINS |= {label: PLAINS[probe_of(label)] for label in VARIANTS if label not in PLAINS}
 #: one PyTorch call computing the same function on :func:`library_inputs`
 #: (timed beside the kernel, never called by the port)
@@ -909,17 +796,16 @@ def onehot_scale(h: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def check(device, verbose: bool = False) -> dict:
-    """Every kernel of VARIANTS (each design of grid, acc, conv, onehot,
+    """Every kernel of VARIANTS (grid, acc, both designs of conv, onehot,
     bdot and dot) against its own plain version, ``PLAINS[label]``, on
     every set of :func:`input_sets`: bit-equal on the script's inputs (all
-    thirteen); on seeded inputs bit-equal, or within the TF32 bound for
-    bdot and dot; the designs of conv and onehot bit-equal at the
-    receiver's geometry (onehot in both cases, and at each warp count of
-    ONEHOT_WARP_SWEEP).  Each acc design at 2, 3 and ACC_REPS reps, and
-    two launches bit-equal to each other (their reductions have a fixed
-    order): ``probe_dot_kernel`` as dot and as bdot and each acc design on
-    seeded inputs, each design of conv and onehot at the receiver's
-    geometry.  Raises on the first failure.  Returns {label: largest
+    seven); on seeded inputs bit-equal, or within the TF32 bound for bdot
+    and dot; the designs of conv and onehot bit-equal at the receiver's
+    geometry (onehot in both cases, and at each warp count of
+    ONEHOT_WARP_SWEEP).  acc at 2, 3 and ACC_REPS reps, and two launches
+    bit-equal to each other (their reductions have a fixed order):
+    ``probe_dot_kernel`` as dot and as bdot and acc on seeded inputs, each
+    design of conv and onehot at the receiver's geometry.  Raises on the first failure.  Returns {label: largest
     absolute difference}."""
     worst = {}
     sets = input_sets(device)
@@ -946,11 +832,10 @@ def check(device, verbose: bool = False) -> dict:
         compare(f"onehot at {warps} warps per CTA", probe_onehot(h, b, warps=warps), want,
                 (h, b), True)
     acc_x = sets["seeded"]["acc"][0]
-    for label in ACC_LABELS:
-        for reps in (2, 3, ACC_REPS):
-            compare(f"{label} at {reps} reps", VARIANTS[label](acc_x, reps),
-                    probe_acc_plain(acc_x), (acc_x,), True)
-    for label in ("dot", "bdot", *ACC_LABELS, *(x for n in RECEIVER_PROBES for x in designs(n))):
+    for reps in (2, 3, ACC_REPS):
+        compare(f"acc at {reps} reps", probe_acc(acc_x, reps), probe_acc_plain(acc_x), (acc_x,),
+                True)
+    for label in ("dot", "bdot", "acc", *(x for n in RECEIVER_PROBES for x in designs(n))):
         name = probe_of(label)
         args = sets["receiver" if name in RECEIVER_PROBES else "seeded"][name]
         if not torch.equal(VARIANTS[label](*args), VARIANTS[label](*args)):
@@ -1044,13 +929,12 @@ def measure(device, n: int = 200, n_cold: int = 50) -> dict:
     "library_ms" for bdot and dot (whose "library_ms" is with TF32
     allowed), dot's "ms_steps0" (the launch, the staging and the reduction
     without the loop), bdot's "ms_by_warps" ({warps: ms} at each of
-    BDOT_WARP_SWEEP, in turns), and for each acc design "ms_reps" (ms of
-    one launch at ACC_REPS reps, the designs in turns) and "step_us", the
-    cost of one rep's handoff of the partials to rank 0: (t(ACC_REPS) -
-    t(1)) / (ACC_REPS - 1).
+    BDOT_WARP_SWEEP, in turns), and acc's "ms_reps" (ms of one launch at
+    ACC_REPS reps) and "step_us", the cost of one rep's handoff of the
+    partials to rank 0: (t(ACC_REPS) - t(1)) / (ACC_REPS - 1).
 
-    For the designs of conv and onehot also, each in turns with the other
-    designs and the library call: "ms_cold" and "graph_ms" at the script's
+    For conv's designs and onehot also, each in turns with the other
+    design and the library call: "ms_cold" and "graph_ms" at the script's
     shape (L2 flushed before each call; the marginal cost of one more call
     inside a CUDA graph, which leaves the launch out), beside
     "library_ms_cold" and "library_graph_ms"; and for each case of
@@ -1088,12 +972,9 @@ def measure(device, n: int = 200, n_cold: int = 50) -> dict:
                      warm)
     res["bdot"]["ms_by_warps"] = {w: _mean(t) for w, t in sweep.items()}
     x = inputs["acc"][0]
-    turns = in_turns({label: functools.partial(VARIANTS[label], x, ACC_REPS)
-                      for label in ACC_LABELS}, warm)
-    for label in ACC_LABELS:
-        r = res[label]
-        r["ms_reps"] = _mean(turns[label])
-        r["step_us"] = (r["ms_reps"] - r["ms"]) * 1e3 / (ACC_REPS - 1)
+    r = res["acc"]
+    r["ms_reps"] = warm(lambda: probe_acc(x, ACC_REPS))
+    r["step_us"] = (r["ms_reps"] - r["ms"]) * 1e3 / (ACC_REPS - 1)
 
     cases = {case: receiver_inputs(device, case=case) for case in RECEIVER_CASES}
     for name in RECEIVER_PROBES:
@@ -1151,11 +1032,10 @@ def report(res: dict) -> None:
           f"{DOT_STEPS} steps [{card()}]")
     by_w = ", ".join(f"{w} warps {us(t)} us" for w, t in res["bdot"]["ms_by_warps"].items())
     print(f"S5 bdot by warps per CTA (in turns; the default is {BDOT_WARPS}): {by_w} [{card()}]")
-    for label in ACC_LABELS:
-        r = res[label]
-        print(f"S5 {label} (8-CTA cluster, {ACC_HANDOFF[label]}): {us(r['ms'])} us at 1 rep, "
-              f"{us(r['ms_reps'])} us at {ACC_REPS} reps: {r['step_us']:.4f} us per rep "
-              f"[{card()}]")
+    r = res["acc"]
+    print(f"S5 acc (8-CTA cluster, one-sided st.async push onto rank 0's mbarrier): "
+          f"{us(r['ms'])} us at 1 rep, {us(r['ms_reps'])} us at {ACC_REPS} reps: "
+          f"{r['step_us']:.4f} us per rep [{card()}]")
     for name in RECEIVER_PROBES:
         for label in designs(name):
             r = res[label]
@@ -1212,7 +1092,8 @@ def probe_resources(log: str) -> dict:
     """{label: resources} of the kernel of every S5 label of VARIANTS
     (:func:`kernel_of`: bdot's is dot's), found by its exact name: the
     length-prefixed identifier in the mangled name, so that
-    ``probe_dot_kernel`` never matches ``probe_dot_chain_kernel``."""
+    ``probe_dot_kernel`` never matches a kernel whose name only begins
+    with it."""
     res = resources(log)
     out = {}
     for label in VARIANTS:
@@ -1227,7 +1108,7 @@ def probe_resources(log: str) -> dict:
 def main() -> int:
     device = require_cuda()
     print(card())
-    lib = mk.load_library()
+    lib = PROBE_LIBRARY.load()
     for label, r in probe_resources(lib.log).items():
         print(f"S5 {label:11s}: {r['registers']} registers, {r['smem']} B static shared, "
               f"{r['stack']} B stack, spills {r['spill_stores']} B stored / "

@@ -12,7 +12,7 @@ card), so the summary covers both sides:
   API calls, and the ``softgnss/`` ranges) its self time,
   its count and its us per block; then the host time per block that falls
   inside no torch op or CUDA call (:func:`host_summary`).  The kernel
-  wrappers' Python (``megakernel._launch_block``: the ``ctypes`` call and
+  wrappers' Python (``megakernel.launch_block``: the ``ctypes`` call and
   its argument packing) shows up there, and as the self time of the
   ``softgnss/build_frames`` and ``softgnss/track_block`` ranges that wrap
   each B2 and B1 call.

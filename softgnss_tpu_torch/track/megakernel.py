@@ -1,6 +1,5 @@
 """The block tracker's kernels: B2 (frames builder), B1 (block tracker)
-and B3 (B1 reading the capture itself), and the library that holds every
-kernel of the port.
+and B3 (B1 reading the capture itself).
 
 For each ``track_block_ms`` block, ``scan.track`` gathers every channel's
 per-ms sample windows with :func:`build_frames` and then runs the block's
@@ -15,8 +14,9 @@ forces one.  They port
 softgnss_tpu.track.megakernel's ``_builder_kernel`` and ``_kernel``
 (unfused and fused, with ``mega_track_segment`` / ``mega_finalize``):
 what those compute, not their Mosaic layout.  The CUDA C++ sources are
-``softgnss_tpu_torch/csrc/*.cu``; each opens with the TPU kernel it
-replaces, what bounds it on the H100 and its design.
+``softgnss_tpu_torch/csrc/build_frames.cu`` and ``track_block.cu``; each
+opens with the TPU kernel it replaces, what bounds it on the H100 and its
+design.
 
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
 version (``*_plain``, same module) for CPU tensors, and for nothing else:
@@ -24,33 +24,17 @@ a CUDA tensor either launches the kernel or raises.  B1 and B3 also have
 an entry on the stacked state (:func:`track_block_stacked`,
 :func:`track_block_fused_stacked`: CUDA tensors only, into buffers the
 caller made), which the block loop issues and captures in a CUDA graph.
-``wrapper.launches`` counts kernel launches, a graph's replays included;
-``build_frames.ragged_rows`` counts the frames B2 wrote that start or end
-off a 16-byte line (:func:`ragged_rows`); ``track_block.pushed_ms`` (and
-``track_block_fused.pushed_ms``) the channel-ms whose partial sums the
-cluster's ranks handed each other by the one-sided push
-(:func:`pushed_ms`).
-The kernels are compiled at first use with
-``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library with
-a plain C interface under ``softgnss_tpu_torch/_build/<source hash>/``
-(one ``nvcc -c`` per source, all started together, then one link) and
-bound with ``ctypes``; every launch runs on
-``torch.cuda.current_stream()``.
+``wrapper.launches`` counts kernel launches, a graph's replays included.
+The kernels live in the receiver's library (``cuda_lib.RECEIVER``, built
+at first use); each C entry is declared once, beside its wrapper.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 import warnings
-from pathlib import Path
 from typing import NamedTuple
 
 import torch
@@ -64,6 +48,8 @@ from softgnss_tpu_torch.signals.nco import (
     code_step_q,
     sin_turns,
 )
+from softgnss_tpu_torch.track import cuda_lib
+from softgnss_tpu_torch.track.cuda_lib import SMS, sm_count
 from softgnss_tpu_torch.track.scan import (
     _F32_FIELDS,
     OUT_F32,
@@ -79,137 +65,7 @@ from softgnss_tpu_torch.track.scan import (
     ms_outputs,
     unstack_state,
 )
-
-_PKG = Path(__file__).resolve().parent.parent
-_CSRC = _PKG / "csrc"
-_SOURCES = ("build_frames.cu", "track_block.cu", "correlate_ms.cu", "dma_probe.cu",
-            "pallas_probe.cu")
-_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-              "-Xcompiler", "-fPIC")
-
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels "
-                           "are built from softgnss_tpu_torch/csrc at first use")
-    return found
-
-
-class KernelLibrary:
-    """The built kernel library: the ctypes handle, its path, how long the
-    build took (0 when it was already built) and nvcc's output."""
-
-    def __init__(self, path: Path, build_s: float, log: str):
-        self.path = path
-        self.build_s = build_s
-        self.log = log
-        lib = ctypes.CDLL(str(path))
-        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        hf, hi = ctypes.POINTER(ctypes.c_double), ctypes.POINTER(ctypes.c_longlong)
-        block = [vp] * 15 + [i, i, hf, hi, vp]
-        correlate = [vp, ll] + [vp] * 8 + [ll, i, i, i, i, vp, vp, vp, vp]
-        for name, args in (
-                ("sg_build_frames", [vp, ll, vp, vp, i, i, i, ll, vp]),
-                ("sg_build_frames_vec4", [vp, ll, vp, vp, i, i, i, ll, vp]),
-                ("sg_build_frames_bulk", [vp, ll, vp, vp, i, i, i, ll] + [i] * 6 + [vp]),
-                ("sg_build_frames_direct", [vp, ll, vp, vp, i, i, i, ll, i, i, vp]),
-                ("sg_track_block", block),
-                ("sg_track_block_stage", [i] + block),
-                ("sg_track_block_fused", [vp, ll] + block),
-                ("sg_track_block_max_clusters", [i, i, i, i, i, ctypes.POINTER(i)]),
-                ("sg_correlate_ms", correlate),
-                ("sg_correlate_ms_stage", [i] + correlate),
-                ("sg_correlate_ms_two_pass", [i, vp, ll] + [vp] * 8 + [ll, i, i, vp, vp, vp]),
-                ("sg_dma_probe", [i] * 7 + [vp, ll, vp, vp, i, i, i, i, vp]),
-                ("sg_dma_probe_cta", [vp, ll, vp, vp, i, i, i, i, vp]),
-                ("sg_probe_grid", [vp, vp, i, vp]),
-                ("sg_probe_grid_loop", [vp, vp, i, vp]),
-                ("sg_probe_acc", [vp, vp, i, vp]),
-                ("sg_probe_acc_parity", [vp, vp, i, vp]),
-                ("sg_probe_acc_sync", [vp, vp, i, vp]),
-                ("sg_probe_conv", [vp, vp, ll, i, vp]),
-                ("sg_probe_conv_loop", [vp, vp, ll, vp]),
-                ("sg_probe_onehot", [vp, vp, vp, i, i, i, i, i, vp]),
-                ("sg_probe_onehot_walk", [vp, vp, vp, i, i, vp]),
-                ("sg_probe_bdot", [vp, vp, vp, i, i, i, i, i, i, vp]),
-                ("sg_probe_bdot_chain", [vp, vp, vp, i, i, vp]),
-                ("sg_probe_dot", [vp, vp, vp, i, i, i, i, i, i, i, i, vp]),
-                ("sg_probe_dot_chain", [vp, vp, vp, i, i, i, i, vp])):
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = i
-        self.lib = lib
-
-
-@functools.cache
-def load_library() -> KernelLibrary:
-    """Build (once per source hash) and load the CUDA kernel library: the
-    sources compile in parallel, one nvcc each, then link."""
-    srcs = [_CSRC / s for s in _SOURCES]
-    digest = hashlib.sha256()
-    for s in srcs:
-        digest.update(s.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    out_dir = _PKG / "_build" / digest.hexdigest()[:16]
-    lib_path = out_dir / "libsgtrack.so"
-    log_path = out_dir / "nvcc.log"
-    if lib_path.exists():
-        return KernelLibrary(lib_path, 0.0, log_path.read_text() if log_path.exists() else "")
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs = [Path(tmp) / (src.stem + ".o") for src in srcs]
-        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                for src, obj in zip(srcs, objs)]
-        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                  text=True) for c in cmds]
-        outs = [p.communicate()[0] for p in procs]
-        log = "".join(outs)
-        for c, p, out in zip(cmds, procs, outs):
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{out}")
-        so = Path(tmp) / "lib.so"
-        link = [nvcc, *_ARCH, "-shared", "-o", str(so), *map(str, objs)]
-        proc = subprocess.run(link, capture_output=True, text=True)
-        log += proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{log}")
-        log_path.write_text(log)
-        os.replace(so, lib_path)
-    return KernelLibrary(lib_path, time.perf_counter() - t0, log)
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _check(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
-                           f"({torch.cuda.get_device_name()})")
-
-
-def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if device.type != "cuda":
-        raise ValueError(f"{name}: the kernels take CUDA tensors (CPU tensors "
-                         f"take the plain versions), got {device}")
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
-        raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on {device}, "
-                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
+_vp, _ll, _i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 # --- B2: frames builder ----------------------------------------------------
 
@@ -223,9 +79,6 @@ FRAMES_CTAS_PER_SM = 1
 FRAMES_PART_W = 1024
 FRAMES_THREADS = 256
 FRAMES_UNION = True
-#: SMs of an H100 SXM: B4's plan spreads the channels' CTAs over them, and
-#: B2's plan takes it by default (its wrapper passes the card's count)
-SMS = 132
 #: dynamic shared memory a CTA can use on an H100 (csrc/build_frames.cu
 #: kMaxSmem), and the bulk copies (mbarriers) of one hull (kMaxParts)
 MAX_SMEM = 232_448
@@ -235,14 +88,14 @@ MAX_THREADS = 1024
 #: takes (the grid's second dimension)
 MIN_GROUP_W = 1024
 MAX_R = 65_535
-#: device names of B2's kernels (the bulk design, then the first), as a
-#: profiler shows them: match a kernel event by :func:`is_frames_kernel`
-FRAMES_KERNELS = ("build_frames_bulk_kernel", "build_frames_kernel")
+#: device name of B2's kernel as a profiler shows it (with its template
+#: arguments): match a kernel event by :func:`is_frames_kernel`
+FRAMES_KERNEL = "build_frames_bulk_kernel"
 
 
 def is_frames_kernel(name: str) -> bool:
-    """Whether a profiler's kernel name is one of B2's kernels."""
-    return any(k in name for k in FRAMES_KERNELS)
+    """Whether a profiler's kernel name is B2's kernel."""
+    return FRAMES_KERNEL in name
 
 
 class FramesPlan(NamedTuple):
@@ -436,10 +289,8 @@ def build_frames_plain(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int,
     return torch.where(inside, cap_words[idx.clamp(0, cap_words.shape[0] - 1)], 0)
 
 
-@functools.cache
-def sm_count(device_index: int) -> int:
-    """The card's SM count, queried once per device."""
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
+_BUILD_FRAMES_BULK = cuda_lib.RECEIVER.entry(
+    "sg_build_frames_bulk", [_vp, _ll, _vp, _vp, _i, _i, _i, _ll] + [_i] * 6 + [_vp])
 
 
 def build_frames(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int,
@@ -458,16 +309,14 @@ def build_frames(cap_words: torch.Tensor, starts_w: torch.Tensor, r: int,
         plan = frames_plan(r, starts_w.shape[0], win_w, spc_w,
                            n_sm=sm_count(dev.index if dev.index is not None
                                          else torch.cuda.current_device()))
-    frames = _launch_frames("build_frames", load_library().lib.sg_build_frames_bulk, cap_words,
-                            starts_w, r, win_w, spc_w, int(plan.union), plan.group_w, plan.buf_w,
-                            plan.part_w, plan.threads, plan.smem_bytes)
+    frames = launch_frames("build_frames", _BUILD_FRAMES_BULK.function(), cap_words, starts_w,
+                           r, win_w, spc_w, int(plan.union), plan.group_w, plan.buf_w,
+                           plan.part_w, plan.threads, plan.smem_bytes)
     build_frames.launches += 1
-    build_frames.ragged_rows += ragged_rows(frames.data_ptr(), r * starts_w.shape[0], win_w)
     return frames
 
 
 build_frames.launches = 0
-build_frames.ragged_rows = 0
 
 
 def ragged_rows(base: int, rows: int, win_w: int) -> int:
@@ -484,28 +333,28 @@ def ragged_rows(base: int, rows: int, win_w: int) -> int:
                for k in range(rows))
 
 
-def _launch_frames(name: str, entry, cap_words, starts_w, r: int, win_w: int,
-                   spc_w: int, *plan) -> torch.Tensor:
+def launch_frames(name: str, entry, cap_words, starts_w, r: int, win_w: int,
+                  spc_w: int, *plan) -> torch.Tensor:
     """Check the inputs of :func:`build_frames`, allocate the frames and
-    call ``entry`` (a C entry point that takes the arguments of
-    ``sg_build_frames``, with ``plan``'s integers before the stream) on the
-    current stream."""
+    call ``entry`` (a C entry point that takes (capture, its words, starts,
+    frames, r, C, win_w, spc_w), then ``plan``'s integers, then the
+    stream) on the current stream."""
     dev = cap_words.device
     c = starts_w.shape[0]
-    _require(cap_words, "cap_words", torch.int32, (cap_words.shape[0],), dev)
-    _require(starts_w, "starts_w", torch.int64, (c,), dev)
+    cuda_lib.require(cap_words, "cap_words", torch.int32, (cap_words.shape[0],), dev)
+    cuda_lib.require(starts_w, "starts_w", torch.int64, (c,), dev)
     frames = torch.empty((r, c, win_w), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        rc = entry(_ptr(cap_words), cap_words.shape[0], _ptr(starts_w), _ptr(frames), r, c,
-                   win_w, spc_w, *plan, _stream(dev))
-    _check(rc, name)
+        rc = entry(cuda_lib.ptr(cap_words), cap_words.shape[0], cuda_lib.ptr(starts_w),
+                   cuda_lib.ptr(frames), r, c, win_w, spc_w, *plan, cuda_lib.stream(dev))
+    cuda_lib.check(rc, name)
     return frames
 
 
 # --- B1: block tracker -----------------------------------------------------
 
 
-def _overflow(o, blk, win: int, active):
+def overflow(o, blk, win: int, active):
     """>0 where the true span [o, o+blk) leaves the frame (active channels)."""
     bad = torch.maximum(-o, o + blk - win)
     return torch.where(active, bad.clamp(min=0), 0)
@@ -532,7 +381,7 @@ def track_block_plain(frames, fb0, state: TrackState, code_pads, carr_basis,
         blk = torch.div(code_len_q - st.code_rem_q + step_q - 1, step_q,
                         rounding_mode="floor")
         o = st.ptr - (fb0 + j * spc)
-        ovf = torch.maximum(ovf, _overflow(o, blk, win, active))
+        ovf = torch.maximum(ovf, overflow(o, blk, win, active))
         mask = (k >= o[:, None]) & (k < (o + blk)[:, None])
         raw = torch.where(mask, samples[j].to(torch.float32), 0.0)
 
@@ -600,19 +449,24 @@ def choose_ctas_per_channel(n_ch: int, max_clusters, preferred: int = CTAS_PER_C
                        "more CTAs; pass ctas_per_channel=1 to run one CTA per channel")
 
 
+_MAX_CLUSTERS = cuda_lib.RECEIVER.entry("sg_track_block_max_clusters",
+                                        [_i] * 5 + [ctypes.POINTER(_i)])
+
+
 @functools.cache
 def max_active_clusters(device_index: int, fused: bool, kn: int, threads: int, chunk: int) -> int:
     """How many clusters of ``kn`` CTAs of B1 (or B3) the card holds at
     once (cudaOccupancyMaxActiveClusters), queried once per size."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = load_library().lib.sg_track_block_max_clusters(int(fused), kn, threads, chunk, 1,
-                                                            ctypes.byref(out))
-    _check(rc, "track_block occupancy query")
+        rc = _MAX_CLUSTERS(int(fused), kn, threads, chunk, 1, ctypes.byref(out))
+    cuda_lib.check(rc, "track_block occupancy query")
     return out.value
 
 
-def _check_launch_size(ctas_per_channel, threads_per_cta) -> None:
+def check_launch_size(ctas_per_channel, threads_per_cta) -> None:
+    """Raise ValueError on a forced cluster size or CTA width B1 and B3
+    are not built for."""
     if ctas_per_channel is not None and ctas_per_channel not in CLUSTER_SIZES:
         raise ValueError(f"ctas_per_channel={ctas_per_channel}: expected one of {CLUSTER_SIZES}")
     if threads_per_cta is not None and (threads_per_cta not in range(32, 513, 32)):
@@ -624,7 +478,7 @@ def launch_size(dev, fused: bool, n_ch: int, win: int, ctas_per_channel=None,
     """(CTAs per channel, threads per CTA) of a B1 (or B3) launch on
     ``dev``: the forced values, else :func:`choose_ctas_per_channel` of the
     card's occupancy and :data:`THREADS_PER_CTA`."""
-    _check_launch_size(ctas_per_channel, threads_per_cta)
+    check_launch_size(ctas_per_channel, threads_per_cta)
     threads = threads_per_cta or THREADS_PER_CTA
     if ctas_per_channel is not None:
         return ctas_per_channel, threads
@@ -651,7 +505,14 @@ def _kernel_params(config: ReceiverConfig, r: int, c: int, win: int, kn: int):
     return hf, hi
 
 
-def _launch_stacked(name: str, launch, dev, fb0, s_in: Stack, s_out: Stack, out: BlockOut,
+#: the arguments of B1's and B3's C entries after their source's (frames;
+#: or capture, its words and frame starts) up to the stream:
+#: :func:`launch_stacked`'s
+BLOCK_ARGS = [_vp] * 14 + [_i, _i, ctypes.POINTER(ctypes.c_double),
+                           ctypes.POINTER(ctypes.c_longlong), _vp]
+
+
+def launch_stacked(name: str, launch, dev, fb0, s_in: Stack, s_out: Stack, out: BlockOut,
                     code_pads, carr_basis, active, config: ReceiverConfig, r: int, kn: int,
                     threads: int) -> None:
     """Check the common inputs of B1/B3 and call ``launch`` (the C entry
@@ -659,31 +520,33 @@ def _launch_stacked(name: str, launch, dev, fb0, s_in: Stack, s_out: Stack, out:
     of ``threads`` threads: it reads the stacked state ``s_in`` and writes
     ``s_out`` and ``out``.  Launches only: nothing waits for the card."""
     c = fb0.shape[0]
-    _require(fb0, "fb0", torch.int64, (c,), dev)
-    _require(code_pads, "code_pads", torch.float32, (c, 1025), dev)
-    _require(carr_basis, "carr_basis", torch.float64, (c,), dev)
-    _require(active, "active", torch.bool, (c,), dev)
+    require = cuda_lib.require
+    require(fb0, "fb0", torch.int64, (c,), dev)
+    require(code_pads, "code_pads", torch.float32, (c, 1025), dev)
+    require(carr_basis, "carr_basis", torch.float64, (c,), dev)
+    require(active, "active", torch.bool, (c,), dev)
     for s, which in ((s_in, "state"), (s_out, "state out")):
-        _require(s.si, f"{which} (int64 leaves)", torch.int64, (len(STATE_I64), c), dev)
-        _require(s.sf, f"{which} (float64 leaves)", torch.float64, (len(STATE_F64), c), dev)
-        _require(s.sa, f"{which} (float32 leaves)", torch.float32, (len(_F32_FIELDS), c), dev)
-    _require(out.abs_sample, "absolute_sample", torch.int64, (r, c), dev)
-    _require(out.of64, "float64 outputs", torch.float64, (len(OUT_F64), r, c), dev)
-    _require(out.of32, "float32 outputs", torch.float32, (len(OUT_F32), r, c), dev)
-    _require(out.ovf, "overflow", torch.int64, (c,), dev)
+        require(s.si, f"{which} (int64 leaves)", torch.int64, (len(STATE_I64), c), dev)
+        require(s.sf, f"{which} (float64 leaves)", torch.float64, (len(STATE_F64), c), dev)
+        require(s.sa, f"{which} (float32 leaves)", torch.float32, (len(_F32_FIELDS), c), dev)
+    require(out.abs_sample, "absolute_sample", torch.int64, (r, c), dev)
+    require(out.of64, "float64 outputs", torch.float64, (len(OUT_F64), r, c), dev)
+    require(out.of32, "float32 outputs", torch.float32, (len(OUT_F32), r, c), dev)
+    require(out.ovf, "overflow", torch.int64, (c,), dev)
     hf, hi = _kernel_params(config, r, c, config.track_window, kn)
+    ptr = cuda_lib.ptr
     with torch.cuda.device(dev):
         # a bool tensor is one byte of 0 or 1 per channel: the kernel reads it as is
-        rc = launch(_ptr(fb0), _ptr(code_pads), _ptr(carr_basis), _ptr(active),
-                    _ptr(s_in.si), _ptr(s_in.sf), _ptr(s_in.sa), _ptr(s_out.si), _ptr(s_out.sf),
-                    _ptr(s_out.sa), _ptr(out.abs_sample), _ptr(out.of64), _ptr(out.of32),
-                    _ptr(out.ovf), kn, threads, hf, hi, _stream(dev))
-    _check(rc, f"{name} ({kn} CTAs per channel, {threads} threads each)")
+        rc = launch(ptr(fb0), ptr(code_pads), ptr(carr_basis), ptr(active),
+                    ptr(s_in.si), ptr(s_in.sf), ptr(s_in.sa), ptr(s_out.si), ptr(s_out.sf),
+                    ptr(s_out.sa), ptr(out.abs_sample), ptr(out.of64), ptr(out.of32),
+                    ptr(out.ovf), kn, threads, hf, hi, cuda_lib.stream(dev))
+    cuda_lib.check(rc, f"{name} ({kn} CTAs per channel, {threads} threads each)")
 
 
-def _launch_block(name: str, launch, dev, fb0, state: TrackState, code_pads,
-                  carr_basis, active, config: ReceiverConfig, r: int, kn: int, threads: int):
-    """:func:`_launch_stacked` on ``state`` stacked into new buffers;
+def launch_block(name: str, launch, dev, fb0, state: TrackState, code_pads,
+                 carr_basis, active, config: ReceiverConfig, r: int, kn: int, threads: int):
+    """:func:`launch_stacked` on ``state`` stacked into new buffers;
     returns (state, MsOutputs of (r, C) leaves, (C,) overflow)."""
     c = fb0.shape[0]
     si = torch.stack([getattr(state, f).to(torch.int64) for f in STATE_I64])
@@ -694,46 +557,30 @@ def _launch_block(name: str, launch, dev, fb0, state: TrackState, code_pads,
                    torch.empty((len(OUT_F64), r, c), dtype=torch.float64, device=dev),
                    torch.empty((len(OUT_F32), r, c), dtype=torch.float32, device=dev),
                    torch.empty(c, dtype=torch.int64, device=dev))
-    _launch_stacked(name, launch, dev, fb0, Stack(si, sf, sa), s_out, out, code_pads,
-                    carr_basis, active, config, r, kn, threads)
+    launch_stacked(name, launch, dev, fb0, Stack(si, sf, sa), s_out, out, code_pads,
+                   carr_basis, active, config, r, kn, threads)
     return (unstack_state(s_out, state.block_base),
             ms_outputs(out.abs_sample, out.of64, out.of32), out.ovf)
 
 
+_TRACK_BLOCK = cuda_lib.RECEIVER.entry("sg_track_block", [_vp] + BLOCK_ARGS)
+
+
 def _b1_launch(frames, fb0, config: ReceiverConfig, r: int, ctas_per_channel, threads_per_cta):
     """(C entry, CTAs per channel, threads per CTA) of B1 over ``frames``."""
-    _check_launch_size(ctas_per_channel, threads_per_cta)
+    check_launch_size(ctas_per_channel, threads_per_cta)
     dev = frames.device
-    _require(frames, "frames", torch.int32, (r, fb0.shape[0], config.track_window // 4), dev)
+    cuda_lib.require(frames, "frames", torch.int32, (r, fb0.shape[0], config.track_window // 4),
+                     dev)
     kn, threads = launch_size(dev, False, fb0.shape[0], config.track_window, ctas_per_channel,
                               threads_per_cta)
-    lib = load_library().lib
-    return (lambda *a: lib.sg_track_block(_ptr(frames), *a)), kn, threads
+    fn = _TRACK_BLOCK.function()
+    return (lambda *a: fn(cuda_lib.ptr(frames), *a)), kn, threads
 
 
-def active_channels(active: torch.Tensor) -> int:
-    """How many channels the (C,) bool mask ``active`` marks.  The count is
-    read from the card once and kept on the tensor until it is written, so
-    that the block loop's later launches, and a CUDA graph's capture of
-    them, find it without waiting for the card."""
-    kept = getattr(active, "_sg_active_count", None)
-    if kept is None or kept[0] != active._version:
-        kept = (active._version, int(active.sum()))
-        active._sg_active_count = kept
-    return kept[1]
-
-
-def pushed_ms(kn: int, r: int, active: torch.Tensor) -> int:
-    """The channel-ms one B1 (or B3) launch of ``r`` ms hands off by the
-    one-sided push (csrc/track_block.cu): every ms of every active channel
-    at ``kn`` > 1 CTAs per channel, none at one CTA."""
-    return r * active_channels(active) if kn > 1 else 0
-
-
-def _counted(wrapper, kn: int, pushed: int) -> None:
+def _counted(wrapper, kn: int) -> None:
     wrapper.launches += 1
     wrapper.ctas_per_channel = kn
-    wrapper.pushed_ms += pushed
 
 
 def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
@@ -747,21 +594,19 @@ def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
     CTAs per channel of ``threads_per_cta`` threads (default:
     :func:`launch_size`); ``track_block.ctas_per_channel`` records the size
     last launched."""
-    _check_launch_size(ctas_per_channel, threads_per_cta)
+    check_launch_size(ctas_per_channel, threads_per_cta)
     if frames.device.type == "cpu":
         return track_block_plain(frames, fb0, state, code_pads, carr_basis,
                                  active, config, r)
     launch, kn, threads = _b1_launch(frames, fb0, config, r, ctas_per_channel, threads_per_cta)
-    pushed = pushed_ms(kn, r, active)
-    out = _launch_block("track_block", launch, frames.device, fb0, state, code_pads, carr_basis,
-                        active, config, r, kn, threads)
-    _counted(track_block, kn, pushed)
+    out = launch_block("track_block", launch, frames.device, fb0, state, code_pads, carr_basis,
+                       active, config, r, kn, threads)
+    _counted(track_block, kn)
     return out
 
 
 track_block.launches = 0
 track_block.ctas_per_channel = None
-track_block.pushed_ms = 0
 
 
 def track_block_stacked(frames, fb0, s_in: Stack, s_out: Stack, out: BlockOut, code_pads,
@@ -771,14 +616,13 @@ def track_block_stacked(frames, fb0, s_in: Stack, s_out: Stack, out: BlockOut, c
     """:func:`track_block` on the stacked state (CUDA tensors only): B1
     reads ``s_in`` and writes ``s_out`` and ``out`` (scan.Stack,
     scan.BlockOut of ``r`` ms).  It launches and allocates nothing else,
-    so a CUDA graph can capture it once B1's size was chosen and
-    ``active`` was counted (:func:`active_channels`; scan.track_segments
-    runs a block eagerly first); counted on ``track_block``."""
+    so a CUDA graph can capture it once B1's size was chosen
+    (scan.track_segments runs a block eagerly first); counted on
+    ``track_block``."""
     launch, kn, threads = _b1_launch(frames, fb0, config, r, ctas_per_channel, threads_per_cta)
-    pushed = pushed_ms(kn, r, active)
-    _launch_stacked("track_block", launch, frames.device, fb0, s_in, s_out, out, code_pads,
-                    carr_basis, active, config, r, kn, threads)
-    _counted(track_block, kn, pushed)
+    launch_stacked("track_block", launch, frames.device, fb0, s_in, s_out, out, code_pads,
+                   carr_basis, active, config, r, kn, threads)
+    _counted(track_block, kn)
 
 
 # --- B3: fused block tracker -----------------------------------------------
@@ -793,18 +637,22 @@ def track_block_fused_plain(cap_words, starts_w, state: TrackState, code_pads,
                              active, config, r)
 
 
+_TRACK_BLOCK_FUSED = cuda_lib.RECEIVER.entry("sg_track_block_fused",
+                                              [_vp, _ll, _vp] + BLOCK_ARGS)
+
+
 def _b3_launch(cap_words, starts_w, config: ReceiverConfig, ctas_per_channel, threads_per_cta):
     """(C entry, CTAs per channel, threads per CTA) of B3 over ``cap_words``."""
-    _check_launch_size(ctas_per_channel, threads_per_cta)
+    check_launch_size(ctas_per_channel, threads_per_cta)
     dev = cap_words.device
     c = starts_w.shape[0]
-    _require(cap_words, "cap_words", torch.int32, (cap_words.shape[0],), dev)
-    _require(starts_w, "starts_w", torch.int64, (c,), dev)
+    cuda_lib.require(cap_words, "cap_words", torch.int32, (cap_words.shape[0],), dev)
+    cuda_lib.require(starts_w, "starts_w", torch.int64, (c,), dev)
     kn, threads = launch_size(dev, True, c, config.track_window, ctas_per_channel,
                               threads_per_cta)
-    lib = load_library().lib
+    fn = _TRACK_BLOCK_FUSED.function()
     n_words = cap_words.shape[0]
-    return ((lambda *a: lib.sg_track_block_fused(_ptr(cap_words), n_words, _ptr(starts_w), *a)),
+    return ((lambda *a: fn(cuda_lib.ptr(cap_words), n_words, cuda_lib.ptr(starts_w), *a)),
             kn, threads)
 
 
@@ -817,22 +665,20 @@ def track_block_fused(cap_words, starts_w, state: TrackState, code_pads, carr_ba
     and no frames array exists.  Same returns and keywords as
     :func:`track_block`.  Kernel B3 (csrc/track_block.cu, fused) on CUDA
     tensors."""
-    _check_launch_size(ctas_per_channel, threads_per_cta)
+    check_launch_size(ctas_per_channel, threads_per_cta)
     if cap_words.device.type == "cpu":
         return track_block_fused_plain(cap_words, starts_w, state, code_pads,
                                        carr_basis, active, config, r)
     launch, kn, threads = _b3_launch(cap_words, starts_w, config, ctas_per_channel,
                                      threads_per_cta)
-    pushed = pushed_ms(kn, r, active)
-    out = _launch_block("track_block_fused", launch, cap_words.device, 4 * starts_w, state,
-                        code_pads, carr_basis, active, config, r, kn, threads)
-    _counted(track_block_fused, kn, pushed)
+    out = launch_block("track_block_fused", launch, cap_words.device, 4 * starts_w, state,
+                       code_pads, carr_basis, active, config, r, kn, threads)
+    _counted(track_block_fused, kn)
     return out
 
 
 track_block_fused.launches = 0
 track_block_fused.ctas_per_channel = None
-track_block_fused.pushed_ms = 0
 
 
 def track_block_fused_stacked(cap_words, starts_w, s_in: Stack, s_out: Stack, out: BlockOut,
@@ -843,7 +689,6 @@ def track_block_fused_stacked(cap_words, starts_w, s_in: Stack, s_out: Stack, ou
     :func:`track_block_stacked` is :func:`track_block`."""
     launch, kn, threads = _b3_launch(cap_words, starts_w, config, ctas_per_channel,
                                      threads_per_cta)
-    pushed = pushed_ms(kn, r, active)
-    _launch_stacked("track_block_fused", launch, cap_words.device, 4 * starts_w, s_in, s_out,
-                    out, code_pads, carr_basis, active, config, r, kn, threads)
-    _counted(track_block_fused, kn, pushed)
+    launch_stacked("track_block_fused", launch, cap_words.device, 4 * starts_w, s_in, s_out,
+                   out, code_pads, carr_basis, active, config, r, kn, threads)
+    _counted(track_block_fused, kn)

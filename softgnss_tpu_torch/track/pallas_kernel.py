@@ -7,7 +7,8 @@ the split of softgnss_tpu.track.pallas_kernel.fused_correlate_ms and
 ``scan._frame_ms_pallas``; the CUDA source is
 ``softgnss_tpu_torch/csrc/correlate_ms.cu``: one launch per call, each
 channel over several CTAs whose float64 rows the last of them sums, in
-CTA order, from a scratch allocated once per device (:func:`_scratch`).
+CTA order, from a scratch allocated once per device (:func:`scratch`).
+The kernel lives in the receiver's library (``cuda_lib.RECEIVER``).
 
 The kernel reads the samples straight from the device capture at
 ``[ptr, ptr + blk)``, so the JAX path's block framing (per-block buffers,
@@ -25,6 +26,7 @@ runs :func:`correlate_ms_plain` for CPU tensors, and for nothing else;
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -32,7 +34,8 @@ import torch
 
 from softgnss_tpu_torch.config import ReceiverConfig
 from softgnss_tpu_torch.signals.nco import carrier_turns, chips_to_q, sin_turns
-from softgnss_tpu_torch.track.megakernel import SMS, _check, _ptr, _require, _stream, load_library
+from softgnss_tpu_torch.track import cuda_lib
+from softgnss_tpu_torch.track.cuda_lib import SMS
 from softgnss_tpu_torch.track.scan import _correlate_gather
 
 #: samples one 16-byte copy brings
@@ -66,7 +69,7 @@ class CorrelatePlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(window: int, n_ch: int, ctas: int | None) -> CorrelatePlan:
+def _plan(window: int, n_ch: int, ctas: int | None, n_sm: int) -> CorrelatePlan:
     if n_ch < 1:
         raise ValueError(f"correlate_ms: {n_ch} channels")
     if window < 1:
@@ -76,7 +79,7 @@ def _plan(window: int, n_ch: int, ctas: int | None) -> CorrelatePlan:
                          f"[1, {MAX_CTAS_PER_CHANNEL}]")
     n_vec = -(-(window + VECTOR - 1) // VECTOR)       # at any alignment of ptr
     if ctas is None:
-        ctas = min(MAX_CTAS_PER_CHANNEL, max(SMS // n_ch, -(-n_vec // MAX_VECTORS_PER_CTA)))
+        ctas = min(MAX_CTAS_PER_CHANNEL, max(n_sm // n_ch, -(-n_vec // MAX_VECTORS_PER_CTA)))
     kn = max(1, min(ctas, -(-n_vec // _MIN_VECTORS_PER_CTA)))
     vpc = -(-n_vec // kn)
     kn = -(-n_vec // vpc)                              # no CTA left without vectors
@@ -88,24 +91,24 @@ def _plan(window: int, n_ch: int, ctas: int | None) -> CorrelatePlan:
     return CorrelatePlan(kn, threads, vpc)
 
 
-def correlate_plan(config: ReceiverConfig, n_ch: int,
-                   ctas_per_channel: int | None = None) -> CorrelatePlan:
-    """The launch plan of B4 for ``n_ch`` channels at ``config``: the
-    window ``samples_per_code + track_window_extra`` (the longest code
-    period the loops hand it) in 16-sample vectors at any alignment, over
-    ``ctas_per_channel`` CTAs per channel (default: SMS // n_ch, one CTA
-    per SM, at most 64; fewer where a CTA would get less than a warp's
-    worth), 4 samples per thread (up to 1024 threads).  Raises ValueError
-    for no channels, a CTA count outside [1, 64], or a window those CTAs
-    do not stage in one pass (512 vectors each)."""
+def correlate_plan(config: ReceiverConfig, n_ch: int, ctas_per_channel: int | None = None,
+                   n_sm: int = SMS) -> CorrelatePlan:
+    """The launch plan of B4 for ``n_ch`` channels at ``config`` on a card
+    of ``n_sm`` SMs: the window ``samples_per_code + track_window_extra``
+    (the longest code period the loops hand it) in 16-sample vectors at
+    any alignment, over ``ctas_per_channel`` CTAs per channel (default:
+    n_sm // n_ch, one CTA per SM, at most 64; fewer where a CTA would get
+    less than a warp's worth), 4 samples per thread (up to 1024 threads).
+    Raises ValueError for no channels, a CTA count outside [1, 64], or a
+    window those CTAs do not stage in one pass (512 vectors each)."""
     return _plan(config.samples_per_code + config.track_window_extra, int(n_ch),
-                 None if ctas_per_channel is None else int(ctas_per_channel))
+                 None if ctas_per_channel is None else int(ctas_per_channel), int(n_sm))
 
 
 _SCRATCH: dict = {}
 
 
-def _scratch(device: torch.device, n_ch: int, ctas: int) -> tuple[torch.Tensor, torch.Tensor]:
+def scratch(device: torch.device, n_ch: int, ctas: int) -> tuple[torch.Tensor, torch.Tensor]:
     """B4's float64 partial rows (n_ch, ctas, 6) and its per-channel
     tickets (n_ch,), allocated once per device and shape, never per call:
     every launch leaves the tickets zero.  Launches on one device share
@@ -137,8 +140,16 @@ def correlate_ms_plain(config: ReceiverConfig, cap, ptr, carr_phase, w, code_rem
     return torch.where(active[:, None], corr, 0.0)
 
 
-def _launch_correlate(name: str, entry, config: ReceiverConfig, cap, ptr, carr_phase, w,
-                      code_rem_q, step_q, blk, code_pads, active, *plan) -> torch.Tensor:
+#: the arguments of B4's C entries from the capture up to the stream
+#: (:func:`launch_correlate`'s; the plan's three integers, the scratch and
+#: the tickets among them)
+CORRELATE_ARGS = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 8
+                  + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
+_CORRELATE_MS = cuda_lib.RECEIVER.entry("sg_correlate_ms", CORRELATE_ARGS)
+
+
+def launch_correlate(name: str, entry, config: ReceiverConfig, cap, ptr, carr_phase, w,
+                     code_rem_q, step_q, blk, code_pads, active, *plan) -> torch.Tensor:
     """Check the inputs of :func:`correlate_ms`, allocate its output, and
     call ``entry`` (a C entry point that takes the arguments of
     ``sg_correlate_ms`` up to ``n_ch``, then ``plan``'s integers and
@@ -146,22 +157,22 @@ def _launch_correlate(name: str, entry, config: ReceiverConfig, cap, ptr, carr_p
     synchronizes, so a CUDA graph can capture it."""
     dev = cap.device
     c = ptr.shape[0]
-    _require(cap, "cap", torch.int8, (cap.shape[0],), dev)
+    cuda_lib.require(cap, "cap", torch.int8, (cap.shape[0],), dev)
     for arg, t, dtype in (("ptr", ptr, torch.int64), ("carr_phase", carr_phase, torch.int32),
                           ("w", w, torch.int32), ("code_rem_q", code_rem_q, torch.int64),
                           ("step_q", step_q, torch.int64), ("blk", blk, torch.int64),
                           ("active", active, torch.bool)):
-        _require(t, arg, dtype, (c,), dev)
-    _require(code_pads, "code_pads", torch.float32, (c, 1025), dev)
+        cuda_lib.require(t, arg, dtype, (c,), dev)
+    cuda_lib.require(code_pads, "code_pads", torch.float32, (c, 1025), dev)
     out = torch.empty((c, 6), dtype=torch.float32, device=dev)
+    p = cuda_lib.ptr
     with torch.cuda.device(dev):
         # a bool tensor is one byte of 0 or 1 per channel: the kernel reads it as is
-        rc = entry(_ptr(cap), cap.shape[0], _ptr(ptr), _ptr(carr_phase), _ptr(w),
-                   _ptr(code_rem_q), _ptr(step_q), _ptr(blk), _ptr(code_pads), _ptr(active),
-                   chips_to_q(config.dll_correlator_spacing), c,
-                   *[_ptr(p) if isinstance(p, torch.Tensor) else p for p in plan],
-                   _ptr(out), _stream(dev))
-    _check(rc, name)
+        rc = entry(p(cap), cap.shape[0], p(ptr), p(carr_phase), p(w), p(code_rem_q), p(step_q),
+                   p(blk), p(code_pads), p(active), chips_to_q(config.dll_correlator_spacing), c,
+                   *[p(x) if isinstance(x, torch.Tensor) else x for x in plan],
+                   p(out), cuda_lib.stream(dev))
+    cuda_lib.check(rc, name)
     return out
 
 
@@ -175,14 +186,17 @@ def correlate_ms(config: ReceiverConfig, cap, ptr, carr_phase, w, code_rem_q, st
     carrier NCO counts and counts per sample; ``code_pads``: (C, 1025)
     float32; ``active``: (C,) bool.  Returns (C, 6) float32
     [i_e, i_p, i_l, q_e, q_p, q_l].  Kernel B4 (csrc/correlate_ms.cu), one
-    launch at :func:`correlate_plan`, on CUDA tensors."""
+    launch at :func:`correlate_plan` for the card's SM count, on CUDA
+    tensors."""
     if cap.device.type == "cpu":
         return correlate_ms_plain(config, cap, ptr, carr_phase, w, code_rem_q, step_q,
                                   blk, code_pads, active)
-    plan = correlate_plan(config, ptr.shape[0])
-    out = _launch_correlate("correlate_ms", load_library().lib.sg_correlate_ms, config, cap,
-                            ptr, carr_phase, w, code_rem_q, step_q, blk, code_pads, active,
-                            *plan, *_scratch(cap.device, ptr.shape[0], plan.ctas_per_channel))
+    dev = cap.device
+    plan = correlate_plan(config, ptr.shape[0], n_sm=cuda_lib.sm_count(
+        dev.index if dev.index is not None else torch.cuda.current_device()))
+    out = launch_correlate("correlate_ms", _CORRELATE_MS.function(), config, cap, ptr,
+                           carr_phase, w, code_rem_q, step_q, blk, code_pads, active, *plan,
+                           *scratch(dev, ptr.shape[0], plan.ctas_per_channel))
     correlate_ms.launches += 1
     return out
 

@@ -449,9 +449,8 @@ _GRAPH_POOLS: dict = {}
 class _BlockGraph:
     """``step`` captured once in a CUDA graph on ``device``'s side stream,
     from its pool (:class:`_GraphPool`).  :meth:`replay` launches it on the
-    current stream and counts its kernels on their wrappers' ``launches``,
-    B2's frames on ``build_frames.ragged_rows`` and B1's (or B3's) pushed
-    channel-ms on ``pushed_ms`` (the capture itself launches nothing)."""
+    current stream and counts its kernels on their wrappers' ``launches``
+    (the capture itself launches nothing)."""
 
     def __init__(self, step, device):
         from softgnss_tpu_torch.track import megakernel as mk
@@ -460,10 +459,8 @@ class _BlockGraph:
         if index not in _GRAPH_POOLS:
             _GRAPH_POOLS[index] = _GraphPool(index)
         self.pool = _GRAPH_POOLS[index]
-        counters = ((mk.build_frames, "launches"), (mk.build_frames, "ragged_rows"),
-                    (mk.track_block, "launches"), (mk.track_block, "pushed_ms"),
-                    (mk.track_block_fused, "launches"), (mk.track_block_fused, "pushed_ms"))
-        before = [getattr(w, a) for w, a in counters]
+        wrappers = (mk.build_frames, mk.track_block, mk.track_block_fused)
+        before = [w.launches for w in wrappers]
         self.stream = torch.cuda.current_stream(index)
         self.graph = torch.cuda.CUDAGraph()
         self.pool.side.wait_stream(self.stream)
@@ -473,17 +470,16 @@ class _BlockGraph:
                 step()
             finally:
                 self.graph.capture_end()
-        self.counts = [(w, a, getattr(w, a) - n) for (w, a), n in zip(counters, before)
-                       if getattr(w, a) != n]
-        for w, a, n in self.counts:
-            setattr(w, a, getattr(w, a) - n)
+        self.counts = [(w, w.launches - n) for w, n in zip(wrappers, before) if w.launches != n]
+        for w, n in self.counts:
+            w.launches -= n
         if self.pool.last is not None:     # the pool's last graph may still run elsewhere
             self.stream.wait_event(self.pool.last)
 
     def replay(self) -> None:
         self.graph.replay()
-        for w, a, n in self.counts:
-            setattr(w, a, getattr(w, a) + n)
+        for w, n in self.counts:
+            w.launches += n
 
     def done(self) -> None:
         """Mark the pool's memory free once the replays issued so far end."""

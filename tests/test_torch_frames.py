@@ -16,6 +16,7 @@ import torch
 
 import softgnss_tpu_torch as sgt
 from softgnss_tpu_torch.scripts import builder_time as s3
+from softgnss_tpu_torch.track import cuda_lib
 from softgnss_tpu_torch.track import megakernel as mk
 
 torch.set_num_threads(1)
@@ -251,18 +252,16 @@ def test_frames_plan_takes_the_widest_group_that_fits():
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_no_launch():
-    """On CPU tensors B2 and its first design run the plain version (a plan
-    is ignored) and count no launch."""
+    """On CPU tensors B2 and S3's vec4 variant run the plain version (a
+    plan is ignored) and count no launch."""
     args = s3.frame_args(3, 4, "cpu", edges=True, lead=3)
-    before = (mk.build_frames.launches, mk.build_frames.ragged_rows,
-              s3.build_frames_word.launches)
+    before = (mk.build_frames.launches, s3.build_frames_vec4.launches)
     want = mk.build_frames_plain(*args)
     plan = mk.frames_plan(4, 3, args[3], args[4], union=False)
     assert torch.equal(mk.build_frames(*args), want)
     assert torch.equal(mk.build_frames(*args, plan=plan), want)
-    assert torch.equal(s3.build_frames_word(*args), want)
-    assert (mk.build_frames.launches, mk.build_frames.ragged_rows,
-            s3.build_frames_word.launches) == before
+    assert torch.equal(s3.build_frames_vec4(*args), want)
+    assert (mk.build_frames.launches, s3.build_frames_vec4.launches) == before
 
 
 @pytest.mark.parametrize("base, rows, win_w, want", [
@@ -296,10 +295,10 @@ def test_s3_frame_args_keep_the_words_at_every_lead():
 def test_a_failed_build_raises_with_no_fallback(monkeypatch):
     """A tensor not on the CPU never takes the plain version: when the
     library does not build, build_frames raises."""
-    def broken():
+    def broken(name, sources):
         raise RuntimeError("nvcc failed (1)")
 
-    monkeypatch.setattr(mk, "load_library", broken)
+    monkeypatch.setattr(cuda_lib, "load_library", broken)
     cap = torch.empty(100, dtype=torch.int32, device="meta")
     starts = torch.empty(2, dtype=torch.int64, device="meta")
     plan = mk.frames_plan(2, 2, 8, 5)
@@ -325,8 +324,8 @@ def cuda_device():
 def test_bulk_kernel_matches_plain_on_card(cuda_device, lead, union):
     """The bulk kernel bit-equal to the plain version at r = 64, 1 and 8,
     C = 1, 8 and 12, the reference, the fast and the 16.3676-MHz geometry
-    (ragged_rows counting no frame at the first, every frame at the other
-    two), frames past both capture ends, small parts (many per hull), one
+    (every frame on whole 16-byte lines at the first, none at the other
+    two: ragged_rows), frames past both capture ends, small parts (many per hull), one
     and many column groups, a buffer too small for the hull (rounds), one
     wide enough for the edge starts and the default plan."""
     for cfg in (sgt.default_config(), sgt.fast_config(), _giove16()):
@@ -338,11 +337,8 @@ def test_bulk_kernel_matches_plain_on_card(cuda_device, lead, union):
                                              (mk.FRAMES_PART_W, 2, 4 * args[4])):
                 plan = mk.frames_plan(r, n_ch, args[3], args[4], union=union, part_w=part_w,
                                       ctas_per_sm=per_sm, spread_w=spread_w,
-                                      n_sm=mk.sm_count(0))
-                before = mk.build_frames.ragged_rows
+                                      n_sm=cuda_lib.sm_count(0))
                 assert torch.equal(mk.build_frames(*args, plan=plan), want), (r, n_ch, plan)
-                assert mk.build_frames.ragged_rows - before == (
-                    0 if cfg.track_window % 16 == 0 else r * n_ch)
     torch.cuda.synchronize()
 
 

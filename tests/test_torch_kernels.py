@@ -93,13 +93,11 @@ def _cell_scenario(device, n_ch: int, ms: int, seed: int, front: str):
 
 def _counts():
     return (mk.build_frames.launches, mk.track_block.launches,
-            mk.track_block_fused.launches, pk.correlate_ms.launches,
-            mk.track_block.pushed_ms, mk.track_block_fused.pushed_ms)
+            mk.track_block_fused.launches, pk.correlate_ms.launches)
 
 
 def test_plain_path_counts_no_launches():
-    """CPU tensors take the plain versions: no kernel launch and no pushed
-    channel-ms is counted."""
+    """CPU tensors take the plain versions: no kernel launch is counted."""
     cfg, sig, ch = _scenario("cpu")
     before = _counts()
     res = scan.track(cfg, sig, ch, n_ms=40)
@@ -116,19 +114,6 @@ def test_plain_routes_count_no_launches(route):
     res = scan.track(cfg.with_options(**route), sig, ch, n_ms=40)
     assert _counts() == before
     assert np.all(res.i_p[1] == 0) and np.any(res.i_p[0] != 0)
-
-
-def test_pushed_ms_counts_every_active_channel_ms():
-    """``pushed_ms``: r x the active channels at a cluster of CTAs, none
-    at one CTA; the mask's count is kept, and taken again once the mask is
-    written."""
-    active = torch.tensor([True, False, True, True])
-    assert mk.pushed_ms(16, 64, active) == 64 * 3
-    assert mk.pushed_ms(2, 5, active) == 5 * 3
-    assert mk.pushed_ms(1, 64, active) == 0
-    active[1] = True
-    assert mk.pushed_ms(16, 64, active) == 64 * 4
-    assert mk.active_channels(torch.zeros(3, dtype=torch.bool)) == 0
 
 
 def test_correlate_ms_plain_reads_the_capture():
@@ -204,8 +189,8 @@ def test_correlate_scratch_is_allocated_once():
     """B4's float64 rows and tickets come from one allocation per device and
     shape, never one per call: 16-byte aligned rows (the last CTA copies
     them by 16-byte cp.async) and tickets that start at zero."""
-    rows, tickets = pk._scratch(torch.device("cpu"), 8, 16)
-    again = pk._scratch(torch.device("cpu"), 8, 16)
+    rows, tickets = pk.scratch(torch.device("cpu"), 8, 16)
+    again = pk.scratch(torch.device("cpu"), 8, 16)
     assert again[0] is rows and again[1] is tickets
     assert rows.shape == (8, 16, 6) and rows.dtype == torch.float64
     assert rows.data_ptr() % 16 == 0 and (6 * 8) % 16 == 0
@@ -497,9 +482,7 @@ def test_graph_route_is_bit_equal_to_the_eager_route_on_card(cuda_device, route)
     every output leaf, the final state and the overflow of a first call (2
     full blocks and a 5-ms tail) and a resumed one (an 11-ms lead, 7 full
     blocks, a 7-ms tail), an idle channel among four; each kernel launch
-    counted once per segment either way, B2's frames (1 033 words: none
-    whole 16-byte lines) on ``build_frames.ragged_rows`` once each, and
-    every ms of the three active channels on ``pushed_ms`` once."""
+    counted once per segment either way."""
     cfg, sig, ch = _scenario(cuda_device, 4, ms=200)
     build, block = GRAPH_ROUTES[route]
 
@@ -508,43 +491,16 @@ def test_graph_route_is_bit_equal_to_the_eager_route_on_card(cuda_device, route)
 
     runs = {}
     for label, fn in (("graph", block), ("eager", eager)):
-        before = (scan.track_segments.graph_blocks, block.launches,
-                  mk.build_frames.ragged_rows, block.pushed_ms)
+        before = (scan.track_segments.graph_blocks, block.launches)
         runs[label] = _calls(cfg, sig, ch, build, fn, (37, 130))
         torch.cuda.synchronize()
         runs[label + " counts"] = (scan.track_segments.graph_blocks - before[0],
-                                   block.launches - before[1],
-                                   mk.build_frames.ragged_rows - before[2],
-                                   block.pushed_ms - before[3])
-    rows = (37 + 130) * 4 if build is not None else 0
-    pushed = (37 + 130) * 3
+                                   block.launches - before[1])
     assert block.ctas_per_channel > 1
-    assert runs["graph counts"] == (1 + 6, 3 + 9, rows, pushed)
-    assert runs["eager counts"] == (0, 3 + 9, rows, pushed)
+    assert runs["graph counts"] == (1 + 6, 3 + 9)
+    assert runs["eager counts"] == (0, 3 + 9)
     assert all(int(ovf.max()) == 0 for _, _, ovf in runs["graph"])
     _assert_bit_equal(runs["graph"], runs["eager"])
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("kn", [1, mk.CTAS_PER_CHANNEL])
-def test_one_launch_counts_its_pushed_ms_on_card(cuda_device, kn):
-    """One eager B1 launch and one B3 launch of r ms, three of four
-    channels active: each adds r x 3 to its wrapper's ``pushed_ms`` at a
-    cluster of ``kn`` CTAs, and nothing at one CTA per channel."""
-    cfg, sig, ch = _scenario(cuda_device, 4)
-    words = scan.capture_words(sig)
-    pads, cb, active = scan.channel_tables(ch, cuda_device)
-    st = scan.initial_state(cfg, ch, cuda_device)
-    r = cfg.track_block_ms
-    start_w = torch.div(st.ptr - cfg.track_frame_pre, 4, rounding_mode="floor")
-    frames = mk.build_frames(words, start_w, r, cfg.track_window // 4, cfg.samples_per_code // 4)
-    before = (mk.track_block.pushed_ms, mk.track_block_fused.pushed_ms)
-    mk.track_block(frames, 4 * start_w, st, pads, cb, active, cfg, r, ctas_per_channel=kn)
-    mk.track_block_fused(words, start_w, st, pads, cb, active, cfg, r, ctas_per_channel=kn)
-    torch.cuda.synchronize()
-    want = r * 3 if kn > 1 else 0
-    assert (mk.track_block.pushed_ms - before[0],
-            mk.track_block_fused.pushed_ms - before[1]) == (want, want)
 
 
 @pytest.mark.gpu

@@ -368,7 +368,7 @@ def test_summaries_name_the_bulk_frames_kernel():
     assert total == 798.0 and dev[BULK_NAME] == [8.0, 1]
     assert sum(n for name, (_, n) in dev.items() if mk.is_frames_kernel(name)) == 1
     assert sum(us for name, (us, _) in dev.items() if mk.is_frames_kernel(name)) == 8.0
-    assert mk.is_frames_kernel("build_frames_kernel") and mk.is_frames_kernel(BULK_NAME)
+    assert mk.is_frames_kernel(BULK_NAME)
     assert not mk.is_frames_kernel("track_block_kernel")
 
 
