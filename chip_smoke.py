@@ -303,6 +303,8 @@ def reset_launches():
     for fns in _kernel_wrappers():
         for fn in fns:
             fn.launches = 0
+            if hasattr(fn, "short_launches"):
+                fn.short_launches = fn.general_launches = 0
             if hasattr(fn, "ctas_per_channel"):
                 fn.ctas_per_channel = None
             if hasattr(fn, "smem_bytes"):
@@ -1155,7 +1157,12 @@ def phase_main(cfg, sig, sc, card: str):
             "track_block_fused": 0, "correlate_ms": 0,
             "ctas_per_channel": launches["ctas_per_channel"]}
     check(launches == want, f"kernel launches {launches}, expected {want}")
-    print(f"  launches {launches} ({n_segments} segments)")
+    from softgnss_tpu_torch.track import megakernel as mk
+
+    paths = (mk.track_block.short_launches, mk.track_block.general_launches)
+    check(paths == (n_segments, 0), f"B1's short / general path launches {paths}")
+    print(f"  launches {launches} ({n_segments} segments, every B1 launch on the loop's short "
+          "path)")
     report_times("main path (block tracker)", res, card)
     return res, launches, fix
 

@@ -18,13 +18,18 @@
 // atan, row packing and lane tables are Mosaic workarounds: CUDA has
 // native int64 and float64, and a shared-memory gather is cheap here.
 //
-// What bounds it on the H100: the serial per-ms step.  The millisecond
+// What bounds it on the H100: latency, twice a ms.  The millisecond
 // recurrence is sequential (each ms's NCO rates come from the last ms's
-// filters), and one ms of one channel is only ~38k samples (~90 ops
-// each).  Spread over a cluster the sample loop shrinks as 1/kN; what
-// stays is the step every ms pays in series: the CTA reduction, the
-// handoff of the ranks' partials and the float64 filters (atan, sqrt,
-// divides) up to the next ms's NCO steps.
+// filters), and one ms of one channel is only ~38k samples.  Every ms pays
+// in series the step of the CTA reduction, the handoff of the ranks'
+// partials and the float64 filters (atan, sqrt, divides) up to the next
+// ms's NCO steps, ~1.4 us; and the sample loop, which has only a few words
+// a thread and 8 warps an SM, so it issues well below the SM's rate (~70
+// instructions a sample).  At 8 channels of 8 CTAs (the cells) the loop is
+// about three fifths of a ms at the reference front end.  Each cluster
+// wants SMs of its own: an H100 gives that to 7 clusters of 16 CTAs, and a
+// cluster sharing SMs takes a quarter to a third longer, so the wrapper
+// launches the largest size whose clusters all get SMs of their own.
 //
 // Design.  Channel c is the cluster of CTAs c*kN .. c*kN + kN-1 (a 1-D
 // grid of C*kN CTAs, cluster dimension kN, launched by cudaLaunchKernelEx);
@@ -38,6 +43,19 @@
 //     TMA bulk copy (cp.async.bulk, completion on an mbarrier) per ms into a
 //     double buffer in shared memory, ms j+2 issued while ms j+1 is in flight
 //     and ms j is summed.
+//   * The sample loop: thread t takes window word lo/4 + t, then every
+//     n_thr-th, four samples a step, the next word loaded while this one is
+//     summed and the bytes of an edge word outside [lo, hi) masked to zero
+//     (a zero sample adds nothing).  The carrier counts and the Q40 code
+//     phase (less one) of a word's first sample advance by addition over
+//     the thread's stride.  Per sample: the sine and cosine in float32
+//     (sin_turns_unit), each product with the sample converted to float64
+//     once, and the six sums as fused adds of a chip (+-1 or 0, a float64
+//     table) times one of the two: exact products, so the sums of adding
+//     each float32 product converted.  The chips: on the short path (a
+//     spacing of half a chip, every chip of the ms inside the table) E and
+//     P from the phase's high word and L the entry after E, no clamp; else
+//     three clamped lookups of the phase and the phase -/+ h.
 //   * Reduction in a fixed order: float64 per thread, warp shuffles, then
 //     lane f < 6 of warp 0 sums f over the CTA's warps in order into this
 //     rank's 6-double partial.
@@ -69,7 +87,7 @@
 //     writes the frozen state and the zeros); no rank waits on a peer that
 //     skipped.
 // kN = 1 is the one-CTA design of the first port: no cluster, each thread
-// loads its bytes straight from global memory (B3 prefetching the next
+// loads its words straight from global memory (B3 prefetching the next
 // window into L2), two CTA barriers per ms; warps 0 and 1 sum the CTA's
 // warps themselves and run the same two filter chains.  Threads per CTA are a launch
 // argument (up to 512); the code table lives in shared memory.
@@ -97,17 +115,19 @@
 // instantiation sg_track_block(kN) launches.
 //
 // Numerics: build with -fmad=false so every float operation rounds as the
-// plain PyTorch version's does (no contraction); the sine coefficients are
-// the float32 values of softgnss_tpu.signals.nco.sin_turns, as hex
-// literals.  The float64 accumulation makes each float32 sum independent
-// of the order it is taken in, so kernel and plain version agree to the
-// last bit except where a float64 sum lies within ~1e-16 of a float32
-// rounding boundary (scan._correlate_gather).
+// plain PyTorch version's does (no contraction; the one fused add is the
+// explicit, exact one above); the sine coefficients are the float32 values
+// of softgnss_tpu.signals.nco.sin_turns, as hex literals.  The float64
+// accumulation makes each float32 sum independent of the order it is
+// taken in, so kernel and plain version agree to the last bit except where
+// a float64 sum lies within ~1e-16 of a float32 rounding boundary
+// (scan._correlate_gather).
 
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -116,7 +136,6 @@ namespace {
 constexpr int kMaxThreads = 512;
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kPad = 1025;
-constexpr long long kCodeOne = 1LL << 40;
 constexpr double kTwoPi = 6.283185307179586;
 
 // stages of the ablation (see the header)
@@ -149,10 +168,17 @@ struct Params {
   int slot;          // bytes of one staging buffer: chunk + 16
 };
 
-__device__ __forceinline__ float sin_turns(float x) {
-  x = x - floorf(x + 0.5f);
-  x = (x > 0.25f) ? 0.5f - x : x;
-  x = (x < -0.25f) ? -0.5f - x : x;
+// sin_turns (x - floorf(x + 0.5f), then the two folds and the polynomial)
+// for x in [0, 1.25], where the carrier's turns and turns + 0.25f lie: there
+// floorf(x + 0.5f) is 0 or 1, so a comparison gives it, and each fold,
+// (x > 0.25f) ? 0.5f - x : x and (x < -0.25f) ? -0.5f - x : x, is the min
+// or max of the two (the subtraction is exact where it is taken, and
+// rounds to the far side of +-0.25 where it is not).  The same float32
+// values, on the FMA and ALU pipes instead of the conversion pipe.
+__device__ __forceinline__ float sin_turns_unit(float x) {
+  x = x - ((x + 0.5f >= 1.0f) ? 1.0f : 0.0f);
+  x = fminf(x, 0.5f - x);
+  x = fmaxf(x, -0.5f - x);
   const float t2 = x * x;
   return x * (0x1.921fb6p+2f
               + t2 * (-0x1.4abbcep+5f
@@ -161,10 +187,16 @@ __device__ __forceinline__ float sin_turns(float x) {
                                       + t2 * 0x1.507834p+5f))));
 }
 
-__device__ __forceinline__ int chip_index(long long q) {
-  const long long c = (q + (kCodeOne - 1)) >> 40;  // arithmetic shift: ceil
-  return static_cast<int>(c < 0 ? 0 : (c > 1024 ? 1024 : c));
+// The padded code's chip at Q40 phase q + 1: pad[clamp(ceil((q + 1) /
+// 2^40), 0, 1024)], the ceil taken as the floor of q (an arithmetic shift)
+// plus one, and the one as the table's offset.
+__device__ __forceinline__ double chip(const double* pad, long long q) {
+  const int c = static_cast<int>(q >> 40);
+  return pad[1 + min(max(c, -1), 1023)];
 }
+
+// The spacing of the short path: half a chip, Q40
+constexpr long long kHalfChip = 1LL << 39;
 
 __device__ __forceinline__ long long floor_div(long long a, long long b) {
   long long q = a / b;
@@ -332,7 +364,7 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
   }
 
   extern __shared__ __align__(128) unsigned char stage[];  // kStaged: two slots of p.slot bytes
-  __shared__ float pad[kPad];
+  __shared__ double pad[kPad];  // the code row as doubles: +-1 (or 0 for an idle PRN)
   __shared__ double red[6][kMaxWarps];
   __shared__ Inbox<kN> box;  // kN > 1: every rank's partial of ms j, in slot j & 1
   __shared__ __align__(8) uint64_t bars[2];
@@ -341,7 +373,7 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
   __shared__ int s_o, s_blk;
   __shared__ double s_cfreq;  // ms j's carrier frequency, for the carrier-aided DLL
 
-  for (int i = tid; i < kPad; i += n_thr) pad[i] = code_pads[c * kPad + i];
+  for (int i = tid; i < kPad; i += n_thr) pad[i] = static_cast<double>(code_pads[c * kPad + i]);
 
   const int win_w = p.win / 4;
   const int8_t* src8 = reinterpret_cast<const int8_t*>(src);
@@ -460,48 +492,107 @@ track_block_kernel(const int32_t* __restrict__ src, long long n_words,
 
     double ie = 0.0, ip = 0.0, il = 0.0, qe = 0.0, qp = 0.0, ql = 0.0;
     if constexpr (kStage >= kLoad) {
-      // this rank's samples of the ms: window indices [beg, end); outside
-      // [0, win) is an overflow, flagged and raised by the wrapper
-      const int beg = max(lo_r, o);
-      const int end = min(hi_r, o + blk);
-      // window sample idx is from[idx + shift]: the source itself, or this
-      // rank's staged copy once its copy has landed
-      const int8_t* from = src8;
-      long long shift = 4 * w0;
+      // this rank's samples of the ms: window indices [lo, hi), its slice
+      // of the span [o, o + blk) inside the source (outside [0, win) is an
+      // overflow, flagged and raised by the wrapper); any other sample
+      // would add a zero
+      const int lo = max(max(lo_r, o), lo_c);
+      const int hi = min(min(hi_r, o + blk), hi_c);
+      // window word v (samples 4v .. 4v+3) is the 4 bytes at base + 4v: the
+      // source itself, or this rank's staged copy once its copy has landed
+      // (both place a word 4-byte aligned: lo_c and hi_c are whole words)
+      const unsigned char* base = reinterpret_cast<const unsigned char*>(src8 + 4 * w0);
       if constexpr (kStaged) {
         wait_bar(bars + (j & 1), static_cast<uint32_t>((j >> 1) & 1));
-        from = reinterpret_cast<const int8_t*>(stage + (j & 1) * p.slot);
-        shift = span_at(j).off;
+        base = stage + (j & 1) * p.slot + span_at(j).off;
       }
-      for (int idx = beg + tid; idx < end; idx += n_thr) {
-        const int k = idx - o;
-        const float x =
-            (idx >= lo_c && idx < hi_c) ? static_cast<float>(from[idx + shift]) : 0.0f;
-        if constexpr (kStage == kLoad) {
-          ip += static_cast<double>(x);
-        } else {
-          const unsigned int counts = cp_j + w * static_cast<unsigned int>(k);
-          const float turns =
-              __int_as_float(static_cast<int>(0x3F800000u | (counts >> 9))) - 1.0f;
-          const float ib = sin_turns(turns) * x;
-          const float qb = sin_turns(turns + 0.25f) * x;
-          if constexpr (kStage == kCarrier) {
-            ip += static_cast<double>(ib);
-            qp += static_cast<double>(qb);
-          } else {
-            const long long tq = rem_j + step * static_cast<long long>(k);
-            const float e = pad[chip_index(tq - p.half_q)];
-            const float pr = pad[chip_index(tq)];
-            const float l = pad[chip_index(tq + p.half_q)];
-            ie += static_cast<double>(e * ib);
-            ip += static_cast<double>(pr * ib);
-            il += static_cast<double>(l * ib);
-            qe += static_cast<double>(e * qb);
-            qp += static_cast<double>(pr * qb);
-            ql += static_cast<double>(l * qb);
+      auto word_at = [&](int v) -> uint32_t {
+        return *reinterpret_cast<const uint32_t*>(base + 4 * v);
+      };
+      const int v_end = hi > lo ? (hi + 3) >> 2 : 0;
+      int v = (lo >> 2) + tid;
+      // the NCO counts and the Q40 code phase less one at sample 4v, then
+      // advanced by addition: both wrap as the products do
+      const int k0 = 4 * v - o;
+      unsigned int counts = cp_j + w * static_cast<unsigned int>(k0);
+      long long g = rem_j + step * static_cast<long long>(k0) - 1;
+      const unsigned int d_counts = w * static_cast<unsigned int>(4 * n_thr);
+      const long long d_g = step * static_cast<long long>(4 * n_thr);
+      // The short path: a spacing of half a chip, and every chip of the
+      // words this thread reads inside the table, so that no clamp is
+      // needed.  The phase is linear in k, so the first sample of its first
+      // word and the last of the rank's last word decide; with step and rem
+      // bounded nothing wraps.
+      auto short_path = [&]() {
+        constexpr long long kBig = 1LL << 52;
+        if (p.half_q != kHalfChip || step <= 0 || step >= (1LL << 44) || rem_j <= -kBig ||
+            rem_j >= kBig)
+          return false;
+        const long long g1 = rem_j + step * static_cast<long long>(4 * v_end - 1 - o) - 1;
+        return ((g - kHalfChip) >> 40) >= -1 && ((g1 - kHalfChip) >> 40) <= 1022;
+      };
+      // the loop, on the short path or the general one
+      auto sum_words = [&](auto short_chips) {
+        constexpr bool kShort = decltype(short_chips)::value;
+        uint32_t next = v < v_end ? word_at(v) : 0u;
+        for (; v < v_end; v += n_thr, counts += d_counts, g += d_g) {
+          uint32_t word = next;
+          if (v + n_thr < v_end) next = word_at(v + n_thr);
+          const int i0 = 4 * v;
+          if (i0 < lo || i0 + 4 > hi) {  // an edge word: keep bytes [a, b)
+            const int a = max(lo - i0, 0), b = min(hi - i0, 4);
+            word &= (0xFFFFFFFFu >> (8 * (4 - b + a))) << (8 * a);
+          }
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            const float x = static_cast<float>(static_cast<int8_t>(word >> (8 * s)));
+            if constexpr (kStage == kLoad) {
+              ip += static_cast<double>(x);
+            } else {
+              const unsigned int cs = counts + static_cast<unsigned int>(s) * w;
+              const float turns = __int_as_float(static_cast<int>(0x3F800000u | (cs >> 9))) - 1.0f;
+              const double ib = static_cast<double>(sin_turns_unit(turns) * x);
+              const double qb = static_cast<double>(sin_turns_unit(turns + 0.25f) * x);
+              if constexpr (kStage == kCarrier) {
+                ip += ib;
+                qp += qb;
+              } else {
+                // chip c = ceil(q / 2^40) = floor((q - 1) / 2^40) + 1 of
+                // q = tq - h, tq, tq + h; ``pad`` + 1 takes the + 1
+                const long long gs = g + static_cast<long long>(s) * step;
+                double e, pr, l;
+                if constexpr (kShort) {
+                  // q -/+ 2^39 are 2^40 apart: L is E's next chip; h's low
+                  // word is 0, so the high word of gs gives E and P
+                  const int gh = static_cast<int>(gs >> 32);
+                  const double* el = pad + 1 + ((gh - (1 << 7)) >> 8);
+                  e = el[0];
+                  l = el[1];
+                  pr = pad[1 + (gh >> 8)];
+                } else {
+                  e = chip(pad, gs - p.half_q);
+                  pr = chip(pad, gs);
+                  l = chip(pad, gs + p.half_q);
+                }
+                // e, pr, l are +-1 or 0: each product is exact, so the fused
+                // add equals the add of static_cast<double>(e * ib) in float32
+                ie = __fma_rn(e, ib, ie);
+                ip = __fma_rn(pr, ib, ip);
+                il = __fma_rn(l, ib, il);
+                qe = __fma_rn(e, qb, qe);
+                qp = __fma_rn(pr, qb, qp);
+                ql = __fma_rn(l, qb, ql);
+              }
+            }
           }
         }
-      }
+      };
+      if constexpr (kStage < kFull)
+        sum_words(std::true_type{});
+      else if (short_path())
+        sum_words(std::true_type{});
+      else
+        sum_words(std::false_type{});
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -770,14 +861,30 @@ int launch(const void* src, long long n_words, const void* starts_w, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
+// ``alone``: count as if each CTA held an SM alone (dynamic shared memory
+// past half of an SM's), so that no two of the clusters counted share an SM
 template <bool kFused, int kStage, int kN>
-int max_clusters(int n_ch, int threads, int chunk, int* out) {
+int max_clusters(int threads, int chunk, int alone, int* out) {
+  auto kernel = track_block_kernel<kFused, kStage, kN>;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<kFused, kStage, kN>(&cfg, &attr, n_ch, threads, chunk + 16, nullptr);
+  cudaError_t err = configure<kFused, kStage, kN>(&cfg, &attr, 1, threads, chunk + 16, nullptr);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (alone) {
+    int dev = 0, per_sm = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    const size_t smem = static_cast<size_t>(per_sm / 2 + 1);
+    if (err == cudaSuccess && cfg.dynamicSmemBytes < smem) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      cfg.dynamicSmemBytes = smem;
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   cfg.numAttrs = 1;  // kN = 1 counts resident CTAs as clusters of one
-  err = cudaOccupancyMaxActiveClusters(out, track_block_kernel<kFused, kStage, kN>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
   return static_cast<int>(err);
 }
 
@@ -851,12 +958,14 @@ extern "C" int sg_track_block_stage(int stage, const void* frames, const void* f
 
 // How many clusters of ``kn`` CTAs of B1 (fused = 0) or B3 (fused = 1) the
 // card can hold at once, into *out (cudaOccupancyMaxActiveClusters; for
-// kn = 1 the resident CTAs): the wrapper launches a size only where all
-// n_ch clusters fit.  ``chunk``: window bytes per rank (sizes the staging).
+// kn = 1 the resident CTAs), and with ``alone`` how many with no two
+// sharing an SM: the wrapper launches a size only where all n_ch clusters
+// fit, preferring one where each has SMs of its own.  ``chunk``: window
+// bytes per rank (sizes the staging).
 extern "C" int sg_track_block_max_clusters(int fused, int kn, int threads, int chunk,
-                                           int n_ch, int* out) {
+                                           int alone, int* out) {
   if (fused) {
-    SG_BY_KN(kn, (max_clusters<true, kFull, kN>(n_ch, threads, chunk, out)))
+    SG_BY_KN(kn, (max_clusters<true, kFull, kN>(threads, chunk, alone, out)))
   }
-  SG_BY_KN(kn, (max_clusters<false, kFull, kN>(n_ch, threads, chunk, out)))
+  SG_BY_KN(kn, (max_clusters<false, kFull, kN>(threads, chunk, alone, out)))
 }

@@ -7,10 +7,10 @@ milliseconds of DLL/PLL tracking, loop filters included, in one
 :func:`track_block` launch; with ``config.mega_fused_frames`` one
 :func:`track_block_fused` launch does both.  B1 and B3 run one
 thread-block cluster of ``ctas_per_channel`` CTAs per channel, each CTA
-on its slice of every ms window (:func:`rank_slices`); the size is
-:data:`CTAS_PER_CHANNEL` where all the clusters fit on the card at once
-(:func:`choose_ctas_per_channel`), and a ``ctas_per_channel=`` keyword
-forces one.  They port
+on its slice of every ms window (:func:`rank_slices`); the size is the
+largest up to :data:`CTAS_PER_CHANNEL` at which every cluster has SMs of
+its own (:func:`choose_ctas_per_channel`), and a ``ctas_per_channel=``
+keyword forces one.  They port
 softgnss_tpu.track.megakernel's ``_builder_kernel`` and ``_kernel``
 (unfused and fused, with ``mega_track_segment`` / ``mega_finalize``):
 what those compute, not their Mosaic layout.  The CUDA C++ sources are
@@ -24,7 +24,9 @@ a CUDA tensor either launches the kernel or raises.  B1 and B3 also have
 an entry on the stacked state (:func:`track_block_stacked`,
 :func:`track_block_fused_stacked`: CUDA tensors only, into buffers the
 caller made), which the block loop issues and captures in a CUDA graph.
-``wrapper.launches`` counts kernel launches, a graph's replays included.
+``wrapper.launches`` counts kernel launches, a graph's replays included;
+B1's and B3's ``short_launches`` and ``general_launches`` split them by the
+path their sample loop takes to the E/P/L chips (:data:`HALF_CHIP_Q`).
 The kernels live in the receiver's library (``cuda_lib.RECEIVER``, built
 at first use); each C entry is declared once, beside its wrapper.
 """
@@ -400,13 +402,15 @@ def track_block_plain(frames, fb0, state: TrackState, code_pads, carr_basis,
     return st, ys, ovf
 
 
-#: CTAs per channel of B1 and B3 (the size of each channel's thread-block
-#: cluster when all C clusters fit on the card at once, see
-#: :func:`choose_ctas_per_channel`) and threads per CTA: the fastest pair of
-#: chip_smoke.py's size-by-threads sweep at the reference front end, 8
-#: active channels, on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section
-#: 6): 16 x 256 at 6.15 us per ms, against 8 x 512 at 6.30 and one CTA of
-#: 512 at 23.23.  An H100 holds 14 clusters of 16 such CTAs at once, 7 of 512.
+#: CTAs per channel of B1 and B3: the largest cluster size the wrapper
+#: takes (see :func:`choose_ctas_per_channel`), and threads per CTA.  From
+#: the size-by-threads sweep at both benchmark front ends on an NVIDIA H100
+#: 80GB HBM3 at 700 W (PERF.md section 6): with each cluster on SMs of its
+#: own, 16 x 256 is fastest (ref38, 7 channels: 2.93 us per ms, against
+#: 3.71 at 8 x 256); at 8 channels only 7 clusters of 16 get SMs of their
+#: own, and 8 x 256 (3.71) beats 16 x 256 (3.91), 384 and 512 threads
+#: losing at both sizes.  An H100 holds 14 clusters of 16 such CTAs at
+#: once, 7 with no two sharing an SM.
 CTAS_PER_CHANNEL = 16
 THREADS_PER_CTA = 256
 #: the cluster sizes the kernels are built for (16 is a non-portable size)
@@ -428,18 +432,29 @@ def rank_slices(win: int, kn: int) -> list[tuple[int, int]]:
     return [(min(q * chunk, win), min((q + 1) * chunk, win)) for q in range(kn)]
 
 
-def choose_ctas_per_channel(n_ch: int, max_clusters, preferred: int = CTAS_PER_CHANNEL) -> int:
-    """The cluster size for ``n_ch`` channels: ``preferred`` when all
-    ``n_ch`` clusters of it can be resident at once (``max_clusters(kn)``
-    >= ``n_ch``), else the next smaller size that fits, with a warning
-    naming both.  It never steps down to one CTA per channel: when no
-    cluster fits it raises, and ``ctas_per_channel=1`` is the caller's
-    explicit choice."""
+def choose_ctas_per_channel(n_ch: int, max_clusters, preferred: int = CTAS_PER_CHANNEL,
+                            alone=None) -> int:
+    """The cluster size for ``n_ch`` channels: the largest size up to
+    ``preferred`` whose ``n_ch`` clusters each get SMs of their own at once
+    (``alone(kn)`` >= ``n_ch``: the clusters that fit at one CTA per SM);
+    else (or without ``alone``) ``preferred`` when all ``n_ch`` clusters of
+    it fit at once (``max_clusters(kn)`` >= ``n_ch``; some may then share
+    SMs), else the next smaller size that fits, with a warning naming both.
+    A cluster sharing its SMs runs its sample loop on half their issue
+    slots, and the launch waits for it (at 8 channels of 16 CTAs, the two
+    clusters on 16 shared SMs took 23-37 % longer than the six alone).  It
+    never steps down to one CTA per channel: when no cluster fits it
+    raises, and ``ctas_per_channel=1`` is the caller's explicit choice."""
     if preferred not in CLUSTER_SIZES:
         raise ValueError(f"preferred={preferred}: cluster sizes are {CLUSTER_SIZES}")
     if preferred == 1:
         return 1
-    for kn in sorted((k for k in CLUSTER_SIZES if 1 < k <= preferred), reverse=True):
+    sizes = sorted((k for k in CLUSTER_SIZES if 1 < k <= preferred), reverse=True)
+    if alone is not None:
+        for kn in sizes:
+            if alone(kn) >= n_ch:
+                return kn
+    for kn in sizes:
         if max_clusters(kn) >= n_ch:
             if kn != preferred:
                 warnings.warn(f"B1/B3: {n_ch} clusters of {preferred} CTAs do not fit on the "
@@ -454,12 +469,14 @@ _MAX_CLUSTERS = cuda_lib.RECEIVER.entry("sg_track_block_max_clusters",
 
 
 @functools.cache
-def max_active_clusters(device_index: int, fused: bool, kn: int, threads: int, chunk: int) -> int:
+def max_active_clusters(device_index: int, fused: bool, kn: int, threads: int, chunk: int,
+                        alone: bool = False) -> int:
     """How many clusters of ``kn`` CTAs of B1 (or B3) the card holds at
-    once (cudaOccupancyMaxActiveClusters), queried once per size."""
+    once (cudaOccupancyMaxActiveClusters), with ``alone`` how many with no
+    two sharing an SM (one CTA per SM); queried once per size."""
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        rc = _MAX_CLUSTERS(int(fused), kn, threads, chunk, 1, ctypes.byref(out))
+        rc = _MAX_CLUSTERS(int(fused), kn, threads, chunk, int(alone), ctypes.byref(out))
     cuda_lib.check(rc, "track_block occupancy query")
     return out.value
 
@@ -483,9 +500,11 @@ def launch_size(dev, fused: bool, n_ch: int, win: int, ctas_per_channel=None,
     if ctas_per_channel is not None:
         return ctas_per_channel, threads
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    kn = choose_ctas_per_channel(
-        n_ch, lambda k: max_active_clusters(index, fused, k, threads, rank_chunk(win, k)))
-    return kn, threads
+
+    def fits(alone: bool):
+        return lambda k: max_active_clusters(index, fused, k, threads, rank_chunk(win, k), alone)
+
+    return choose_ctas_per_channel(n_ch, fits(False), alone=fits(True)), threads
 
 
 def _kernel_params(config: ReceiverConfig, r: int, c: int, win: int, kn: int):
@@ -578,9 +597,21 @@ def _b1_launch(frames, fb0, config: ReceiverConfig, r: int, ctas_per_channel, th
     return (lambda *a: fn(cuda_lib.ptr(frames), *a)), kn, threads
 
 
-def _counted(wrapper, kn: int) -> None:
+#: Q40 of the spacing whose launches take the short path of B1's and B3's
+#: sample loop (csrc/track_block.cu): at half a chip E and L are adjacent
+#: chips read from one phase word, with no clamp where every chip of a ms
+#: lies in the table (every ms of a track from an acquisition); any other
+#: spacing takes the general path, three clamped lookups a sample
+HALF_CHIP_Q = CODE_ONE // 2
+
+
+def _counted(wrapper, kn: int, config: ReceiverConfig) -> None:
     wrapper.launches += 1
     wrapper.ctas_per_channel = kn
+    if chips_to_q(config.dll_correlator_spacing) == HALF_CHIP_Q:
+        wrapper.short_launches += 1
+    else:
+        wrapper.general_launches += 1
 
 
 def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
@@ -601,11 +632,11 @@ def track_block(frames, fb0, state: TrackState, code_pads, carr_basis, active,
     launch, kn, threads = _b1_launch(frames, fb0, config, r, ctas_per_channel, threads_per_cta)
     out = launch_block("track_block", launch, frames.device, fb0, state, code_pads, carr_basis,
                        active, config, r, kn, threads)
-    _counted(track_block, kn)
+    _counted(track_block, kn, config)
     return out
 
 
-track_block.launches = 0
+track_block.launches = track_block.short_launches = track_block.general_launches = 0
 track_block.ctas_per_channel = None
 
 
@@ -622,7 +653,7 @@ def track_block_stacked(frames, fb0, s_in: Stack, s_out: Stack, out: BlockOut, c
     launch, kn, threads = _b1_launch(frames, fb0, config, r, ctas_per_channel, threads_per_cta)
     launch_stacked("track_block", launch, frames.device, fb0, s_in, s_out, out, code_pads,
                    carr_basis, active, config, r, kn, threads)
-    _counted(track_block, kn)
+    _counted(track_block, kn, config)
 
 
 # --- B3: fused block tracker -----------------------------------------------
@@ -673,11 +704,12 @@ def track_block_fused(cap_words, starts_w, state: TrackState, code_pads, carr_ba
                                      threads_per_cta)
     out = launch_block("track_block_fused", launch, cap_words.device, 4 * starts_w, state,
                        code_pads, carr_basis, active, config, r, kn, threads)
-    _counted(track_block_fused, kn)
+    _counted(track_block_fused, kn, config)
     return out
 
 
 track_block_fused.launches = 0
+track_block_fused.short_launches = track_block_fused.general_launches = 0
 track_block_fused.ctas_per_channel = None
 
 
@@ -691,4 +723,4 @@ def track_block_fused_stacked(cap_words, starts_w, s_in: Stack, s_out: Stack, ou
                                      threads_per_cta)
     launch_stacked("track_block_fused", launch, cap_words.device, 4 * starts_w, s_in, s_out,
                    out, code_pads, carr_basis, active, config, r, kn, threads)
-    _counted(track_block_fused, kn)
+    _counted(track_block_fused, kn, config)

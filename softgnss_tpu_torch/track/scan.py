@@ -450,7 +450,10 @@ class _BlockGraph:
     """``step`` captured once in a CUDA graph on ``device``'s side stream,
     from its pool (:class:`_GraphPool`).  :meth:`replay` launches it on the
     current stream and counts its kernels on their wrappers' ``launches``
-    (the capture itself launches nothing)."""
+    and, for B1 and B3, the path counters beside it (the capture itself
+    launches nothing)."""
+
+    COUNTERS = ("launches", "short_launches", "general_launches")
 
     def __init__(self, step, device):
         from softgnss_tpu_torch.track import megakernel as mk
@@ -460,7 +463,8 @@ class _BlockGraph:
             _GRAPH_POOLS[index] = _GraphPool(index)
         self.pool = _GRAPH_POOLS[index]
         wrappers = (mk.build_frames, mk.track_block, mk.track_block_fused)
-        before = [w.launches for w in wrappers]
+        before = [(w, a, getattr(w, a)) for w in wrappers for a in self.COUNTERS
+                  if hasattr(w, a)]
         self.stream = torch.cuda.current_stream(index)
         self.graph = torch.cuda.CUDAGraph()
         self.pool.side.wait_stream(self.stream)
@@ -470,16 +474,16 @@ class _BlockGraph:
                 step()
             finally:
                 self.graph.capture_end()
-        self.counts = [(w, w.launches - n) for w, n in zip(wrappers, before) if w.launches != n]
-        for w, n in self.counts:
-            w.launches -= n
+        self.counts = [(w, a, getattr(w, a) - n) for w, a, n in before if getattr(w, a) != n]
+        for w, a, n in self.counts:
+            setattr(w, a, getattr(w, a) - n)
         if self.pool.last is not None:     # the pool's last graph may still run elsewhere
             self.stream.wait_event(self.pool.last)
 
     def replay(self) -> None:
         self.graph.replay()
-        for w, n in self.counts:
-            w.launches += n
+        for w, a, n in self.counts:
+            setattr(w, a, getattr(w, a) + n)
 
     def done(self) -> None:
         """Mark the pool's memory free once the replays issued so far end."""

@@ -11,6 +11,7 @@ import pytest
 
 from gnss_bench import registry, trace
 from gnss_bench.run import Readings
+from softgnss_tpu_torch.track import megakernel as mk
 from softgnss_tpu_torch.track import scan
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -92,7 +93,7 @@ def test_graph_share_entry_is_the_reader_beside_it():
     assert (mod.LAYER, mod.UNIT, mod.MOVES) == (entry["layer"], entry["unit"], entry["moves"])
     assert entry["moves"] == "capture_rate" and "workloads" not in entry
     assert entry["source"] == "program_span" and entry["better"] == "higher"
-    assert bench["per_layer"][-1] is entry
+    assert bench["per_layer"][12] is entry           # appended after the first twelve
 
 
 @pytest.mark.parametrize("graph_blocks,want", [(3, 50.0), (0, 0.0)])
@@ -163,3 +164,41 @@ def test_a_run_without_a_trace_or_the_program(counters, monkeypatch):
     monkeypatch.setitem(sys.modules, "softgnss_tpu_torch.track.scan", None)
     assert read("track_host_block_us", _readings()) is None
     assert read("track_ops_per_block", _readings(tr=_trace())) is None
+
+
+def test_short_path_share_entry_is_the_reader_beside_it():
+    """The last entry, read in the two cells whose B1 launches it counts."""
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entry = bench["per_layer"][-1]
+    mod = registry.metric("track_short_path_share")
+    assert entry["name"] == "track_short_path_share"
+    assert (mod.LAYER, mod.UNIT, mod.MOVES) == (entry["layer"], entry["unit"], entry["moves"])
+    assert entry["source"] == "program_counter" and entry["better"] == "higher"
+    assert entry["layer"] == next(m["layer"] for m in bench["per_layer"]
+                                  if m["name"] == "track_roofline")
+    assert entry["workloads"] == [c["name"] for c in bench["workloads"]]
+
+
+@pytest.mark.parametrize("b1, b3, want", [((4, 4, 0), (0, 0, 0), 100.0),
+                                          ((3, 2, 1), (1, 0, 1), 50.0),
+                                          ((2, 0, 2), (0, 0, 0), 0.0)])
+def test_short_path_share_reads_the_counters(monkeypatch, b1, b3, want):
+    """B1's and B3's short-path launches over all their launches."""
+    for wrapper, (n, short, general) in ((mk.track_block, b1), (mk.track_block_fused, b3)):
+        monkeypatch.setattr(wrapper, "launches", n)
+        monkeypatch.setattr(wrapper, "short_launches", short)
+        monkeypatch.setattr(wrapper, "general_launches", general)
+    assert read("track_short_path_share", _readings()) == pytest.approx(want)
+
+
+def test_short_path_share_reads_nothing_without_a_launch_or_the_counters(monkeypatch):
+    """No B1/B3 launch (the CPU, or the per-ms route); the parent's tree,
+    whose wrappers count launches but no paths; no program at all."""
+    for wrapper in (mk.track_block, mk.track_block_fused):
+        monkeypatch.setattr(wrapper, "launches", 0)
+    assert read("track_short_path_share", _readings()) is None
+    monkeypatch.setattr(mk.track_block, "launches", 3)
+    monkeypatch.delattr(mk.track_block, "short_launches")
+    assert read("track_short_path_share", _readings()) is None
+    monkeypatch.setitem(sys.modules, "softgnss_tpu_torch.track.megakernel", None)
+    assert read("track_short_path_share", _readings()) is None

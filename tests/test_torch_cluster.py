@@ -80,6 +80,36 @@ def test_cluster_size_takes_the_default_or_the_next_that_fits(n_ch, preferred, w
     assert 1 not in asked and asked == sorted(asked, reverse=True) and asked[0] == preferred
 
 
+#: the same card's counts at 256 threads per CTA, sharing SMs and with one
+#: CTA per SM (``max_active_clusters``, with and without ``alone``; read on
+#: an H100 80GB HBM3)
+H100_SHARED = {2: 132, 4: 62, 8: 30, 16: 14}
+H100_ALONE = {2: 66, 4: 30, 8: 15, 16: 7}
+
+
+@pytest.mark.parametrize("n_ch, want", [(3, 16), (7, 16), (8, 8), (12, 8), (15, 8), (16, 4),
+                                        (40, 2), (66, 2)])
+def test_cluster_size_gives_each_cluster_sms_of_its_own(n_ch, want):
+    """The largest size whose clusters all fit at one CTA per SM, without a
+    warning: 16 CTAs up to 7 channels, 8 for the cells' 8 channels."""
+    asked = []
+    got = mk.choose_ctas_per_channel(n_ch, _stub(H100_SHARED, []), 16,
+                                     alone=_stub(H100_ALONE, asked))
+    assert got == want
+    assert asked == [k for k in (16, 8, 4, 2) if k >= want]
+
+
+def test_cluster_size_shares_sms_where_no_size_gives_them_alone():
+    """Past 66 channels no size gives each cluster SMs of its own: the
+    choice falls back to the sizes that fit sharing SMs, with a warning."""
+    with pytest.warns(UserWarning, match="launching 2 CTAs per channel"):
+        got = mk.choose_ctas_per_channel(100, _stub(H100_SHARED, []), 16,
+                                         alone=_stub(H100_ALONE, []))
+    assert got == 2
+    with pytest.raises(RuntimeError, match="ctas_per_channel=1"):
+        mk.choose_ctas_per_channel(200, _stub(H100_SHARED, []), 16, alone=_stub(H100_ALONE, []))
+
+
 def test_cluster_size_never_falls_to_one_cta():
     """No cluster fits: the choice raises and names the explicit way out."""
     asked = []

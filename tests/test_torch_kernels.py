@@ -9,7 +9,10 @@ card's machine, which has no JAX:
 On the CPU the wrappers run their plain versions; the ``gpu`` tests
 compare the CUDA kernels with those plain versions, B1 and B3 at every
 cluster size (``ctas_per_channel``) and at 3 and 12 channels, and at the
-benchmark cells' front ends with 8 channels, and skip without a card.
+benchmark cells' front ends with 8 channels (also on ragged ms spans and
+a zero code row, on both paths of the sample loop), and skip without a
+card.  The CPU tests pin the premises of B1's sample loop: its sine, its
+chip indices and its walk over the window's words.
 """
 
 import functools
@@ -240,6 +243,144 @@ def test_correlate_vector_cut_takes_each_sample_once(address, p0, n, n_cap):
     assert len(got) == len(want) and sorted(got) == want
 
 
+def test_code_tables_hold_only_signs_or_zeros():
+    """B1 reads each chip as an exact sign: every row ``build_tables``
+    makes holds only -1.0 and +1.0 (PRNs 1-32: the padded code) or only
+    0.0 (PRN 0: an idle channel), so a chip times a float32 sample is the
+    sample, its negation or a zero, and csrc/track_block.cu converts each
+    sample to float64 once and not once per correlator."""
+    from softgnss_tpu_torch.signals import ca
+    from softgnss_tpu_torch.track.tables import build_tables
+
+    pads = build_tables(np.arange(33))
+    assert pads.dtype == torch.float32 and pads.shape == (33, 1025)
+    assert not pads[0].any()
+    assert bool(((pads[1:] == 1.0) | (pads[1:] == -1.0)).all())
+    for prn in range(1, 33):
+        np.testing.assert_array_equal(pads[prn].numpy(), ca.padded_code(prn))
+
+
+def _sin_turns_unit(x: torch.Tensor) -> torch.Tensor:
+    """csrc/track_block.cu's ``sin_turns_unit``, one float32 operation at a
+    time: the floor of x + 0.5 by a comparison, each fold by a min or max."""
+    x = x - torch.where(x + 0.5 >= 1.0, 1.0, 0.0).to(torch.float32)
+    x = torch.minimum(x, 0.5 - x)
+    x = torch.maximum(x, -0.5 - x)
+    t2 = x * x
+    return x * (6.2831853071795860
+                + t2 * (-41.341702240399755
+                        + t2 * (81.60524927607504
+                                + t2 * (-76.70585975306136 + t2 * 42.05869394489765))))
+
+
+@pytest.mark.parametrize("offset", [0.0, 0.25], ids=["sin", "cos"])
+def test_sin_turns_unit_is_sin_turns_at_every_carrier_phase(offset):
+    """B1's sine is valid for x in [0, 1.25] only: at each of the 2^23
+    phases the carrier NCO's mantissa trick makes (turns in [0, 1)), and at
+    turns + 0.25 (the cosine), it gives sin_turns's float32 bits."""
+    from softgnss_tpu_torch.signals.nco import sin_turns
+
+    turns = (torch.arange(1 << 23, dtype=torch.int32) | 0x3F800000).view(torch.float32) - 1.0
+    x = turns + offset
+    assert float(x.min()) >= 0.0 and float(x.max()) <= 1.25
+    assert torch.equal(_sin_turns_unit(x).view(torch.int32), sin_turns(x).view(torch.int32))
+
+
+@pytest.mark.parametrize("spacing", [0.5, 0.25, 0.3, 1.5])
+def test_chip_index_from_the_phase_less_one(spacing):
+    """B1's general path takes each of E, P and L as floor((q - 1) / 2^40)
+    + 1 of q = tq - h, tq and tq + h (an arithmetic shift of the phase less
+    one; the one is the table's offset), clamped to [0, 1024]: the chip
+    ceil_chip_index(q) gives, at any spacing h (at 0.3 chips h has its low
+    32 bits set), at random phases and on and beside every chip edge.  Its
+    short path (h = 2^39, half a chip) takes E and P from the high word of
+    the phase less one and L as the chip after E."""
+    from softgnss_tpu_torch.signals.nco import ceil_chip_index, chips_to_q
+
+    h = chips_to_q(spacing)
+    rng = np.random.default_rng(22)
+    edges = torch.arange(-3, 1027, dtype=torch.int64) << 40
+    tq = torch.cat([torch.tensor(rng.integers(-(3 << 40), 1026 << 40, 200_000)),
+                    *(edges + d for d in (-h - 1, -h, -h + 1, -1, 0, 1, h - 1, h, h + 1))])
+    for d in (-h, 0, h):
+        want = ceil_chip_index(tq + d).clamp(0, 1024).to(torch.int64)
+        got = ((tq - 1 + d) >> 40).clamp(-1, 1023) + 1
+        assert torch.equal(got, want), d
+    if h == mk.HALF_CHIP_Q:
+        # the short path, where E's chip lies in [0, 1023]: E and P from
+        # the high word of the phase less one, L the chip after E
+        gh = (tq - 1) >> 32
+        e = ((gh - 128) >> 8) + 1
+        inside = (e >= 0) & (e <= 1023)
+        assert int(inside.sum()) > 100_000
+        for got, d in ((e, -h), ((gh >> 8) + 1, 0), (e + 1, h)):
+            assert torch.equal(got[inside], ceil_chip_index(tq + d)[inside].to(torch.int64)), d
+
+
+def _word_walk(lo_r: int, hi_r: int, lo_c: int, hi_c: int, o: int, blk: int, threads: int,
+               cp: int, w: int, rem: int, step: int):
+    """What B1's sample loop sums in one ms of one rank, in the kernel's
+    own arithmetic (csrc/track_block.cu): window indices [lo, hi), one
+    4-byte word a thread a step, the edge words' other bytes masked, the
+    NCO counts and the Q40 phase less one advanced by addition.  Returns
+    (lo, hi, [(index, counts, phase less one)] of every unmasked byte)."""
+    lo, hi = max(lo_r, o, lo_c), min(hi_r, o + blk, hi_c)
+    v_end = (hi + 3) >> 2 if hi > lo else 0
+    got = []
+    for tid in range(threads):
+        v = (lo >> 2) + tid
+        k0 = 4 * v - o
+        counts, g = (cp + w * k0) % 2**32, rem + step * k0 - 1
+        while v < v_end:
+            i0, mask = 4 * v, 0xFFFFFFFF
+            if i0 < lo or i0 + 4 > hi:
+                a, b = max(lo - i0, 0), min(hi - i0, 4)
+                mask = (0xFFFFFFFF >> (8 * (4 - b + a))) << (8 * a) & 0xFFFFFFFF
+            got.extend((i0 + s, (counts + s * w) % 2**32, g + s * step)
+                       for s in range(4) if (mask >> (8 * s)) & 0xFF)
+            v += threads
+            counts, g = (counts + w * 4 * threads) % 2**32, g + step * 4 * threads
+    return lo, hi, got
+
+
+def _slice_case(front: str, kn: int, rank: int, threads: int, o: int, extra: int = 0):
+    cfg = sgt.default_config(**FRONT_ENDS.get(front, {})) if front != "fast" else \
+        sgt.fast_config()
+    lo_r, hi_r = mk.rank_slices(cfg.track_window, kn)[rank]
+    return lo_r, hi_r, 0, cfg.track_window, o, cfg.samples_per_code + extra, threads
+
+
+#: (lo_r, hi_r, lo_c, hi_c, o, blk, threads) of one rank's ms
+WALKS = {
+    "ref38-kN16-first": _slice_case("ref38", 16, 0, 256, 37),
+    "ref38-kN16-last-mid-word": _slice_case("ref38", 16, 15, 256, 34, 1),
+    "giove16-kN16-shorter-than-a-step": _slice_case("giove16", 16, 7, 512, 31),
+    "giove16-kN16-last": _slice_case("giove16", 16, 15, 256, 30, 1),
+    "fast-kN16": _slice_case("fast", 16, 3, 256, 29),
+    "ref38-one-CTA": _slice_case("ref38", 1, 0, 512, 35),
+    "B3-capture-edges": (0, 2400, 8, 1202, 3, 38_192, 256),
+    "empty": (2400, 4800, 0, 38_320, 37, 2000, 256),
+}
+
+
+@pytest.mark.parametrize("case", list(WALKS))
+def test_sample_loop_takes_each_sample_once(case):
+    """B1's word loop sums every sample of the rank's share of the ms span
+    inside the source exactly once and no other, with the very NCO counts
+    (cp + w k mod 2^32) and code phase (rem + step k) that the products
+    give, k = index - o: spans starting and ending mid-word, a share
+    shorter than one step of the CTA, a ragged last step, B3's capture
+    edges and an empty share."""
+    lo_r, hi_r, lo_c, hi_c, o, blk, threads = WALKS[case]
+    cp, w = 0x9E3779B9, 0xC2B2AE35          # carrier counts wrap within a ms
+    rem, step = 123_456_789_012, 29_450_922_427
+    lo, hi, got = _word_walk(lo_r, hi_r, lo_c, hi_c, o, blk, threads, cp, w, rem, step)
+    assert sorted(i for i, _, _ in got) == list(range(lo, hi))
+    assert (hi > lo) == (case != "empty")
+    for i, counts, g in got:
+        assert counts == (cp + w * (i - o)) % 2**32 and g == rem + step * (i - o) - 1
+
+
 def test_overflow_is_flagged():
     """A frame that cannot hold its ms span is reported, never silent."""
     cfg, sig, ch = _scenario("cpu")
@@ -374,6 +515,55 @@ def test_fused_and_per_ms_kernels_match_plain_on_card(cuda_device, kernel, front
     torch.cuda.synchronize()
 
 
+#: (CTAs per channel, threads per CTA) of the ragged-span card test: B1's
+#: launch, 512 threads at 16 CTAs (giove16's 1 040-byte share is 260
+#: words, fewer than a CTA's threads), 8 CTAs and one CTA
+RAGGED_SIZES = [(16, 256), (16, 512), (8, 256), (1, 512)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("front", list(FRONT_ENDS))
+@pytest.mark.parametrize("kn, threads", RAGGED_SIZES,
+                         ids=[f"kN{k}x{t}" for k, t in RAGGED_SIZES])
+@pytest.mark.parametrize("spacing", [0.5, 0.3], ids=["spacing0.5", "spacing0.3"])
+def test_block_kernels_on_ragged_spans_and_a_zero_code_row_on_card(cuda_device, front, kn,
+                                                                   threads, spacing):
+    """B1 and B3 bit-equal to their plain versions over a 64-ms block where
+    each channel's pointer sits 0-3 samples past a word (its ms spans start
+    and end at every offset within a word), a rank's share can be shorter
+    than a CTA's step, an active channel's code row is all zeros (each
+    chip times a sample is then a zero) and a channel is idle; at the
+    spacing of both cells, counted on the loop's short path, and at 0.3
+    chips, counted on its general path."""
+    cfg, sig, ch = _scenario(cuda_device, 6, ms=140, front=front)
+    cfg = cfg.with_options(dll_correlator_spacing=spacing)
+    r = cfg.track_block_ms
+    words = scan.capture_words(sig)
+    pads, cb, active = scan.channel_tables(ch, cuda_device)
+    pads[5] = 0.0                                   # active, its code row all zeros
+    st = scan.initial_state(cfg, ch, cuda_device)
+    st = st._replace(ptr=st.ptr + torch.tensor([0, 1, 2, 3, 1, 2], device=cuda_device))
+    start_w = torch.div(st.ptr - cfg.track_frame_pre, 4, rounding_mode="floor")
+    frames = mk.build_frames_plain(words, start_w, r, cfg.track_window // 4,
+                                   cfg.samples_per_code // 4)
+    size = {"ctas_per_channel": kn, "threads_per_cta": threads}
+    tail = (st, pads, cb, active, cfg, r)
+    want = mk.track_block_plain(frames, 4 * start_w, *tail)
+    assert int(want[2].max()) == 0 and bool(active[5]) and not bool(active[1])
+    assert bool(want[1].i_p[:, 5].eq(0).all()) and bool(want[1].i_p[:, 0].ne(0).any())
+    wrappers = (mk.track_block, mk.track_block_fused)
+    before = [(w.short_launches, w.general_launches) for w in wrappers]
+    for got in (mk.track_block(frames, 4 * start_w, *tail, **size),
+                mk.track_block_fused(words, start_w, *tail, **size)):
+        for name, a, b in zip(scan.TrackState._fields + scan.MsOutputs._fields + ("overflow",),
+                              [*got[0], *got[1], got[2]], [*want[0], *want[1], want[2]]):
+            assert torch.equal(a, b), name
+    torch.cuda.synchronize()
+    one = (1, 0) if spacing == 0.5 else (0, 1)
+    assert [(w.short_launches - s, w.general_launches - g)
+            for w, (s, g) in zip(wrappers, before)] == [one, one]
+
+
 def _b4_args(dev, n_ch: int, cfg=None, n_idle: int = 1):
     """One ms of every channel of a seeded capture (the probes' inputs)."""
     from softgnss_tpu_torch.scripts.pallas_ablate import ms_args
@@ -482,7 +672,7 @@ def test_graph_route_is_bit_equal_to_the_eager_route_on_card(cuda_device, route)
     every output leaf, the final state and the overflow of a first call (2
     full blocks and a 5-ms tail) and a resumed one (an 11-ms lead, 7 full
     blocks, a 7-ms tail), an idle channel among four; each kernel launch
-    counted once per segment either way."""
+    counted once per segment either way, on the sample loop's short path."""
     cfg, sig, ch = _scenario(cuda_device, 4, ms=200)
     build, block = GRAPH_ROUTES[route]
 
@@ -491,14 +681,15 @@ def test_graph_route_is_bit_equal_to_the_eager_route_on_card(cuda_device, route)
 
     runs = {}
     for label, fn in (("graph", block), ("eager", eager)):
-        before = (scan.track_segments.graph_blocks, block.launches)
+        before = (scan.track_segments.graph_blocks, block.launches, block.short_launches)
         runs[label] = _calls(cfg, sig, ch, build, fn, (37, 130))
         torch.cuda.synchronize()
         runs[label + " counts"] = (scan.track_segments.graph_blocks - before[0],
-                                   block.launches - before[1])
+                                   block.launches - before[1],
+                                   block.short_launches - before[2])
     assert block.ctas_per_channel > 1
-    assert runs["graph counts"] == (1 + 6, 3 + 9)
-    assert runs["eager counts"] == (0, 3 + 9)
+    assert runs["graph counts"] == (1 + 6, 3 + 9, 3 + 9)     # the short path, replays counted
+    assert runs["eager counts"] == (0, 3 + 9, 3 + 9)
     assert all(int(ovf.max()) == 0 for _, _, ovf in runs["graph"])
     _assert_bit_equal(runs["graph"], runs["eager"])
 
