@@ -3,7 +3,8 @@
     python3 -m gnss_bench.control --workload ref38.obs --seeds 11 12 13 --control 11 12 13
 
 For every seed of ``--seeds``: each of the cell's captures, one job of the
-program on it as the window runs it, and the judge's numbers (the lower
+program on it as the window runs it (the capture kept where the mix keeps
+it, the route the mix takes), and the judge's numbers (the lower
 readings).  For every seed of ``--control``: the control on each capture,
 the reference's whole tracker (``reference.track_closed_loop``) in
 float32, one precision below the float64 the configuration states, put in
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from gnss_bench import generator, judge, reference, registry
-from gnss_bench.run import outputs_of, receiver_config
+from gnss_bench.run import held, job_options, outputs_of, receiver_config
 
 
 def control_outputs(rx: reference.Receiver, capture: torch.Tensor, dtype=torch.float32) -> dict:
@@ -60,8 +61,8 @@ def readings(cell: dict, config_table: dict, traffic: dict, seed: int, control: 
         out = control_outputs(rx, capture)
         who = "control float32"
     else:
-        res = run_receiver(receiver_config(table), signal=capture,
-                           navigate=bool(traffic["navigate"]), device=dev)
+        res = run_receiver(receiver_config(table), signal=held(capture, traffic),
+                           **job_options(traffic, dev))
         out = outputs_of(res)
         del res
         who = "program"

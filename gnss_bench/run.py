@@ -3,18 +3,22 @@
     python3 -m gnss_bench.run --workload ref38.obs --seed 7 --seconds 40 --trace 0
 
 Set-up: imports and CUDA start, the traffic mix's distinct captures
-synthesized on the card from the seed (``generator``), one warm-up job on
-each (the first builds the kernels on a checkout's first run), then
+synthesized on the card from the seed (``generator``), where a mix that
+streams (``stream``) copies each into a NumPy array in the host's pageable
+memory and frees the card's copy before the next is made, one warm-up job
+on each (the first builds the kernels on a checkout's first run), then
 ``gc.collect(); gc.freeze()`` so that the collector's passes over what
-set-up made fall outside the window.  Then the window: jobs back to back
-for ``--seconds`` (one client, a closed loop), job j on capture j mod K,
-one clock read per job.  Of each capture two jobs are kept: its first,
+set-up made fall outside the window, and the card's peak memory is reset,
+so that ``memory_peak_bytes`` is what the jobs hold.  Then the window:
+jobs back to back for ``--seconds`` (one client, a closed loop), job j on
+capture j mod K, one clock read per job.  Of each capture two jobs are kept: its first,
 and the first to start in its own K-th of the window at or after a time
 drawn from the seed (so the last capture's lies in the window's last
 part); every other job's outputs are dropped.  With ``--trace 1`` a few more whole jobs run under the profiler
 after the window, and the per-layer metrics are read (``metrics/``).
 After the window the judged jobs are held to the plain reference
-(``judge``).  The last lines of standard error are the numbers compared,
+(``judge``), each capture moved to the card one at a time where it was
+kept on the host.  The last lines of standard error are the numbers compared,
 each with its limit; the last line of standard output is the result.
 Exits non-zero, printing no result, without the CUDA devices the cell
 needs or when the process holds JAX or the JAX package once the window
@@ -84,6 +88,30 @@ def receiver_config(table: dict):
                              for k, v in table.items()})
 
 
+def streams(traffic: dict) -> bool:
+    """Whether the mix tracks streamed (``stream``, default false)."""
+    stream = traffic.get("stream", False)
+    if not isinstance(stream, bool):
+        raise ValueError(f"stream must be true or false, got {stream!r}")
+    return stream
+
+
+def held(capture, traffic: dict):
+    """The capture as the mix keeps it between jobs: where it was made, or,
+    where the mix streams, a NumPy array in the host's pageable memory (the
+    form ``np.fromfile`` gives a recording, which the program uploads
+    through its pinned staging buffers), the card's copy left to be freed."""
+    return capture.cpu().numpy() if streams(traffic) else capture
+
+
+def job_options(traffic: dict, dev) -> dict:
+    """``run_receiver``'s keywords besides the configuration and the
+    capture: ``navigate`` and the device, and ``stream=True`` where the mix
+    streams."""
+    return {"navigate": bool(traffic["navigate"]), "device": dev,
+            **({"stream": True} if streams(traffic) else {})}
+
+
 def outputs_of(res) -> dict:
     """A job's outputs as plain arrays (what ``judge`` reads)."""
     import numpy as np
@@ -127,8 +155,9 @@ def run_cell(bench: dict, cell: dict, config_table: dict, traffic: dict, seed: i
     t = time.perf_counter()
     table = config_table["receiver"]
     k = int(traffic["captures"])
+    options = job_options(traffic, dev)
     scenes = [generator.draw_scene(table, traffic, seed, i) for i in range(k)]
-    captures = [generator.synthesize(scene, dev) for scene in scenes]
+    captures = [held(generator.synthesize(scene, dev), traffic) for scene in scenes]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     parts[f"{k} captures"] = time.perf_counter() - t
@@ -137,8 +166,7 @@ def run_cell(bench: dict, cell: dict, config_table: dict, traffic: dict, seed: i
     capture_s = config.ms_to_process / 1000.0
 
     def job(j):
-        return run_receiver(config, signal=captures[j % k], navigate=bool(traffic["navigate"]),
-                            device=dev)
+        return run_receiver(config, signal=captures[j % k], **options)
 
     for j in range(k):
         t = time.perf_counter()
@@ -151,6 +179,9 @@ def run_cell(bench: dict, cell: dict, config_table: dict, traffic: dict, seed: i
     setup_s = process_age_s()
     notes.append(f"gnss_bench: set-up {setup_s:.3f} s: "
                  + ", ".join(f"{part} {v:.3f} s" for part, v in parts.items()))
+    if dev.type == "cuda":
+        notes.append(f"gnss_bench: set-up's peak {torch.cuda.max_memory_allocated(dev)} B")
+        torch.cuda.reset_peak_memory_stats(dev)
 
     # --- the window --------------------------------------------------------
     starts = [u * seconds for u in judged_starts(seed, k)]
@@ -227,13 +258,15 @@ def run_cell(bench: dict, cell: dict, config_table: dict, traffic: dict, seed: i
     kept = [sorted({j: r for j, r in (first[i], drawn[i])}.items()) if first[i] else []
             for i in range(k)]
     del first, drawn
-    judged = [(scenes[i], captures[i], [outputs_of(r) for _, r in kept[i]]) for i in range(k)]
+    outputs = [[outputs_of(r) for _, r in kept[i]] for i in range(k)]
     which = [[j for j, _ in kept[i]] for i in range(k)]
     del kept
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     rx = reference.Receiver.from_table(table)
+    # a capture kept on the host goes to the card when its turn comes
+    judged = ((scenes[i], torch.as_tensor(captures[i]).to(dev), outputs[i]) for i in range(k))
     numbers, distinct, why = judge.judge(rx, judged)
     notes += [f"gnss_bench: truth: {line}" for line in why]
     limits = config_table["limits"]

@@ -24,22 +24,32 @@ from gnss_bench import control, judge, registry, run
 
 ROOT = Path(__file__).resolve().parent.parent
 SEED = 2_147_483_659          # past 32 signed bits: seeds may be that large
-SMALL = {"sampling_freq": 4_096_000.0, "intermediate_freq": 1_000_000.0, "ms_to_process": 600}
+#: the small front end; 128-ms chunks, so that a streamed job cuts five
+SMALL = {"sampling_freq": 4_096_000.0, "intermediate_freq": 1_000_000.0, "ms_to_process": 600,
+         "track_stream_chunk_ms": 128}
+STREAM_CHUNKS = 5
+#: the streamed route: ``ref38`` under ``obs``'s draw with ``stream`` set, a
+#: mix that no cell of BENCHMARK.json holds (its runs on the card spread
+#: past the bounds, PERF.md)
+STREAMED = "ref38.stream"
 
 
 def small_cell(name="ref38.obs", captures=1):
     """The cell at the small front end; ``captures`` distinct captures (a
     job takes seconds on the CPU, so most tests cycle through one)."""
     bench = registry.benchmark(ROOT)
-    cell = registry.workload(bench, name)
+    streamed = name == STREAMED
+    cell = ({"name": name, "config": "ref38", "traffic": "obs", "chips": 1} if streamed
+            else registry.workload(bench, name))
     cfg = copy.deepcopy(registry.config(bench, cell["config"], ROOT))
     cfg["receiver"].update(SMALL)
-    traffic = dict(registry.traffic(cell["traffic"]), captures=captures)
+    traffic = dict(registry.traffic(cell["traffic"]), captures=captures,
+                   **({"stream": True} if streamed else {}))
     return bench, cell, cfg, traffic
 
 
-def small_run(seconds=0.5, trace=False, seed=SEED, captures=1):
-    bench, cell, cfg, traffic = small_cell(captures=captures)
+def small_run(seconds=0.5, trace=False, seed=SEED, captures=1, name="ref38.obs"):
+    bench, cell, cfg, traffic = small_cell(name, captures=captures)
     try:
         return run.run_cell(bench, cell, cfg, traffic, seed, seconds, trace, device="cpu")
     finally:
@@ -47,7 +57,7 @@ def small_run(seconds=0.5, trace=False, seed=SEED, captures=1):
 
 
 def test_sound_run_is_correct_and_reports_its_metrics():
-    run_ = small_run(seconds=5.0, captures=3)
+    run_ = small_run(seconds=15.0, captures=3)       # a job takes 2-5 s on a CPU
     r = run_.result
     assert r["correct"], r["checks"]
     assert r["attempted"] >= 3 and r["failed"] == 0
@@ -75,12 +85,126 @@ def test_a_window_that_misses_a_capture_is_not_correct():
     assert r["attempted"] < 3 and not r["correct"]
 
 
+#: per-layer metrics that read nothing on the CPU beside the device-trace
+#: ones: B1 and B3 launch no kernel there
+NO_LAUNCH = {"track_short_path_share"}
+
+
 def test_traced_run_reports_the_per_layer_metrics_it_can_read():
     r = small_run(trace=True).result
-    assert r["correct"]
+    assert r["correct"], r["checks"]
+    entries = registry.metrics_of(registry.benchmark(ROOT), "ref38.obs", "per_layer")
     # no card here: the device-trace readers find nothing and are left out
-    assert set(r["metrics"]) == {"acquire_s", "track_s"}
+    want = {m["name"] for m in entries if m["source"] != "device_trace"} - NO_LAUNCH
+    assert set(r["metrics"]) == want
+    assert all(v["value"] >= 0 for v in r["metrics"].values())
     assert r["device"]["busy_s"] == 0 and r["device"]["window_s"] > 0
+
+
+def test_a_streamed_run_is_correct_and_cuts_chunks(monkeypatch):
+    """The streamed mix at the small front end: every job tracks through
+    parallel.stream in 128-ms chunks (on the CPU without the card's upload),
+    and the judge finds its outputs correct."""
+    from softgnss_tpu_torch.parallel import stream
+
+    chunks, calls = [], []
+    orig_chunk, orig_streamed = stream.track_on_device, stream.track_streamed
+
+    def on_device(*a, **k):
+        chunks.append(a[4])
+        return orig_chunk(*a, **k)
+
+    def streamed(*a, **k):
+        calls.append(len(chunks))
+        return orig_streamed(*a, **k)
+    monkeypatch.setattr(stream, "track_on_device", on_device)
+    monkeypatch.setattr("softgnss_tpu_torch.pipeline.track_streamed", streamed)
+    run_ = small_run(seconds=1.0, name=STREAMED)
+    r = run_.result
+    assert r["correct"], (r["checks"], run_.notes[-3:])
+    assert r["attempted"] >= 1 and r["failed"] == 0
+    assert set(r["metrics"]) == {"capture_rate", "job_p90_s", "setup_s"}
+    jobs = 1 + r["attempted"]                        # the warm-up job, then the window's
+    assert len(calls) == jobs and len(chunks) == jobs * STREAM_CHUNKS
+    assert chunks[:STREAM_CHUNKS] == [128, 128, 128, 128, 88]
+    checks = r["checks"]
+    for k in ("acq_mismatch", "sample_mismatch", "status_mismatch", "truth_mismatch"):
+        assert checks[k]["value"] == 0
+    assert checks["corr_rel"]["value"] < 1e-5
+
+
+def _spy(monkeypatch):
+    """Record each ``run_receiver`` call's arguments, then make it."""
+    import softgnss_tpu_torch.pipeline as pipeline
+
+    seen, orig = [], pipeline.run_receiver
+
+    def spy(*a, **k):
+        seen.append((a, k))
+        return orig(*a, **k)
+    monkeypatch.setattr(pipeline, "run_receiver", spy)
+    return seen
+
+
+@pytest.mark.parametrize("name,extra", [("ref38.obs", {}), (STREAMED, {"stream": True})])
+def test_a_mix_drives_run_receiver_with_its_own_keywords(monkeypatch, name, extra):
+    """A mix without ``stream`` calls the program as the runner always has:
+    the configuration, the capture where it was made, ``navigate`` and the
+    device, nothing else; ``stream`` adds ``stream=True`` alone, and hands
+    the capture over as a NumPy array in pageable host memory."""
+    seen = _spy(monkeypatch)
+    r = small_run(seconds=0.1, name=name).result
+    assert r["correct"], r["checks"]
+    assert len(seen) == 1 + r["attempted"]
+    for a, k in seen:
+        assert len(a) == 1 and type(a[0]).__name__ == "ReceiverConfig"
+        assert set(k) == {"signal", "navigate", "device", *extra}
+        assert k["navigate"] is False and k["device"] == torch.device("cpu")
+        assert {x: k[x] for x in extra} == extra
+        sig = k["signal"]
+        if extra:
+            assert type(sig) is np.ndarray and sig.dtype == np.int8
+        else:
+            assert isinstance(sig, torch.Tensor) and sig.device.type == "cpu"
+            assert sig.dtype == torch.int8 and not sig.is_pinned()
+    assert all(k["signal"] is seen[0][1]["signal"] for _, k in seen)
+
+
+def test_where_a_mix_keeps_its_captures():
+    c = torch.arange(-4, 4, dtype=torch.int8)
+    for traffic in ({}, {"stream": False}):
+        assert run.held(c, traffic) is c                 # kept where it was made
+    for dtype in (torch.int8, torch.int16):               # the array takes the capture's type
+        h = run.held(c.to(dtype), {"stream": True})
+        assert type(h) is np.ndarray and h.dtype == c.to(dtype).numpy().dtype
+        assert np.array_equal(h, c.numpy())
+    with pytest.raises(ValueError, match="stream"):
+        run.held(c, {"stream": "yes"})
+    dev = torch.device("cpu")
+    assert run.job_options({"navigate": False}, dev) == {"navigate": False, "device": dev}
+    assert run.job_options({"navigate": False, "stream": False}, dev) == {"navigate": False,
+                                                                           "device": dev}
+    assert run.job_options({"navigate": True, "stream": True}, dev) == {
+        "navigate": True, "device": dev, "stream": True}
+    with pytest.raises(ValueError, match="stream"):
+        run.job_options({"navigate": False, "stream": "yes"}, dev)
+
+
+@pytest.mark.gpu
+def test_a_streamed_capture_leaves_the_card():
+    """A streamed mix's capture lies in the host's pageable memory, so the
+    program uploads it through its pinned staging buffers, as it does a
+    recording read from a file."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from softgnss_tpu_torch.parallel import stream
+
+    c = torch.arange(-64, 64, dtype=torch.int8, device="cuda")
+    h = run.held(c, {"stream": True})
+    assert type(h) is np.ndarray and np.array_equal(h, c.cpu().numpy())
+    _, n, pinned, where = stream._source(h)
+    assert (n, pinned, where.type) == (128, False, "cpu")
+    assert run.held(c, {}) is c
 
 
 def test_the_float32_control_fails():
@@ -117,22 +241,43 @@ def _broken(monkeypatch, fault):
         taus = ReceiverConfig.pll_taus.fget
         monkeypatch.setattr(ReceiverConfig, "pll_taus",
                             property(lambda self: (-taus(self)[0], taus(self)[1])))
+    elif fault == "carrier_state_unchanged":
+        # the carrier loop's state handed back as it came, the code loop's
+        # and the pointers moved on: every chunk's window still holds them
+        orig = mk.track_block
+        carrier = ("carr_phase", "carr_freq", "carr_nco", "carr_err", "fll_ip", "fll_qp")
+
+        def block(frames, fb0, state, *a, **k):
+            new, ys, ovf = orig(frames, fb0, state, *a, **k)
+            return new._replace(**{f: getattr(state, f) for f in carrier}), ys, ovf
+        monkeypatch.setattr(mk, "track_block", block)
     elif fault == "answer_altered":
-        orig = pipeline.track
+        for route in ("track", "track_streamed"):
+            orig = getattr(pipeline, route)
 
-        def track(*a, **k):
-            res = orig(*a, **k)
-            res.i_p[0, 100] *= 1.01
-            return res
-        monkeypatch.setattr(pipeline, "track", track)
+            def track(*a, _orig=orig, **k):
+                res = _orig(*a, **k)
+                res.i_p[0, 100] *= 1.01
+                return res
+            monkeypatch.setattr(pipeline, route, track)
 
 
+@pytest.mark.parametrize("name", ["ref38.obs", STREAMED])
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_the_channels", "pll_update_wrong",
-                                   "answer_altered"])
-def test_a_fault_under_the_timed_path_is_not_correct(monkeypatch, fault):
-    """The cell runs on one card, so no exchange between chips can be left out."""
+                                   "answer_altered", "carrier_state_unchanged"])
+def test_a_fault_under_the_timed_path_is_not_correct(monkeypatch, fault, name):
+    """The cells run on one card, so no exchange between chips can be left
+    out; the streamed route meets each fault in every chunk.  A state left
+    unchanged stops it first: its next chunk's window no longer holds the
+    pointers, and the route raises, so the run ends with no result; a
+    carrier state left unchanged keeps the pointers inside the windows and
+    reaches the judge."""
     _broken(monkeypatch, fault)
-    r = small_run(seconds=0.1).result
+    if (name, fault) == (STREAMED, "state_unchanged"):
+        with pytest.raises(RuntimeError, match="chunk window violated"):
+            small_run(seconds=0.1, name=name)
+        return
+    r = small_run(seconds=0.1, name=name).result
     assert not r["correct"], r["checks"]
 
 
